@@ -1,0 +1,19 @@
+"""cl_ica_tpu_torch — the PyTorch + CUDA port of cl_ica_tpu.
+
+The JAX package ``cl_ica_tpu`` stays beside this one as the reference
+each ported module is tested against. This package imports ``torch`` and
+never ``jax``, ``flax``, ``optax`` or ``orbax``; of the JAX package it
+reuses only ``cl_ica_tpu.evaluation``, which is numpy/scipy code.
+
+Sub-packages mirror the JAX package's names:
+  spaces/  ← cl_ica_tpu/spaces   samplers on explicit torch.Generators
+  models/  ← cl_ica_tpu/models   frozen mixing g, MLP encoder f, heads,
+                                 and the Flax <-> torch parameter converter
+  ops/     ← cl_ica_tpu/ops      hand-written Hopper kernels (CUDA C++
+                                 under ops/csrc) with plain-torch versions
+  losses/  ← cl_ica_tpu/losses   Lp-InfoNCE
+  train/   ← cl_ica_tpu/train    the synthetic training step, telemetry
+  cli/     ← cl_ica_tpu/cli      main_mlp, flag for flag
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,174 @@
+"""Fused Lp-InfoNCE negative log-sum-exp: Hopper kernels and their plain
+PyTorch version.
+
+Port of cl_ica_tpu/ops/infonce_pallas.py:194-307 (``fused_neg_lse``):
+
+    lse_i = log Σ_j exp(-Σ_k |z1_ik - z3_jk|^p / τ),   z1 (M, n), z3 (N, n)
+
+for p ≥ 1, without the M×N matrix ever reaching device memory. The
+forward and both backward kernels are CUDA C++ in csrc/infonce_lp.cu
+(see the note there for what bounds them and how they differ from the
+TPU kernels); this module builds and binds them (ops/build.py), wraps
+them in a ``torch.autograd.Function``, and counts their launches.
+
+On CPU tensors ``fused_neg_lse`` computes ``neg_lse_reference``, the
+plain version, because there is no kernel to launch there. On CUDA
+tensors it launches the kernels or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import torch
+
+from .build import load_library
+
+LIBRARY = "infonce_lp"
+MAX_FEATURES = 64  # the kernels' template bound on n
+
+# Launches of each kernel since the last reset; each wrapper adds one
+# where it launches its kernel, and nowhere else.
+_launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0}
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def neg_lse_reference(z1: torch.Tensor, z3: torch.Tensor, p: float,
+                      tau: float) -> torch.Tensor:
+    """The plain version: the (M, N) distances by explicit broadcast
+    Σ_k |z1_ik - z3_jk|^p (not ``torch.cdist``, which may take a matmul
+    path), then ``torch.logsumexp``. Autograd supplies the gradient."""
+    diff = torch.abs(z1[:, None, :] - z3[None, :, :])
+    d = diff.sum(-1) if p == 1.0 else (diff ** p).sum(-1)
+    return torch.logsumexp(-d / tau, dim=1)
+
+
+_F32P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.cache
+def load_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' library, with every
+    entry point's C signature declared."""
+    lib = load_library(LIBRARY)
+    lib.clica_neg_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _I, _I, _I, _I,
+                                      _F, _F, ctypes.c_void_p]
+    lib.clica_neg_lse_fwd.restype = _I
+    for fn in (lib.clica_neg_lse_dz1, lib.clica_neg_lse_dz3):
+        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I, _I,
+                       _F, _F, ctypes.c_void_p]
+        fn.restype = _I
+    lib.clica_error_string.argtypes = [_I]
+    lib.clica_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _pmode(p: float) -> int:
+    return 1 if p == 1.0 else 2 if p == 2.0 else 0
+
+
+def _check_launch(lib, rc: int, which: str) -> None:
+    if rc != 0:
+        msg = lib.clica_error_string(rc).decode()
+        raise RuntimeError(f"neg_lse {which} kernel launch failed: {msg} ({rc})")
+
+
+def _check_operand(name: str, t: torch.Tensor, n: int | None = None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if n is not None and (t.ndim != 2 or t.shape[1] != n):
+        raise ValueError(f"{name} must be (rows, {n}), got {tuple(t.shape)}")
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch_fwd(z1, z3, p: float, tau: float) -> torch.Tensor:
+    lib = load_kernels()
+    (m, n), nn = z1.shape, z3.shape[0]
+    lse = torch.empty(m, device=z1.device, dtype=torch.float32)
+    with torch.cuda.device(z1.device):
+        rc = lib.clica_neg_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
+                                   m, nn, n, _pmode(p), p, tau, _stream(z1))
+    _check_launch(lib, rc, "fwd")
+    _launches["fwd"] += 1
+    return lse
+
+
+def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
+    lib = load_kernels()
+    (m, n), nn = z1.shape, z3.shape[0]
+    rows = m if which == "dz1" else nn
+    out = torch.empty((rows, n), device=z1.device, dtype=torch.float32)
+    fn = lib.clica_neg_lse_dz1 if which == "dz1" else lib.clica_neg_lse_dz3
+    with torch.cuda.device(z1.device):
+        rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
+                out.data_ptr(), m, nn, n, _pmode(p), p, tau, _stream(z1))
+    _check_launch(lib, rc, which)
+    _launches[which] += 1
+    return out
+
+
+class _FusedNegLse(torch.autograd.Function):
+    """lse = fused_neg_lse(z1, z3, p, τ); p and τ are not differentiable
+    (the JAX custom_vjp's nondiff_argnums)."""
+
+    @staticmethod
+    def forward(ctx, z1, z3, p, tau):
+        lse = _launch_fwd(z1, z3, p, tau)
+        ctx.save_for_backward(z1, z3, lse)
+        ctx.p, ctx.tau = p, tau
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad_lse):
+        z1, z3, lse = ctx.saved_tensors
+        ct = grad_lse.contiguous().float()  # the per-row c_i
+        dz1 = dz3 = None
+        if ctx.needs_input_grad[0]:
+            dz1 = _launch_bwd("dz1", z1, z3, lse, ct, ctx.p, ctx.tau)
+        if ctx.needs_input_grad[1]:
+            dz3 = _launch_bwd("dz3", z1, z3, lse, ct, ctx.p, ctx.tau)
+        return dz1, dz3, None, None
+
+
+def fused_neg_lse(z1: torch.Tensor, z3: torch.Tensor, p: float,
+                  tau: float) -> torch.Tensor:
+    """lse_i = log Σ_j exp(-||z1_i - z3_j||_p^p / τ), shape (M,).
+
+    z1 (M, n) and z3 (N, n), M and N independent, p ≥ 1, n ≤ 64. CUDA
+    tensors run the Hopper kernels (forward here, dz1/dz3 in backward);
+    CPU tensors run ``neg_lse_reference``. Anything else raises.
+    """
+    p, tau = float(p), float(tau)
+    if z1.device.type == "cpu" and z3.device.type == "cpu":
+        return neg_lse_reference(z1, z3, p, tau)
+    if p < 1.0:
+        raise ValueError(f"the fused kernel takes p >= 1, got p={p}")
+    if z1.ndim != 2 or not 1 <= z1.shape[1] <= MAX_FEATURES:
+        raise ValueError(
+            f"z1 must be (M, n) with 1 <= n <= {MAX_FEATURES}, got {tuple(z1.shape)}")
+    if z1.shape[0] < 1 or z3.shape[0] < 1:
+        raise ValueError("z1 and z3 need at least one row each")
+    _check_operand("z1", z1)
+    _check_operand("z3", z3, z1.shape[1])
+    if z3.device != z1.device:
+        raise ValueError(f"z1 is on {z1.device}, z3 on {z3.device}")
+    return _FusedNegLse.apply(z1, z3, p, tau)

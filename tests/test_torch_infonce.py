@@ -1,0 +1,149 @@
+"""cl_ica_tpu_torch.ops.infonce and losses.infonce against the JAX package.
+
+The same numpy inputs go through the JAX function and the port. On the
+CPU the port's fused_neg_lse is its plain version (neg_lse_reference);
+the JAX side runs its Pallas kernel in interpret mode, as tests/test_ops.py
+does. The Hopper kernels themselves are compared with the plain version
+on the card by chip_smoke.py: pytest cannot start there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cl_ica_tpu.losses import LpSimCLRLoss as JaxLpSimCLRLoss
+from cl_ica_tpu.ops import fused_neg_lse as jax_fused_neg_lse
+from cl_ica_tpu_torch.losses import LpSimCLRLoss
+from cl_ica_tpu_torch.ops import fused_neg_lse, launch_counts
+
+torch.set_num_threads(1)
+
+
+def _rolled(m, n_rows, n_feat, seed):
+    """z1 (m, n) and z3 (n_rows, n) with z3[(i+1) % n_rows] = z1[i]: the
+    exact zeros of z3_rec = roll(z1_rec, 1)."""
+    rng = np.random.default_rng(seed)
+    z1 = (0.5 * rng.normal(size=(m, n_feat))).astype(np.float32)
+    z3 = (0.5 * rng.normal(size=(n_rows, n_feat))).astype(np.float32)
+    for i in range(min(m, n_rows)):
+        z3[(i + 1) % n_rows] = z1[i]
+    return z1, z3
+
+
+@pytest.mark.parametrize("p", [1.0, 2.0, 3.0])
+@pytest.mark.parametrize("shape", [(50, 50), (64, 64), (32, 64)])
+def test_neg_lse_matches_jax_kernel(p, shape):
+    # tolerances of tests/test_ops.py: the Pallas p=2 tile uses the dot
+    # identity, the port the direct sum, so they differ in rounding
+    m, n_rows = shape
+    z1, z3 = _rolled(m, n_rows, 6, seed=int(p * 10) + m)
+    ct = np.linspace(0.5, 1.5, m).astype(np.float32)
+    tau = 1.3
+
+    def jax_obj(a, b):
+        lse = jax_fused_neg_lse(a, b, p, tau, 32, True)
+        return jnp.sum(lse * ct), lse
+
+    (_, want), (want_d1, want_d3) = jax.value_and_grad(
+        jax_obj, argnums=(0, 1), has_aux=True)(jnp.asarray(z1), jnp.asarray(z3))
+
+    a = torch.tensor(z1, requires_grad=True)
+    b = torch.tensor(z3, requires_grad=True)
+    got = fused_neg_lse(a, b, p, tau)
+    (got * torch.tensor(ct)).sum().backward()
+
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+    for g, w in ((a.grad, want_d1), (b.grad, want_d3)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-3,
+                                   atol=5e-4)
+
+
+@pytest.mark.parametrize("p", [0.5, 1.0, 2.0, 3.0])
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("pow_", [True, False])
+def test_lp_simclr_loss_matches_jax(p, compat, pow_):
+    # per-item losses to 1e-5 relative; grads to 1e-4 of their largest
+    # entry (float32 sums taken in different orders). z3 = roll(z1) gives
+    # exact zeros, which p >= 2 with pow handles alike in both packages.
+    # Elsewhere a zero is ill-conditioned or ambiguous: for p < 1 it meets
+    # the eps guard's |eps|^(p-1) = 1e6 slope; without pow, p = 2 takes the
+    # sqrt of the dot identity's rounding residue; for p = 1 the packages
+    # take different subgradients (see the test below). There z3 is
+    # offset from the roll.
+    rng = np.random.default_rng(7)
+    z1r = rng.normal(size=(24, 5)).astype(np.float32)
+    z2r = (z1r + 0.3 * rng.normal(size=z1r.shape)).astype(np.float32)
+    z3r = np.roll(z1r, 1, axis=0)
+    if p <= 1 or not pow_:
+        z3r = (z3r + 0.05 * rng.normal(size=z3r.shape)).astype(np.float32)
+    jl = JaxLpSimCLRLoss(p=p, tau=0.8, simclr_compatibility_mode=compat,
+                         pow=pow_, use_fused=False)
+
+    def jax_obj(a, b, c):
+        total, per_item, _ = jl(None, None, None, a, b, c)
+        return total, per_item
+
+    (_, want_items), want_grads = jax.value_and_grad(
+        jax_obj, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(z1r), jnp.asarray(z2r), jnp.asarray(z3r))
+
+    leaves = [torch.tensor(z, requires_grad=True) for z in (z1r, z2r, z3r)]
+    tl = LpSimCLRLoss(p=p, tau=0.8, simclr_compatibility_mode=compat, pow=pow_)
+    total, items, comps = tl(None, None, None, *leaves)
+    total.backward()
+
+    np.testing.assert_allclose(items.detach().numpy(), np.asarray(want_items),
+                               rtol=1e-5, atol=1e-5)
+    assert len(comps) == 2
+    for leaf, w in zip(leaves, want_grads):
+        w = np.asarray(w)
+        assert np.max(np.abs(leaf.grad.numpy() - w)) <= 1e-4 * np.max(np.abs(w))
+
+
+def test_p1_subgradient_at_zero_follows_the_kernel():
+    """ROADMAP C1. Where z1_i == z3_j exactly (every step, through the
+    roll), JAX's materialized p=1 path takes d|x|/dx = 1
+    (jax.grad(jnp.abs)(0.) == 1.), while its Pallas kernel, the torch
+    reference and this port take sgn(0) = 0."""
+    z1, z3 = _rolled(32, 32, 4, seed=11)
+    ct = np.linspace(0.5, 1.5, 32).astype(np.float32)
+
+    def materialized(a, b):
+        d = jnp.sum(jnp.abs(a[:, None, :] - b[None, :, :]), axis=-1)
+        return jnp.sum(jax.scipy.special.logsumexp(-d, axis=1) * ct)
+
+    def kernel(a, b):
+        return jnp.sum(jax_fused_neg_lse(a, b, 1.0, 1.0, 32, True) * ct)
+
+    args = (jnp.asarray(z1), jnp.asarray(z3))
+    want_kernel = jax.grad(kernel, argnums=(0, 1))(*args)
+    want_mat = jax.grad(materialized, argnums=(0, 1))(*args)
+
+    a, b = (torch.tensor(z, requires_grad=True) for z in (z1, z3))
+    (fused_neg_lse(a, b, 1.0, 1.0) * torch.tensor(ct)).sum().backward()
+    for g, wk, wm in zip((a.grad, b.grad), want_kernel, want_mat):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wk), rtol=5e-3, atol=5e-4)
+        assert np.max(np.abs(g.numpy() - np.asarray(wm))) > 1e-2
+
+
+def test_use_fused_true_on_cpu_raises():
+    z = torch.zeros(8, 3)
+    loss = LpSimCLRLoss(p=2, use_fused=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        loss(None, None, None, z, z, z)
+
+
+def test_default_route_on_cpu_is_materialized():
+    rng = np.random.default_rng(3)
+    z1, z2 = (torch.tensor(rng.normal(size=(16, 4)).astype(np.float32))
+              for _ in range(2))
+    z3 = torch.roll(z1, 1, dims=0)
+    before = launch_counts()
+    auto = LpSimCLRLoss(p=1, simclr_compatibility_mode=True)(None, None, None, z1, z2, z3)
+    plain = LpSimCLRLoss(p=1, simclr_compatibility_mode=True, use_fused=False)(
+        None, None, None, z1, z2, z3)
+    assert launch_counts() == before
+    torch.testing.assert_close(auto[1], plain[1], rtol=0, atol=0)
