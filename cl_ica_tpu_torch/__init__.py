@@ -2,8 +2,8 @@
 
 The JAX package ``cl_ica_tpu`` stays beside this one as the reference
 each ported module is tested against. This package imports ``torch`` and
-never ``jax``, ``flax``, ``optax`` or ``orbax``; of the JAX package it
-reuses only ``cl_ica_tpu.evaluation``, which is numpy/scipy code.
+never ``jax``, ``flax``, ``optax`` or ``orbax``, and nothing of the JAX
+package: it keeps its own copy of what it needs from there.
 
 Sub-packages mirror the JAX package's names:
   spaces/  ← cl_ica_tpu/spaces   samplers on explicit torch.Generators
@@ -11,8 +11,11 @@ Sub-packages mirror the JAX package's names:
                                  and the Flax <-> torch parameter converter
   ops/     ← cl_ica_tpu/ops      hand-written Hopper kernels (CUDA C++
                                  under ops/csrc) with plain-torch versions
-  losses/  ← cl_ica_tpu/losses   Lp-InfoNCE
-  train/   ← cl_ica_tpu/train    the synthetic training step, telemetry
+  losses/  ← cl_ica_tpu/losses   Lp-InfoNCE, SimCLR, alignment/uniformity,
+                                 the combinators
+  train/   ← cl_ica_tpu/train    the synthetic training step, telemetry,
+                                 resume checkpoints
+  evaluation/ ← cl_ica_tpu/evaluation   linear R², permutation MCC (numpy)
   cli/     ← cl_ica_tpu/cli      main_mlp, flag for flag
 """
 

@@ -52,6 +52,12 @@ class MLPEncoder(nn.Module):
 
     output_normalization ∈ {None, 'fixed_sphere', 'learnable_sphere',
     'fixed_box', 'learnable_box'}; layer_normalization ∈ {None, 'bn', 'gn'}.
+
+    dtype: optional compute dtype of the Linear stack (torch.bfloat16 is
+    main_mlp's --bf16). Each Linear casts its input, weight and bias to it,
+    as the JAX package's TorchLinear does; parameters stay float32, a norm
+    layer computes in float32, and the output is cast to float32 before
+    the head, so the head, the loss and its kernels see float32.
     """
 
     def __init__(
@@ -63,8 +69,10 @@ class MLPEncoder(nn.Module):
         output_normalization: Optional[str] = None,
         output_normalization_kwargs=None,
         generator: Optional[torch.Generator] = None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         widths = [n_in] + list(hidden) + [n_out]
         self.linears = nn.ModuleList(
             torch.nn.utils.skip_init(nn.Linear, a, b)
@@ -90,13 +98,18 @@ class MLPEncoder(nn.Module):
 
     def forward(self, x):
         last = len(self.linears) - 1
+        low = self.dtype is not None
         for i, lin in enumerate(self.linears):
-            x = lin(x)
+            if low:
+                x = F.linear(x.to(self.dtype), lin.weight.to(self.dtype),
+                             lin.bias.to(self.dtype))
+            else:
+                x = lin(x)
             if i < last:
                 if self.norms is not None:
-                    x = self.norms[i](x)
+                    x = self.norms[i](x.float() if low else x)
                 x = F.leaky_relu(x, negative_slope=0.01)
-        return self.head(x)
+        return self.head(x.float() if low else x)
 
 
 def get_mlp(
@@ -107,8 +120,10 @@ def get_mlp(
     output_normalization: Optional[str] = None,
     output_normalization_kwargs=None,
     generator: Optional[torch.Generator] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> MLPEncoder:
-    """Factory mirroring cl_ica_tpu.models.get_mlp."""
+    """Factory mirroring cl_ica_tpu.models.get_mlp; ``dtype`` is the
+    Linear stack's compute dtype (parameters and the head stay float32)."""
     if len(layers) == 0 and n_in != n_out:
         raise ValueError("Network with no layers must have matching n_in/n_out")
     return MLPEncoder(
@@ -119,4 +134,5 @@ def get_mlp(
         output_normalization=output_normalization,
         output_normalization_kwargs=output_normalization_kwargs,
         generator=generator,
+        dtype=dtype,
     )

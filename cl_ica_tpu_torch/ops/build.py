@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by hand into a shared library with a
 plain C interface and loaded with ctypes (no PyTorch headers, so a build
 takes seconds). The library lands in ``_build/`` next to this file, under
 a name keyed by a hash of the sources and flags; a file lock keeps
-concurrent processes from building the same library twice. The compiler's
+concurrent processes from building the same library twice, and
+``build_libraries`` compiles several sources at once. The compiler's
 register/spill report (``-Xptxas -v``) is kept beside it as a ``.log``.
 """
 
@@ -64,26 +65,41 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if no library for its current sources
-    exists, then load it."""
-    src = CSRC / f"{name}.cu"
-    out = library_path(name)
+def build_libraries(names) -> None:
+    """Build every ``csrc/<name>.cu`` of ``names`` that has no library for
+    its current sources: one nvcc per source, all started together."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
+        running = []
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            src = CSRC / f"{name}.cu"
             tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-            proc = subprocess.run(
+            proc = subprocess.Popen(
                 [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            running.append((src, out, tmp, proc))
+        failed = []
+        for src, out, tmp, proc in running:
+            stdout, stderr = proc.communicate()
+            out.with_suffix(".log").write_text(stdout + stderr)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
+                failed.append(
                     f"nvcc failed to build {src.name} "
-                    f"(exit {proc.returncode}):\n{proc.stderr[-6000:]}"
-                )
-            os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+                    f"(exit {proc.returncode}):\n{stderr[-6000:]}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if no library for its current sources
+    exists, then load it."""
+    build_libraries([name])
+    return ctypes.CDLL(str(library_path(name)))

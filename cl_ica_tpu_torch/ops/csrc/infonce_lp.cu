@@ -44,16 +44,9 @@
 //    over the N/16 terms one thread sees could lose up to ~N/32 ulps.
 // Making it fast (register tiles, wgmma, TMA, atomics for dz3) is later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "infonce_common.cuh"  // block shape, stage_tile, lane reductions
 
 namespace {
-
-constexpr int kRows = 16;                  // own rows per block
-constexpr int kLanes = 16;                 // threads that share one own row
-constexpr int kThreads = kRows * kLanes;   // 256
-constexpr int kTile = 128;                 // other rows staged per step
-constexpr float kNegInf = -1e30f;
 
 // p selects one of three code paths, as _dist_tile/_grad_tile do.
 enum PMode { kPGeneral = 0, kP1 = 1, kP2 = 2 };
@@ -75,28 +68,6 @@ __device__ __forceinline__ float grad_term(float dlt, float p) {
   return sgn * powf(fabsf(dlt), p - 1.f);
 }
 
-// One row of n features into registers, zero past n.
-template <int NMAX>
-__device__ __forceinline__ void load_row(const float* __restrict__ src, int n,
-                                         float (&a)[NMAX]) {
-#pragma unroll
-  for (int k = 0; k < NMAX; ++k) a[k] = (k < n) ? src[k] : 0.f;
-}
-
-// Rows [r0, r0 + cnt) of src (row-major, n wide) into tile[k][jj]
-// (feature-major), so that the kLanes threads of a row read consecutive
-// words of one feature.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ src,
-                                           int r0, int cnt, int n,
-                                           float* __restrict__ tile) {
-  const float* base = src + (size_t)r0 * n;
-  for (int e = threadIdx.x; e < cnt * n; e += kThreads) {
-    const int jj = e / n;
-    const int k = e - jj * n;
-    tile[k * kTile + jj] = base[e];
-  }
-}
-
 template <int PM, int NMAX>
 __device__ __forceinline__ float tile_dist(const float (&a)[NMAX],
                                            const float* __restrict__ tile,
@@ -106,14 +77,6 @@ __device__ __forceinline__ float tile_dist(const float (&a)[NMAX],
   for (int k = 0; k < NMAX; ++k)
     if (k < n) d += dist_term<PM>(a[k] - tile[k * kTile + jj], p);
   return d;
-}
-
-// Sum over the kLanes threads of a row (consecutive lanes of one warp).
-__device__ __forceinline__ double lane_sum(double v) {
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // ---------------------------------------------------------------- forward
@@ -137,25 +100,10 @@ neg_lse_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z3,
     __syncthreads();
     stage_tile(z3, j0, cnt, n, tile);
     __syncthreads();
-    for (int jj = lane; jj < cnt; jj += kLanes) {
-      const float x = -tile_dist<PM, NMAX>(a, tile, jj, n, p) / tau;
-      if (x > m) {
-        s = s * (double)expf(m - x) + 1.0;
-        m = x;
-      } else {
-        s += (double)expf(x - m);
-      }
-    }
+    for (int jj = lane; jj < cnt; jj += kLanes)
+      online_lse_step(-tile_dist<PM, NMAX>(a, tile, jj, n, p) / tau, m, s);
   }
-  // merge the kLanes partial (max, sum) pairs of the row
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const double s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    const float mn = fmaxf(m, m2);
-    s = s * (double)expf(m - mn) + s2 * (double)expf(m2 - mn);
-    m = mn;
-  }
+  lane_merge_lse(m, s);
   if (lane == 0 && i < M) lse[i] = m + (float)log(s);
 }
 
@@ -249,14 +197,9 @@ neg_lse_dz3_kernel(const float* __restrict__ z1, const float* __restrict__ z3,
 }
 
 // ---------------------------------------------------------------- launch
-constexpr int kNmaxSmall = 16;
-constexpr int kNmaxLarge = 64;  // the largest n the kernels take
-
 bool bad_args(int M, int N, int n, int pmode) {
   return M < 1 || N < 1 || n < 1 || n > kNmaxLarge || pmode < 0 || pmode > 2;
 }
-
-int blocks_for(int rows) { return (rows + kRows - 1) / kRows; }
 
 template <int PM, int NMAX>
 void fwd_impl(const float* z1, const float* z3, float* lse, int M, int N,
@@ -300,8 +243,6 @@ const BwdFn kDz3[3][2] = {
     {dz3_impl<kPGeneral, kNmaxSmall>, dz3_impl<kPGeneral, kNmaxLarge>},
     {dz3_impl<kP1, kNmaxSmall>, dz3_impl<kP1, kNmaxLarge>},
     {dz3_impl<kP2, kNmaxSmall>, dz3_impl<kP2, kNmaxLarge>}};
-
-int width_slot(int n) { return n <= kNmaxSmall ? 0 : 1; }
 
 }  // namespace
 

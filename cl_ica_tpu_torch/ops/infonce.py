@@ -30,8 +30,11 @@ LIBRARY = "infonce_lp"
 MAX_FEATURES = 64  # the kernels' template bound on n
 
 # Launches of each kernel since the last reset; each wrapper adds one
-# where it launches its kernel, and nowhere else.
-_launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0}
+# where it launches its kernel, and nowhere else. fwd/dz1/dz3 are
+# fused_neg_lse's kernels (this module), dot_* are fused_dot_lse's
+# (ops/infonce_dot.py).
+_launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0,
+                             "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -82,7 +85,7 @@ def _pmode(p: float) -> int:
 def _check_launch(lib, rc: int, which: str) -> None:
     if rc != 0:
         msg = lib.clica_error_string(rc).decode()
-        raise RuntimeError(f"neg_lse {which} kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(f"{which} kernel launch failed: {msg} ({rc})")
 
 
 def _check_operand(name: str, t: torch.Tensor, n: int | None = None) -> None:
@@ -96,6 +99,21 @@ def _check_operand(name: str, t: torch.Tensor, n: int | None = None) -> None:
         raise ValueError(f"{name} must be (rows, {n}), got {tuple(t.shape)}")
 
 
+def _check_pair(z1: torch.Tensor, z3: torch.Tensor) -> None:
+    """What every kernel here asks of its two operands: z1 (M, n) and
+    z3 (N, n), float32, contiguous, on one CUDA device, M, N ≥ 1,
+    1 ≤ n ≤ MAX_FEATURES."""
+    if z1.ndim != 2 or not 1 <= z1.shape[1] <= MAX_FEATURES:
+        raise ValueError(
+            f"z1 must be (M, n) with 1 <= n <= {MAX_FEATURES}, got {tuple(z1.shape)}")
+    if z1.shape[0] < 1 or z3.shape[0] < 1:
+        raise ValueError("z1 and z3 need at least one row each")
+    _check_operand("z1", z1)
+    _check_operand("z3", z3, z1.shape[1])
+    if z3.device != z1.device:
+        raise ValueError(f"z1 is on {z1.device}, z3 on {z3.device}")
+
+
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
@@ -107,7 +125,7 @@ def _launch_fwd(z1, z3, p: float, tau: float) -> torch.Tensor:
     with torch.cuda.device(z1.device):
         rc = lib.clica_neg_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
                                    m, nn, n, _pmode(p), p, tau, _stream(z1))
-    _check_launch(lib, rc, "fwd")
+    _check_launch(lib, rc, "neg_lse fwd")
     _launches["fwd"] += 1
     return lse
 
@@ -121,7 +139,7 @@ def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
     with torch.cuda.device(z1.device):
         rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
                 out.data_ptr(), m, nn, n, _pmode(p), p, tau, _stream(z1))
-    _check_launch(lib, rc, which)
+    _check_launch(lib, rc, f"neg_lse {which}")
     _launches[which] += 1
     return out
 
@@ -162,13 +180,5 @@ def fused_neg_lse(z1: torch.Tensor, z3: torch.Tensor, p: float,
         return neg_lse_reference(z1, z3, p, tau)
     if p < 1.0:
         raise ValueError(f"the fused kernel takes p >= 1, got p={p}")
-    if z1.ndim != 2 or not 1 <= z1.shape[1] <= MAX_FEATURES:
-        raise ValueError(
-            f"z1 must be (M, n) with 1 <= n <= {MAX_FEATURES}, got {tuple(z1.shape)}")
-    if z1.shape[0] < 1 or z3.shape[0] < 1:
-        raise ValueError("z1 and z3 need at least one row each")
-    _check_operand("z1", z1)
-    _check_operand("z3", z3, z1.shape[1])
-    if z3.device != z1.device:
-        raise ValueError(f"z1 is on {z1.device}, z3 on {z3.device}")
+    _check_pair(z1, z3)
     return _FusedNegLse.apply(z1, z3, p, tau)

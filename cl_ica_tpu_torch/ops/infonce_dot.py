@@ -1,0 +1,133 @@
+"""Fused dot-product (SimCLR) InfoNCE log-sum-exp: Hopper kernels and
+their plain PyTorch version.
+
+Port of cl_ica_tpu/ops/infonce_pallas.py:310-492 (``fused_dot_lse``):
+
+    lse_i = log Σ_j exp(z1_i · z3_j / τ),   z1 (M, n), z3 (N, n)
+
+without the M×N matrix of logits ever reaching device memory. The forward
+and both backward kernels are CUDA C++ in csrc/infonce_dot.cu (see the
+note there for what bounds them and how they differ from the TPU
+kernels); the three products z1 z3ᵀ, W z3 and Wᵀ z1 are computed inside
+those kernels. This module builds and binds them, wraps them in a
+``torch.autograd.Function``, and counts their launches beside
+``fused_neg_lse``'s (``ops.launch_counts``).
+
+On CPU tensors ``fused_dot_lse`` computes ``dot_lse_reference``, the
+plain version, because there is no kernel to launch there. On CUDA
+tensors it launches the kernels or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .build import load_library
+from .infonce import (
+    _F,
+    _F32P,
+    _I,
+    _check_launch,
+    _check_pair,
+    _launches,
+    _stream,
+)
+
+LIBRARY = "infonce_dot"
+
+
+def dot_lse_reference(z1: torch.Tensor, z3: torch.Tensor,
+                      tau: float) -> torch.Tensor:
+    """The plain version: the (M, N) logits by explicit broadcast
+    Σ_k z1_ik·z3_jk (not ``@``, so that it repeats the kernel's float32
+    arithmetic and cannot take a TF32 path), then ``torch.logsumexp``.
+    Autograd supplies the gradient."""
+    x = (z1[:, None, :] * z3[None, :, :]).sum(-1) / tau
+    return torch.logsumexp(x, dim=1)
+
+
+@functools.cache
+def load_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' library, with every
+    entry point's C signature declared."""
+    lib = load_library(LIBRARY)
+    lib.clica_dot_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _I, _I, _I, _F,
+                                      ctypes.c_void_p]
+    lib.clica_dot_lse_fwd.restype = _I
+    for fn in (lib.clica_dot_lse_dz1, lib.clica_dot_lse_dz3):
+        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I, _F,
+                       ctypes.c_void_p]
+        fn.restype = _I
+    lib.clica_error_string.argtypes = [_I]
+    lib.clica_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_fwd(z1, z3, tau: float) -> torch.Tensor:
+    lib = load_kernels()
+    (m, n), nn = z1.shape, z3.shape[0]
+    lse = torch.empty(m, device=z1.device, dtype=torch.float32)
+    with torch.cuda.device(z1.device):
+        rc = lib.clica_dot_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
+                                   m, nn, n, tau, _stream(z1))
+    _check_launch(lib, rc, "dot_lse fwd")
+    _launches["dot_fwd"] += 1
+    return lse
+
+
+def _launch_bwd(which: str, z1, z3, lse, ct, tau: float) -> torch.Tensor:
+    lib = load_kernels()
+    (m, n), nn = z1.shape, z3.shape[0]
+    rows = m if which == "dz1" else nn
+    out = torch.empty((rows, n), device=z1.device, dtype=torch.float32)
+    fn = lib.clica_dot_lse_dz1 if which == "dz1" else lib.clica_dot_lse_dz3
+    with torch.cuda.device(z1.device):
+        rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
+                out.data_ptr(), m, nn, n, tau, _stream(z1))
+    _check_launch(lib, rc, f"dot_lse {which}")
+    _launches[f"dot_{which}"] += 1
+    return out
+
+
+class _FusedDotLse(torch.autograd.Function):
+    """lse = fused_dot_lse(z1, z3, τ); τ is not differentiable (the JAX
+    custom_vjp's nondiff_argnums)."""
+
+    @staticmethod
+    def forward(ctx, z1, z3, tau):
+        lse = _launch_fwd(z1, z3, tau)
+        ctx.save_for_backward(z1, z3, lse)
+        ctx.tau = tau
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad_lse):
+        z1, z3, lse = ctx.saved_tensors
+        ct = grad_lse.contiguous().float()  # the per-row c_i
+        dz1 = dz3 = None
+        if ctx.needs_input_grad[0]:
+            dz1 = _launch_bwd("dz1", z1, z3, lse, ct, ctx.tau)
+        if ctx.needs_input_grad[1]:
+            dz3 = _launch_bwd("dz3", z1, z3, lse, ct, ctx.tau)
+        return dz1, dz3, None
+
+
+def fused_dot_lse(z1: torch.Tensor, z3: torch.Tensor,
+                  tau: float) -> torch.Tensor:
+    """lse_i = log Σ_j exp(z1_i · z3_j / τ), shape (M,).
+
+    z1 (M, n) and z3 (N, n), M and N independent, n ≤ 64, logits of any
+    sign and size. CUDA tensors run the Hopper kernels (forward here,
+    dz1/dz3 in backward); CPU tensors run ``dot_lse_reference``. Anything
+    else raises.
+    """
+    tau = float(tau)
+    if z1.device.type == "cpu" and z3.device.type == "cpu":
+        return dot_lse_reference(z1, z3, tau)
+    if not tau > 0.0:
+        raise ValueError(f"tau must be positive, got {tau}")
+    _check_pair(z1, z3)
+    return _FusedDotLse.apply(z1, z3, tau)

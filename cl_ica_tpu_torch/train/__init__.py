@@ -1,9 +1,14 @@
+from . import checkpoint
+from .checkpoint import load_resume_state, save_resume_state
 from .metrics import MetricsLogger
 from .trainer import Throughput, make_optimizer, make_synthetic_train_step
 
 __all__ = [
     "MetricsLogger",
     "Throughput",
+    "checkpoint",
+    "load_resume_state",
     "make_optimizer",
     "make_synthetic_train_step",
+    "save_resume_state",
 ]

@@ -2,7 +2,8 @@
 """Where the time of one cl_ica_tpu_torch training step goes, on one GPU.
 
 Builds main_mlp's model for a configuration (the README headline
-sphere+vMF p=2 by default, or box+Laplace p=1 with --box), then:
+sphere+vMF p=2 by default, box+Laplace p=1 with --box, or sphere+vMF
+SimCLR under the fixed-sphere head with --p 0), then:
 
   1. times the step's phases over --steps steps, each phase ended by a
      device synchronisation: sample_pair, mixing + encoder forward, the
@@ -10,7 +11,7 @@ sphere+vMF p=2 by default, or box+Laplace p=1 with --box), then:
   2. traces --steps unsynchronised steps with torch.profiler and prints
      the device time by kernel and the device's busy share of the window.
 
-Usage: python3 tools/profile_torch_step.py [--box] [--steps N]
+Usage: python3 tools/profile_torch_step.py [--box | --p 0] [--steps N]
 Prints the card's name and power limit beside every number.
 """
 
@@ -29,12 +30,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cl_ica_tpu_torch.cli import main_mlp  # noqa: E402
-from cl_ica_tpu_torch.losses import LpSimCLRLoss  # noqa: E402
 from cl_ica_tpu_torch.models import construct_invertible_mlp, get_mlp  # noqa: E402
 from cl_ica_tpu_torch.train import make_optimizer, make_synthetic_train_step  # noqa: E402
 
 SPHERE = "--space-type sphere --c-p 0 --c-param 20 --p 2 --n 10 --batch-size 6144"
 BOX = "--space-type box --c-p 1 --p 1 --box-norm --n 10 --batch-size 6144"
+SIMCLR = "--space-type sphere --c-p 0 --c-param 20 --p 0 --n 10 --batch-size 6144"
 
 
 def build(argv: str):
@@ -46,9 +47,9 @@ def build(argv: str):
                                  rng=np.random.default_rng(0)).to(dev)
     n = args.n
     f = get_mlp(n, n, [n * 10, n * 50, n * 50, n * 50, n * 50, n * 10],
-                output_normalization="learnable_box" if args.box_norm else None,
+                output_normalization=main_mlp.output_normalization_of(args),
                 generator=torch.Generator().manual_seed(0)).to(dev)
-    loss = LpSimCLRLoss(p=args.p, tau=args.tau, simclr_compatibility_mode=True)
+    loss = main_mlp.make_loss(args)
     opt, _ = make_optimizer(f.parameters(), args.lr)
     return args, latent, g, f, loss, opt
 
@@ -86,6 +87,8 @@ def phase_times(args, latent, g, f, loss, opt, gen, steps):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--box", action="store_true")
+    ap.add_argument("--p", type=int, choices=(0, 2), default=2,
+                    help="0: the SimCLR step (sphere+vMF, fixed-sphere head)")
     ap.add_argument("--steps", type=int, default=30)
     cli = ap.parse_args()
     if not torch.cuda.is_available():
@@ -94,8 +97,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    args, latent, g, f, loss, opt = build(BOX if cli.box else SPHERE)
-    tag = "box+Laplace p=1" if cli.box else "sphere+vMF p=2"
+    if cli.box and cli.p == 0:
+        raise SystemExit("profile_torch_step: --box and --p 0 are two configurations")
+    argv, tag = ((BOX, "box+Laplace p=1") if cli.box
+                 else (SIMCLR, "sphere+vMF p=0") if cli.p == 0
+                 else (SPHERE, "sphere+vMF p=2"))
+    args, latent, g, f, loss, opt = build(argv)
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = make_synthetic_train_step(latent.sample_pair, g, f, loss, opt,
                                      args.batch_size)
