@@ -7,7 +7,7 @@ package: it keeps its own copy of what it needs from there.
 
 Sub-packages mirror the JAX package's names:
   spaces/  ← cl_ica_tpu/spaces   samplers on explicit torch.Generators
-  models/  ← cl_ica_tpu/models   frozen mixing g, MLP encoder f, heads,
+  models/  ← cl_ica_tpu/models   frozen mixing g, MLP encoder f, ResNet, heads,
                                  and the Flax <-> torch parameter converter
   ops/     ← cl_ica_tpu/ops      hand-written Hopper kernels (CUDA C++
                                  under ops/csrc) with plain-torch versions
@@ -16,7 +16,9 @@ Sub-packages mirror the JAX package's names:
   train/   ← cl_ica_tpu/train    the synthetic training step, telemetry,
                                  resume checkpoints
   evaluation/ ← cl_ica_tpu/evaluation   linear R², permutation MCC (numpy)
-  cli/     ← cl_ica_tpu/cli      main_mlp, flag for flag
+  data/    ← cl_ica_tpu/data     the 3DIdent sampler and image store
+  tools/   ← cl_ica_tpu/tools    the synthetic 3DIdent fixture (numpy)
+  cli/     ← cl_ica_tpu/cli      main_mlp, main_3dident, flag for flag
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """Experiment CLIs mirroring cl_ica_tpu/cli flag for flag.
 
-main_mlp ← cl_ica_tpu/cli/main_mlp.py
+main_mlp     ← cl_ica_tpu/cli/main_mlp.py
+main_3dident ← cl_ica_tpu/cli/main_3dident.py
 """
 
 

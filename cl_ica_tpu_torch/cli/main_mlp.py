@@ -206,7 +206,7 @@ def resolve_device(device=None) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "main_mlp runs on CUDA and torch.cuda.is_available() is False; "
+            "this entry point runs on CUDA and torch.cuda.is_available() is False; "
             "pass device='cpu' explicitly for a CPU run")
     return device
 

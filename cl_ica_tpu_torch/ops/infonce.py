@@ -32,9 +32,10 @@ MAX_FEATURES = 64  # the kernels' template bound on n
 # Launches of each kernel since the last reset; each wrapper adds one
 # where it launches its kernel, and nowhere else. fwd/dz1/dz3 are
 # fused_neg_lse's kernels (this module), dot_* are fused_dot_lse's
-# (ops/infonce_dot.py).
+# (ops/infonce_dot.py), stem_* the stem tail's (ops/stem.py).
 _launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0,
-                             "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0}
+                             "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0,
+                             "stem_fwd": 0, "stem_bwd": 0}
 
 
 def launch_counts() -> Dict[str, int]:

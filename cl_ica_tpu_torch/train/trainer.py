@@ -18,16 +18,23 @@ import torch
 
 
 def make_optimizer(params, lr: float, weight_decay: float = 0.0,
-                   cosine_steps: Optional[int] = None
+                   cosine_steps: Optional[int] = None, kind: str = "adam"
                    ) -> Tuple[torch.optim.Optimizer,
                               Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """optax.adam(lr) -> Adam, optax.adamw(lr, weight_decay) -> AdamW
     (b1 0.9, b2 0.999, eps 1e-8 in both packages). ``cosine_steps`` T
     adds optax.cosine_decay_schedule's closed form
     0.5·(1 + cos(π·min(t, T)/T)) as a LambdaLR, stepped once per update.
+    ``kind='sgd'``: optax.sgd(lr) -> SGD, and with weight decay
+    optax.chain(add_decayed_weights, sgd) -> SGD(weight_decay), which adds
+    weight_decay·p to the gradient as that chain does.
     """
     kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    if weight_decay > 0:
+    if kind == "sgd":
+        opt = torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
+    elif kind != "adam":
+        raise ValueError(f"kind must be 'adam' or 'sgd', got {kind!r}")
+    elif weight_decay > 0:
         opt = torch.optim.AdamW(params, weight_decay=weight_decay, **kw)
     else:
         opt = torch.optim.Adam(params, **kw)

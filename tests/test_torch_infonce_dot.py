@@ -194,7 +194,8 @@ def test_launch_counters_stay_zero_on_the_cpu():
     fused_dot_lse(z1, z3, 1.0).sum().backward()
     SimCLRLoss()(None, None, None, z1, z1, z3)[0].backward()
     assert launch_counts() == {"fwd": 0, "dz1": 0, "dz3": 0,
-                               "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0}
+                               "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0,
+                               "stem_fwd": 0, "stem_bwd": 0}
 
 
 @pytest.mark.parametrize("where", ["z1", "z3"])

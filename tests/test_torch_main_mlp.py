@@ -242,6 +242,10 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import cl_ica_tpu_torch.cli.main_mlp, cl_ica_tpu_torch.ops.build\n"
+        "import cl_ica_tpu_torch.cli.main_3dident, cl_ica_tpu_torch.data\n"
+        "import cl_ica_tpu_torch.models.resnet, cl_ica_tpu_torch.ops.stem\n"
+        "import cl_ica_tpu_torch.ops.knn\n"
+        "import cl_ica_tpu_torch.tools.make_synthetic_3dident\n"
         "import chip_smoke\n"
         "import tools.profile_torch_step\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -266,7 +270,8 @@ def test_port_sources_name_no_module_of_the_jax_package():
              os.path.join(REPO, "tools", "profile_torch_step.py")]
     for root, _, names in os.walk(os.path.join(REPO, "cl_ica_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 20
+    assert len(files) > 30
+    assert any(f.endswith(os.path.join('cli', 'main_3dident.py')) for f in files)
     for path in files:
         with open(path) as fh:
             assert not pattern.search(fh.read()), path
