@@ -16,7 +16,9 @@ use) and no network, and it exits non-zero on any failure. Phases:
              also three temperatures, unit-sphere and normal inputs, and
              logits of order 1e4, and both losses at the column slices
              main_3dident's split loss hands them (512 rows, n = 3 at
-             p = 2 and n = 8). The stem's two kernels (stem_fwd,
+             p = 2 and n = 8); fused_neg_lse's gradients also at shapes
+             that cut their chunks unevenly, and at collapsed and
+             far-apart inputs against float64. The stem's two kernels (stem_fwd,
              stem_bwd) against theirs, float32 and bfloat16: small ragged
              shapes, tied inputs, and the full (1024, 112, 112, 64)
   3 parity   loss and every encoder grad of one training step at full
@@ -27,8 +29,9 @@ use) and no network, and it exits non-zero on any failure. Phases:
              fixed-sphere head): launch counters, finite and falling
              losses, finite scores; then a run stopped at a checkpoint and
              resumed against the uninterrupted run, loss for loss
-  5 times    kernel vs plain vs PyTorch's own calls at B=6144 (CUDA events,
-             median of 25 after warm-up), each kernel's bound, and the
+  5 times    kernel vs plain vs PyTorch's own calls at B=6144 and at
+             main_3dident's two column slices (device time: CUDA graphs of
+             10 calls, median of 15 replays), each kernel's bound, and the
              training step's pairs/s at p=2 and p=0
   6 3dident  a synthetic 3DIdent fixture (4096 renders at 224x224, written
              under runs/chip_smoke/), then cli.main_3dident at full width
@@ -265,6 +268,67 @@ def _hold_split_slices(rng, worst: dict) -> None:
           run(lambda a, b: infonce_dot.dot_lse_reference(a, b, 1.0), ang), worst)
 
 
+def _hold_uneven_splits(rng, worst: dict) -> None:
+    """fused_neg_lse's gradients at shapes that cut the other operand into
+    chunks of unequal length and leave ragged row blocks (ops/infonce.py:
+    split_plan), at every width the tiled kernel is built for (n = 3, 8,
+    10), p = 1 and 2."""
+    for n_feat in (3, 8, 10):
+        for p in (1.0, 2.0):
+            for m, n in ((BATCH, 700), (33, BATCH)):
+                z1, z3 = _pair(m, n, rng, n_feat)
+                ct = _cotangent(m, rng)
+                _hold(f"neg_lse p={p:g} n={n_feat} M={m} N={n} (uneven chunks)", LP,
+                      _value_and_grads(lambda a, b: infonce.fused_neg_lse(a, b, p, TAU),
+                                       z1, z3, ct),
+                      _value_and_grads(lambda a, b: infonce.neg_lse_reference(a, b, p, TAU),
+                                       z1, z3, ct),
+                      worst)
+
+
+def _lp_inputs(kind: str, rng) -> tuple[np.ndarray, np.ndarray]:
+    """z1, z3 (BATCH, N_FEAT). "collapsed": every row one point plus noise
+    of 1e-3, z3's rows shifted by 3e-3 in every feature, so that every w is
+    near 1/N and nearly all terms of a row share a sign (an encoder early in
+    training). "far-apart": rows of N(0, 5^2), no match, so that the logits
+    reach ~1e3 and each row's weight rests on a few columns."""
+    if kind == "collapsed":
+        c = rng.normal(size=(1, N_FEAT))
+        z1 = c + 1e-3 * rng.normal(size=(BATCH, N_FEAT))
+        z3 = c + 3e-3 + 1e-3 * rng.normal(size=(BATCH, N_FEAT))
+    else:
+        z1, z3 = (5.0 * rng.normal(size=(BATCH, N_FEAT)) for _ in range(2))
+    return z1.astype(np.float32), z3.astype(np.float32)
+
+
+def _hold_vs_float64(kind: str, p: float, rng) -> None:
+    """The kernels and the float32 plain version, both against the plain
+    version in float64, under the rule of the radii case below: the
+    kernel's error may be at most the bar, or STEP_FACTOR times the float32
+    plain version's own. Their absolute errors are kept apart from those of
+    the ordinary inputs, as the radii case's are."""
+    z1, z3 = _lp_inputs(kind, rng)
+    ct = _cotangent(BATCH, rng)
+    kern = _value_and_grads(lambda a, b: infonce.fused_neg_lse(a, b, p, TAU), z1, z3, ct)
+    plain = _value_and_grads(lambda a, b: infonce.neg_lse_reference(a, b, p, TAU), z1, z3, ct)
+    exact = _value_and_grads(lambda a, b: infonce.neg_lse_reference(a, b, p, TAU),
+                             z1, z3, ct, torch.float64)
+    e_kern = [rel_err(g.double(), w) for g, w in zip(kern, exact)]
+    e_plain = [rel_err(g.double(), w) for g, w in zip(plain, exact)]
+    print(f"[2 kernels] neg_lse {kind} p={p:g} M=N={BATCH}, rel err vs float64 "
+          f"(value, dz1, dz3): kernel {e_kern[0]:.2e} {e_kern[1]:.2e} "
+          f"{e_kern[2]:.2e}; float32 plain {e_plain[0]:.2e} {e_plain[1]:.2e} "
+          f"{e_plain[2]:.2e}")
+    if not all(torch.isfinite(g).all() for g in kern):
+        raise AssertionError(f"neg_lse {kind} p={p:g}: non-finite output")
+    for e, ep, bar in zip(e_kern, e_plain, (VALUE_BAR, GRAD_BAR, GRAD_BAR)):
+        if e > max(bar, STEP_FACTOR * ep):
+            raise AssertionError(f"neg_lse {kind} p={p:g} vs float64: kernel "
+                                 f"{e_kern}, float32 plain {e_plain}")
+    del kern, plain, exact
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     worst = {k: 0.0 for k in LP + DOT}
@@ -314,6 +378,10 @@ def phase_kernels() -> dict:
     _hold("dot_lse n=40 M=70 N=45", DOT, *dot_pair(TAU, z1, z3, ct), worst)
 
     _hold_split_slices(rng, worst)
+    _hold_uneven_splits(rng, worst)
+    for p in (1.0, 2.0):
+        for kind in ("collapsed", "far-apart"):
+            _hold_vs_float64(kind, p, rng)
 
     # Large logits with near-ties: radii uniform in (0, 30], no exact match.
     # A logit near 1e4 carries a float32 rounding error of ~1e-3, and where
@@ -516,27 +584,71 @@ def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(_event_ms(fn, calls) for _ in range(reps))
 
 
-def _time_loss(impl) -> dict:
-    """ms of the forward, each gradient alone, and forward+backward of
-    impl(z1, z3) at B x B."""
+def _graph_ms(fn, calls: int = 10, reps: int = 15, prepare=None) -> float:
+    """Median device ms per call of fn: ``calls`` calls captured in one
+    CUDA graph on a side stream, the graph replayed ``reps`` times between
+    two events, so that no host time is counted (at main_3dident's shapes,
+    and for the redesigned gradients at B = 6144, launching a call takes
+    the host longer than the card takes to run it). ``prepare`` runs on
+    that stream first: a gradient's forward goes there, so that autograd
+    runs its backward on the stream being captured. A failed capture
+    raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        if prepare is not None:
+            prepare()
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def _time_loss(impl, m: int = BATCH, n_feat: int = N_FEAT) -> dict:
+    """Device ms (_graph_ms) of the forward, each gradient alone, and
+    forward+backward of impl(z1, z3) at m x m, n_feat features."""
     rng = np.random.default_rng(1)
-    z1, z3 = _pair(BATCH, BATCH, rng)
-    ct = torch.ones(BATCH, device="cuda")
+    z1, z3 = _pair(m, m, rng, n_feat)
+    ct = torch.ones(m, device="cuda")
 
     def leaves(g1: bool, g3: bool):
         return (torch.tensor(z1, device="cuda", requires_grad=g1),
                 torch.tensor(z3, device="cuda", requires_grad=g3))
 
     a, b = leaves(False, False)
-    out = {"fwd": _median_ms(lambda: impl(a, b))}
+    out = {"fwd": _graph_ms(lambda: impl(a, b))}
     for k, (g1, g3) in (("dz1", (True, False)), ("dz3", (False, True))):
         a, b = leaves(g1, g3)
-        lse = impl(a, b)
         wrt = a if g1 else b
-        out[k] = _median_ms(
-            lambda: torch.autograd.grad(lse, wrt, ct, retain_graph=True))
+        held = {}
+
+        def forward():
+            held["lse"] = impl(a, b)
+
+        out[k] = _graph_ms(
+            lambda: torch.autograd.grad(held["lse"], wrt, ct, retain_graph=True),
+            prepare=forward)
+        del held
     a, b = leaves(True, True)
-    out["fwd+bwd"] = _median_ms(lambda: impl(a, b).backward(ct))
+    out["fwd+bwd"] = _graph_ms(lambda: impl(a, b).backward(ct))
     return out
 
 
@@ -580,39 +692,55 @@ def _bounds(m: int, n_rows: int, n: int) -> dict:
     return out
 
 
+def _loss_cases(p: float, tau: float) -> tuple:
+    """(kernel, plain, library) of one loss: fused_neg_lse at p >= 1,
+    fused_dot_lse at p = 0. The library yardstick is PyTorch's own calls
+    for the same function, two calls that materialize the M x N matrix; the
+    port never calls them on its main path with the kernel route on."""
+    if p == 0:
+        return (lambda a, b: infonce_dot.fused_dot_lse(a, b, tau),
+                lambda a, b: infonce_dot.dot_lse_reference(a, b, tau),
+                lambda a, b: torch.logsumexp(a @ b.T / tau, 1))
+    return (lambda a, b: infonce.fused_neg_lse(a, b, p, tau),
+            lambda a, b: infonce.neg_lse_reference(a, b, p, tau),
+            lambda a, b: torch.logsumexp(-_cdist_pow(a, b, p) / tau, 1))
+
+
+def _cdist_pow(a, b, p: float):
+    d = torch.cdist(a, b, p=p)
+    return d if p == 1 else d ** p
+
+
+# label -> (p, tau, M = N, n): main_mlp's three at B = 6144, then the two
+# column slices of main_3dident's split loss (phase 6a)
+TIMED = {"p=1": (1.0, TAU, BATCH, N_FEAT), "p=2": (2.0, TAU, BATCH, N_FEAT),
+         "p=0": (0.0, TAU, BATCH, N_FEAT),
+         "p=2 3dident": (2.0, 1.0, SPLIT_B, SPLIT_NA),
+         "p=0 3dident": (0.0, 1.0, SPLIT_B, SPLIT_N - SPLIT_NA)}
+
+
 def phase_times(smi: str) -> dict:
-    """{label: (kernel, plain, library)} of ms dicts. The library yardstick
-    is PyTorch's own calls for the same function, two calls that
-    materialize the M x N matrix; the port never calls them on its main
-    path with the kernel route on."""
-    cases = {
-        "p=1": (lambda a, b: infonce.fused_neg_lse(a, b, 1.0, TAU),
-                lambda a, b: infonce.neg_lse_reference(a, b, 1.0, TAU),
-                lambda a, b: torch.logsumexp(-torch.cdist(a, b, p=1.0) / TAU, 1)),
-        "p=2": (lambda a, b: infonce.fused_neg_lse(a, b, 2.0, TAU),
-                lambda a, b: infonce.neg_lse_reference(a, b, 2.0, TAU),
-                lambda a, b: torch.logsumexp(-torch.cdist(a, b, p=2.0) ** 2 / TAU, 1)),
-        "p=0": (lambda a, b: infonce_dot.fused_dot_lse(a, b, TAU),
-                lambda a, b: infonce_dot.dot_lse_reference(a, b, TAU),
-                lambda a, b: torch.logsumexp(a @ b.T / TAU, 1)),
-    }
+    """{label: (kernel, plain, library)} of device ms dicts (_graph_ms),
+    for every entry of TIMED."""
     times = {}
-    for label, (kernel, plain, library) in cases.items():
+    for label, (p, tau, m, n_feat) in TIMED.items():
+        kernel, plain, library = _loss_cases(p, tau)
         # alternate which goes first: plain, kernel, kernel, plain
-        turns = [_time_loss(f) for f in (plain, library, kernel, kernel,
-                                         library, plain)]
+        turns = [_time_loss(f, m, n_feat) for f in (plain, library, kernel,
+                                                    kernel, library, plain)]
         best = lambda x, y: {k: min(x[k], y[k]) for k in x}
         times[label] = (best(turns[2], turns[3]), best(turns[0], turns[5]),
                         best(turns[1], turns[4]))
         kern, pl, lib = times[label]
-        _say_time(f"[5 times] {label} B={BATCH} n={N_FEAT} ms (kernel / plain / "
-                  f"library), median of 25 after warm-up, better of two turns, "
-                  f"on {smi}: "
+        _say_time(f"[5 times] {label} M=N={m} n={n_feat} tau={tau:g} device ms "
+                  f"(kernel / plain / library), CUDA graph of 10 calls, median of "
+                  f"15 replays, better of two turns, on {smi}: "
                   + "; ".join(f"{k} {kern[k]:.3f} / {pl[k]:.3f} / {lib[k]:.3f}"
                               for k in kern))
-    for k, (ms, by) in _bounds(BATCH, BATCH, N_FEAT).items():
-        _say_time(f"[5 times] bound {k} at M=N={BATCH} n={N_FEAT}: {ms:.5f} ms, "
-                  f"set by {by} (67 TFLOP/s fp32, 3.35 TB/s)")
+    for m, n_feat in ((BATCH, N_FEAT), (SPLIT_B, SPLIT_NA), (SPLIT_B, SPLIT_N - SPLIT_NA)):
+        for k, (ms, by) in _bounds(m, m, n_feat).items():
+            _say_time(f"[5 times] bound {k} at M=N={m} n={n_feat}: {ms:.6f} ms, "
+                      f"set by {by} (67 TFLOP/s fp32, 3.35 TB/s)")
     for config in ("sphere", "simclr"):
         pps = _step_pairs_per_sec(config)
         _say_time(f"[5 times] training step, {config} B={BATCH} n={N_FEAT}, "
@@ -1086,6 +1214,14 @@ def main() -> int:
                 kern1, plain1, lib1 = times["p=1"]
                 entry.update({"p": 2, "ms_p1": kern1[k], "plain_ms_p1": plain1[k],
                               "library_ms_p1": lib1[k]})
+            # main_3dident's column slice of this loss (phase 6a's shapes)
+            label = "p=0 3dident" if key in DOT else "p=2 3dident"
+            _, _, m, n_feat = TIMED[label]
+            kern3, plain3, lib3 = times[label]
+            bound3 = _bounds(m, m, n_feat)[k]
+            entry.update({"shape_3dident": [m, m, n_feat], "ms_3dident": kern3[k],
+                          "plain_ms_3dident": plain3[k], "bound_ms_3dident": bound3[0],
+                          "bound_by_3dident": bound3[1], "library_ms_3dident": lib3[k]})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from .build import load_library
 
 LIBRARY = "infonce_lp"
 MAX_FEATURES = 64  # the kernels' template bound on n
+MIN_CHUNK = 64  # the fewest rows of the other operand a tiled gradient block takes
 
 # Launches of each kernel since the last reset; each wrapper adds one
 # where it launches its kernel, and nowhere else. fwd/dz1/dz3 are
@@ -64,16 +65,25 @@ _F = ctypes.c_float
 
 @functools.cache
 def load_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' library, with every
-    entry point's C signature declared."""
-    lib = load_library(LIBRARY)
+    """Build (at first use) and load the kernels' library."""
+    return declare(load_library(LIBRARY))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of every entry point of a library built
+    from csrc/infonce_lp.cu."""
     lib.clica_neg_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _I, _I, _I, _I,
                                       _F, _F, ctypes.c_void_p]
     lib.clica_neg_lse_fwd.restype = _I
     for fn in (lib.clica_neg_lse_dz1, lib.clica_neg_lse_dz3):
-        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I, _I,
-                       _F, _F, ctypes.c_void_p]
+        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I,
+                       _I, _I, _F, _F, ctypes.c_void_p]
         fn.restype = _I
+    lib.clica_neg_lse_grad_block_rows.argtypes = []
+    lib.clica_neg_lse_grad_block_rows.restype = _I
+    lib.clica_neg_lse_grad_blocks_per_sm.argtypes = [_I, _I, _I,
+                                                     ctypes.POINTER(_I)]
+    lib.clica_neg_lse_grad_blocks_per_sm.restype = _I
     lib.clica_error_string.argtypes = [_I]
     lib.clica_error_string.restype = ctypes.c_char_p
     return lib
@@ -131,17 +141,55 @@ def _launch_fwd(z1, z3, p: float, tau: float) -> torch.Tensor:
     return lse
 
 
+def split_plan(own_rows: int, other_rows: int, block_rows: int,
+               slots: int) -> tuple[int, int]:
+    """(splits, chunk) for a tiled gradient: the other operand's rows in
+    ``splits`` chunks of ``chunk`` (the last may be shorter), so that the
+    grid of ceil(own_rows / block_rows) x splits blocks makes at least two
+    waves of the ``slots`` blocks the card holds at once, with no chunk
+    under MIN_CHUNK rows unless the other operand is."""
+    row_blocks = -(-own_rows // block_rows)
+    want = -(-2 * slots // row_blocks)
+    splits = max(1, min(want, other_rows // MIN_CHUNK))
+    chunk = -(-other_rows // splits)
+    return -(-other_rows // chunk), chunk
+
+
+@functools.cache
+def _grad_slots(device_index: int, which: str, n: int,
+                pmode: int) -> tuple[int, int] | None:
+    """(own rows per block, blocks the card holds at once) of the tiled
+    gradient kernel for these arguments, or None where the library has no
+    tiled kernel for n (the first version runs, in one chunk)."""
+    lib = load_kernels()
+    per_sm = _I()
+    rc = lib.clica_neg_lse_grad_blocks_per_sm(int(which == "dz3"), n, pmode,
+                                              ctypes.byref(per_sm))
+    _check_launch(lib, rc, f"neg_lse {which} occupancy")
+    if per_sm.value == 0:
+        return None
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return lib.clica_neg_lse_grad_block_rows(), sms * per_sm.value
+
+
 def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
     lib = load_kernels()
     (m, n), nn = z1.shape, z3.shape[0]
-    rows = m if which == "dz1" else nn
+    rows, others = (m, nn) if which == "dz1" else (nn, m)
     out = torch.empty((rows, n), device=z1.device, dtype=torch.float32)
+    splits, chunk, part = 1, others, None
+    tiled = _grad_slots(z1.device.index, which, n, _pmode(p))
+    if tiled is not None:
+        splits, chunk = split_plan(rows, others, *tiled)
+    if splits > 1:
+        part = torch.empty((splits, rows, n), device=z1.device, dtype=torch.float32)
     fn = lib.clica_neg_lse_dz1 if which == "dz1" else lib.clica_neg_lse_dz3
     with torch.cuda.device(z1.device):
         rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
-                out.data_ptr(), m, nn, n, _pmode(p), p, tau, _stream(z1))
+                out.data_ptr(), None if part is None else part.data_ptr(),
+                chunk, m, nn, n, _pmode(p), p, tau, _stream(z1))
     _check_launch(lib, rc, f"neg_lse {which}")
-    _launches[which] += 1
+    _launches[which] += 1  # the gradient kernel and its reduce kernel
     return out
 
 

@@ -61,6 +61,59 @@ def test_neg_lse_matches_jax_kernel(p, shape):
                                    atol=5e-4)
 
 
+def _jax_and_port(z1, z3, p, tau, block, dtype=torch.float32):
+    """(value, dz1, dz3) of sum(c * lse) from the JAX kernel in interpret
+    mode and from the port's CPU route (its plain version) in ``dtype``."""
+    ct = np.linspace(0.5, 1.5, z1.shape[0]).astype(np.float32)
+
+    def jax_obj(a, b):
+        lse = jax_fused_neg_lse(a, b, p, tau, block, True)
+        return jnp.sum(lse * ct), lse
+
+    (_, lse), grads = jax.value_and_grad(jax_obj, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(z1), jnp.asarray(z3))
+    a = torch.tensor(z1, dtype=dtype, requires_grad=True)
+    b = torch.tensor(z3, dtype=dtype, requires_grad=True)
+    got = fused_neg_lse(a, b, p, tau)
+    (got * torch.tensor(ct, dtype=dtype)).sum().backward()
+    return ([np.asarray(x) for x in (lse, *grads)],
+            [x.detach().numpy() for x in (got, a.grad, b.grad)])
+
+
+def test_neg_lse_matches_jax_kernel_at_the_3dident_split_shape():
+    """main_3dident's split loss hands fused_neg_lse the 3 position columns
+    of a (1024, 11) output: z1 its first 512 rows, z3 = roll(z1, 1), p = 2,
+    tau = 1. Tolerances of tests/test_ops.py, as above."""
+    rng = np.random.default_rng(5)
+    z1 = rng.normal(size=(1024, 11)).astype(np.float32)[:512, :3]
+    z1 = np.ascontiguousarray(z1)
+    want, got = _jax_and_port(z1, np.roll(z1, 1, axis=0), 2.0, 1.0, 128)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("p", [1.0, 2.0])
+def test_neg_lse_at_collapsed_inputs(p):
+    """Rows of one point plus noise of 1e-3, z3 shifted by 3e-3, as an
+    encoder early in training gives them: every weight near 1/N, the terms
+    of a row of one sign, gradients of order 1e-2. The port's direct sum
+    Σ w (z1 - z3) stays within 1e-5 of its own float64 result; the JAX
+    kernel's p = 2 identity z1·Σw - w@z3 subtracts numbers of order 1 and
+    keeps ~1e-4 of it. So the two agree to 1e-4 of the largest gradient,
+    and the port's kernels keep the direct form."""
+    rng = np.random.default_rng(9)
+    c = rng.normal(size=(1, 10))
+    z1 = (c + 1e-3 * rng.normal(size=(64, 10))).astype(np.float32)
+    z3 = (c + 3e-3 + 1e-3 * rng.normal(size=(64, 10))).astype(np.float32)
+    want, got = _jax_and_port(z1, z3, p, 0.7, 32)
+    _, exact = _jax_and_port(z1, z3, p, 0.7, 32, torch.float64)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+    for g, w, e in zip(got[1:], want[1:], exact[1:]):
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+        assert np.abs(g - e).max() <= 1e-5 * np.abs(e).max()
+
+
 @pytest.mark.parametrize("p", [0.5, 1.0, 2.0, 3.0])
 @pytest.mark.parametrize("compat", [True, False])
 @pytest.mark.parametrize("pow_", [True, False])

@@ -248,6 +248,7 @@ def test_port_imports_no_jax():
         "import cl_ica_tpu_torch.tools.make_synthetic_3dident\n"
         "import chip_smoke\n"
         "import tools.profile_torch_step\n"
+        "import tools.compare_lse_kernels\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "                                    'cl_ica_tpu'))\n"
@@ -262,12 +263,13 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_module_of_the_jax_package():
     # no import statement of cl_ica_tpu in the port, chip_smoke.py or the
-    # profile tool (prose may name the package it was ported from)
+    # two tools (prose may name the package it was ported from)
     import re
 
     pattern = re.compile(r"^\s*(from|import)\s+cl_ica_tpu(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_torch_step.py")]
+             os.path.join(REPO, "tools", "profile_torch_step.py"),
+             os.path.join(REPO, "tools", "compare_lse_kernels.py")]
     for root, _, names in os.walk(os.path.join(REPO, "cl_ica_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 30

@@ -6,6 +6,7 @@ nvcc is found, what keys a built library, how a failed build reports,
 and that a tensor off the CPU never takes the plain version.
 """
 
+import contextlib
 import os
 import stat
 from pathlib import Path
@@ -13,7 +14,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from cl_ica_tpu_torch.ops import build, fused_neg_lse
+from cl_ica_tpu_torch.ops import build, fused_neg_lse, infonce
 
 torch.set_num_threads(1)
 
@@ -89,3 +90,85 @@ def test_kernel_arguments_out_of_range_raise(p, shape, match):
     z1 = torch.zeros(shape, device="meta")
     with pytest.raises(ValueError, match=match):
         fused_neg_lse(z1, torch.zeros(4, shape[1], device="meta"), p, 1.0)
+
+
+# own rows, other rows, own rows per block, resident blocks -> (splits, chunk)
+@pytest.mark.parametrize("own, other, block_rows, slots, want", [
+    (6144, 6144, 128, 264, (11, 559)),   # main_mlp: 48 x 11 = two full waves
+    (512, 512, 128, 264, (8, 64)),       # main_3dident: chunks of MIN_CHUNK
+    (33, 6144, 128, 264, (96, 64)),      # one row block
+    (6144, 700, 128, 264, (10, 70)),     # few other rows
+    (700, 6144, 128, 264, (88, 70)),     # dz3 of the same
+    (6144, 50, 128, 264, (1, 50)),       # under one chunk: no split
+    (100000, 6144, 128, 264, (1, 6144)),  # many row blocks: no split
+])
+def test_split_plan(own, other, block_rows, slots, want):
+    splits, chunk = infonce.split_plan(own, other, block_rows, slots)
+    assert (splits, chunk) == want
+    # every other row in exactly one chunk, none empty
+    assert (splits - 1) * chunk < other <= splits * chunk
+    assert chunk >= min(infonce.MIN_CHUNK, other)
+    row_blocks = -(-own // block_rows)
+    if splits > 1:
+        assert row_blocks * splits >= 2 * slots or chunk < 2 * infonce.MIN_CHUNK
+
+
+class _FakeLib:
+    """The kernels' library, recording each gradient call's arguments. Like
+    csrc/infonce_lp.cu it has a tiled kernel for n = 3, 8 and 10 only: two
+    blocks of 128 own rows per SM there, none for any other n."""
+
+    def __init__(self):
+        self.calls = []
+
+        def entry(*args):
+            self.calls.append(args)
+            return 0
+
+        def blocks_per_sm(dz3, n, pmode, blocks):
+            blocks._obj.value = 2 if n in (3, 8, 10) else 0
+            return 0
+
+        self.clica_neg_lse_dz1 = self.clica_neg_lse_dz3 = entry
+        self.clica_neg_lse_grad_blocks_per_sm = blocks_per_sm
+        self.clica_neg_lse_grad_block_rows = lambda: 128
+
+
+@pytest.mark.parametrize("which, n, m, nn, want", [
+    ("dz1", 10, 6144, 6144, (11, 559)),
+    ("dz3", 3, 6144, 700, (88, 70)),
+    ("dz1", 8, 512, 512, (8, 64)),
+    ("dz1", 10, 6144, 50, (1, 50)),
+    ("dz3", 10, 6144, 50, (96, 64)),
+    ("dz1", 6, 300, 700, (1, 700)),     # a width the first version serves
+])
+def test_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want):
+    lib = _FakeLib()
+    monkeypatch.setattr(infonce, "load_kernels", lambda: lib)
+    monkeypatch.setattr(  # 132 SMs x 2 blocks = 264 resident blocks
+        torch.cuda, "get_device_properties",
+        lambda d: type("Props", (), {"multi_processor_count": 132}))
+    infonce._grad_slots.cache_clear()
+    monkeypatch.setattr(infonce, "_grad_slots", infonce._grad_slots.__wrapped__)
+    monkeypatch.setattr(infonce, "_stream", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    empty = torch.empty
+    made = []
+
+    def record(shape, **kw):
+        made.append(tuple(shape))
+        return empty(shape, **kw)
+
+    z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
+    lse = ct = torch.zeros(m, device="meta")
+    before = infonce.launch_counts()[which]
+    monkeypatch.setattr(torch, "empty", record)
+    out = infonce._launch_bwd(which, z1, z3, lse, ct, 2.0, 0.7)
+    rows = m if which == "dz1" else nn
+    splits, chunk = want
+    assert out.shape == (rows, n)
+    assert made == [(rows, n)] + ([(splits, rows, n)] if splits > 1 else [])
+    (args,) = lib.calls
+    assert args[6:10] == (chunk, m, nn, n)
+    assert (args[5] is None) == (splits == 1)
+    assert infonce.launch_counts()[which] == before + 1

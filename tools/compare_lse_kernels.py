@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""fused_neg_lse's and fused_dot_lse's kernels of two or more checkouts of
+this repository, in turns, on one GPU.
+
+    python3 tools/compare_lse_kernels.py [--out FILE] CHECKOUT [CHECKOUT ...]
+
+A CHECKOUT is a directory holding a tree of the repository: "." for this
+one, another commit unpacked with ``git archive`` into a directory that
+.gitignore lists (runs/ is). Each checkout runs in processes of its own,
+with the checkout first on sys.path, so every launch goes through that
+checkout's own public entry points (fused_neg_lse, fused_dot_lse,
+main_mlp's training step) and its own build of its own kernel sources;
+nothing of one checkout's C interface is assumed by another. The
+measurement code is this checkout's chip_smoke.py, loaded on top of the
+checkout's package.
+
+First each checkout builds its kernel libraries (one process per checkout,
+all started together) and prints its ptxas registers and spills. Then the
+checkouts take turns in the order given and back (two: A, B, B, A), one
+process a turn:
+
+  1. errors, in each checkout's first turn: fused_neg_lse's gradients at
+     chip_smoke's collapsed and far-apart inputs (B = 6144, n = 10, p = 1
+     and 2) against the plain version in float64, beside the float32 plain
+     version's own error;
+  2. times: every entry of chip_smoke.TIMED (main_mlp's M = N = 6144,
+     n = 10 at p = 1, p = 2 and the dot product; main_3dident's 512-row
+     slices, n = 3 at p = 2 and n = 8 dot), the device ms of the forward,
+     each gradient alone, and forward+backward (chip_smoke._time_loss:
+     CUDA graphs of 10 calls, median of 15 replays); a checkout's time is
+     the better of its two turns;
+  3. steps: main_mlp's training step at B = 6144, pairs/s of 50 steady
+     steps, sphere+vMF p=2 and box+Laplace p=1 (chip_smoke's
+     configurations).
+
+Prints the card's name and power limit beside every number and writes
+every number as JSON to --out (default runs/compare_lse/result.json).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+OUT_DIR = ROOT / "runs" / "compare_lse"
+
+
+def _smoke_on(checkout: Path):
+    """This tree's chip_smoke.py, importing the port from ``checkout``."""
+    sys.path.insert(0, str(checkout))
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = smoke
+    spec.loader.exec_module(smoke)
+    if checkout not in Path(smoke.infonce.__file__).resolve().parents:
+        raise SystemExit(f"compare_lse_kernels: the port came from "
+                         f"{smoke.infonce.__file__}, not from {checkout}")
+    return smoke
+
+
+def build(checkout: Path) -> None:
+    """Build the checkout's two loss libraries and print ptxas's report."""
+    smoke = _smoke_on(checkout)
+    names = (smoke.infonce.LIBRARY, smoke.infonce_dot.LIBRARY)
+    smoke.build.build_libraries(names)
+    for name in names:
+        print(f"[build] {checkout} {name}:")
+        for ln in smoke.build.build_log(name).splitlines():
+            if "Used" in ln or "spill" in ln or "Compiling entry" in ln:
+                print(f"    {ln.strip()}")
+
+
+def errors(smoke, smi: str) -> dict:
+    """{case: {"kernel" / "float32 plain": [rel err of dz1, of dz3]}}
+    against the plain version in float64."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for p in (1.0, 2.0):
+        for kind in ("collapsed", "far-apart"):
+            z1, z3 = smoke._lp_inputs(kind, rng)
+            ct = smoke._cotangent(z1.shape[0], rng)
+            exact = smoke._value_and_grads(
+                lambda a, b: smoke.infonce.neg_lse_reference(a, b, p, smoke.TAU),
+                z1, z3, ct, torch.float64)
+            row = {}
+            for who, fn in (("kernel", smoke.infonce.fused_neg_lse),
+                            ("float32 plain", smoke.infonce.neg_lse_reference)):
+                got = smoke._value_and_grads(lambda a, b: fn(a, b, p, smoke.TAU),
+                                             z1, z3, ct)
+                row[who] = [smoke.rel_err(g.double(), w)
+                            for g, w in zip(got[1:], exact[1:])]
+            label = f"{kind} p={p:g}"
+            out[label] = row
+            print(f"[errors] {label} B={z1.shape[0]} n={z1.shape[1]}, rel err vs "
+                  f"float64 (dz1, dz3): " + "; ".join(
+                      f"{k} {v[0]:.2e} {v[1]:.2e}" for k, v in row.items())
+                  + f" on {smi}", flush=True)
+            del exact
+            torch.cuda.empty_cache()
+    return out
+
+
+def turn(checkout: Path, result: Path, with_errors: bool) -> None:
+    """One turn of one checkout; every number goes to ``result``."""
+    smoke = _smoke_on(checkout)
+    _, smi = smoke.phase_device()
+    out = {"errors": errors(smoke, smi) if with_errors else None, "times": {},
+           "steps": {}}
+    for label, (p, tau, m, n) in smoke.TIMED.items():
+        out["times"][label] = smoke._time_loss(smoke._loss_cases(p, tau)[0], m, n)
+    for config in ("sphere", "box"):
+        out["steps"][config] = smoke._step_pairs_per_sec(config)
+    result.write_text(json.dumps(out))
+
+
+def _run(args: list[str]) -> None:
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), *args],
+                   check=True, timeout=1200)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkouts", nargs="*", type=Path,
+                    help="directories holding a tree of the repository")
+    ap.add_argument("--out", type=Path, default=OUT_DIR / "result.json")
+    ap.add_argument("--build", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--result", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--errors", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.build is not None:
+        build(args.build.resolve())
+        return 0
+    if args.turn is not None:
+        turn(args.turn.resolve(), args.result, args.errors)
+        return 0
+    if not args.checkouts:
+        ap.error("name at least one checkout")
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_lse_kernels: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    names = [str(c) for c in args.checkouts]
+    builds = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                "--build", str(c)]) for c in args.checkouts]
+    if any(proc.wait(timeout=1200) != 0 for proc in builds):
+        raise SystemExit("compare_lse_kernels: a build failed")
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    order = list(range(len(names))) + list(range(len(names)))[::-1]
+    turns = {name: [] for name in names}
+    errs = {}
+    for k, i in enumerate(order):
+        path = OUT_DIR / f"turn{k}.json"
+        first = names[i] not in errs
+        _run(["--turn", str(args.checkouts[i]), "--result", str(path)]
+             + (["--errors"] if first else []))
+        got = json.loads(path.read_text())
+        if first:
+            errs[names[i]] = got["errors"]
+        turns[names[i]].append(got)
+        print(f"[turn {k}] {names[i]} done", flush=True)
+
+    times = {}
+    for label in turns[names[0]][0]["times"]:
+        times[label] = {name: {k: min(t["times"][label][k] for t in ts)
+                               for k in ts[0]["times"][label]}
+                        for name, ts in turns.items()}
+        print(f"[times] {label}, device ms (CUDA graph of 10 calls, median of "
+              f"15 replays), better of two turns, on {smi}: " + "; ".join(
+                  f"{name}: " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
+                  for name, t in times[label].items()), flush=True)
+    steps = {config: {name: [t["steps"][config] for t in ts]
+                      for name, ts in turns.items()}
+             for config in ("sphere", "box")}
+    for config, row in steps.items():
+        print(f"[steps] main_mlp {config} B=6144, pairs/s of 50 steady steps, "
+              f"each checkout's two turns, on {smi}: " + "; ".join(
+                  f"{name} " + " ".join(f"{v:.0f}" for v in vs)
+                  for name, vs in row.items()), flush=True)
+    result = {"card": smi, "order": [names[i] for i in order], "errors": errs,
+              "times": times, "steps": steps,
+              "turns": {name: [t["times"] for t in ts] for name, ts in turns.items()}}
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    print(f"[compare] written to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

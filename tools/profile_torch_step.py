@@ -9,7 +9,8 @@ SimCLR under the fixed-sphere head with --p 0), then:
      device synchronisation: sample_pair, mixing + encoder forward, the
      loss forward, backward, and the optimizer update;
   2. traces --steps unsynchronised steps with torch.profiler and prints
-     the device time by kernel and the device's busy share of the window.
+     the device time by kernel (the 15 longest and every kernel of the
+     port's own) and the device's busy share of the window.
 
 With --3dident it does the same for main_3dident's default unsupervised
 step at full width (ResNet18, B = 512, both views in one forward of 1024
@@ -117,9 +118,12 @@ def trace(step, steps: int, tag: str, card: str) -> None:
           f"{device_us / 1e3:.3f} ms, busy share {device_us / wall_us:.3f}, "
           f"{card}")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in events[:15]:
-        print(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
-              f"{e.count // steps:5d}/step  {e.key[:90]}")
+    # the 15 longest, and every kernel of the port's own wherever it ranks
+    own = ("neg_lse_", "dot_lse_", "stem_")
+    for rank, e in enumerate(events):
+        if rank < 15 or any(k in e.key for k in own):
+            print(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
+                  f"{e.count // steps:5d}/step  {e.key[:90]}")
     cpu = sorted(prof.key_averages(), key=lambda e: e.count, reverse=True)[:8]
     print("[trace] most frequent host ops per step: " + "; ".join(
         f"{e.key} {e.count // steps}" for e in cpu))
