@@ -16,8 +16,10 @@ use) and no network, and it exits non-zero on any failure. Phases:
              also three temperatures, unit-sphere and normal inputs, and
              logits of order 1e4, and both losses at the column slices
              main_3dident's split loss hands them (512 rows, n = 3 at
-             p = 2 and n = 8); fused_neg_lse's gradients also at shapes
-             that cut their chunks unevenly, and at collapsed and
+             p = 2 and n = 8); both losses' gradients also at shapes
+             that cut their chunks unevenly (the dot's at n = 3, 8, 10,
+             12, 13, 16, 17: every instance of its tiled kernel and the
+             first version past it), fused_neg_lse's at collapsed and
              far-apart inputs against float64. The stem's two kernels (stem_fwd,
              stem_bwd) against theirs, float32 and bfloat16: small ragged
              shapes, tied inputs, and the full (1024, 112, 112, 64)
@@ -124,9 +126,11 @@ KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
             "cl_ica_tpu/ops/infonce_pallas.py:148"),
     "dot_fwd": ("dot_lse_fwd", "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
                 "cl_ica_tpu/ops/infonce_pallas.py:319"),
-    "dot_dz1": ("dot_lse_dz1", "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
+    "dot_dz1": ("dot_lse_grad_kernel<NF, false> + grad_reduce_kernel",
+                "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
                 "cl_ica_tpu/ops/infonce_pallas.py:345"),
-    "dot_dz3": ("dot_lse_dz3", "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
+    "dot_dz3": ("dot_lse_grad_kernel<NF, true> + grad_reduce_kernel",
+                "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
                 "cl_ica_tpu/ops/infonce_pallas.py:369"),
     "stem_fwd": ("stem_fwd", "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
                  "cl_ica_tpu/ops/stem_pallas.py:223"),
@@ -286,6 +290,47 @@ def _hold_uneven_splits(rng, worst: dict) -> None:
                       worst)
 
 
+def _hold_dot_uneven_splits(rng, worst: dict) -> None:
+    """fused_dot_lse's gradients at the shapes of _hold_uneven_splits, at a
+    width of each instance of the tiled kernel (n = 3, 8, 10, 12 and 13,
+    16: NF = 4, 8, 10, 12, 16, a runtime n zero-padded) and at n = 17, the
+    first version's edge, at tau = 0.7 and 0.05."""
+    for n_feat in (3, 8, 10, 12, 13, 16, 17):
+        for tau in (TAU, 0.05):
+            for m, n in ((BATCH, 700), (33, BATCH)):
+                z1, z3 = _pair(m, n, rng, n_feat)
+                ct = _cotangent(m, rng)
+                _hold(f"dot_lse tau={tau:g} n={n_feat} M={m} N={n} (uneven chunks)",
+                      DOT,
+                      _value_and_grads(lambda a, b: infonce_dot.fused_dot_lse(a, b, tau),
+                                       z1, z3, ct),
+                      _value_and_grads(lambda a, b: infonce_dot.dot_lse_reference(a, b, tau),
+                                       z1, z3, ct),
+                      worst)
+
+
+def _dot_radii_errors(rng) -> tuple[list, list, bool]:
+    """Large logits with near-ties: rows of radii uniform in (0, 30], no
+    exact match, tau = 0.05, M = N = BATCH. The relative errors (value, dz1,
+    dz3) of the kernels and of the float32 plain version, both against the
+    plain version in float64, and whether the kernels' outputs are finite."""
+    z1 = _unit(rng.normal(size=(BATCH, N_FEAT))) * rng.uniform(0, 30, (BATCH, 1))
+    z3 = _unit(rng.normal(size=(BATCH, N_FEAT))) * rng.uniform(0, 30, (BATCH, 1))
+    z1, z3 = z1.astype(np.float32), z3.astype(np.float32)
+    ct = _cotangent(BATCH, rng)
+    kern = _value_and_grads(lambda a, b: infonce_dot.fused_dot_lse(a, b, 0.05), z1, z3, ct)
+    exact = _value_and_grads(lambda a, b: infonce_dot.dot_lse_reference(a, b, 0.05),
+                             z1, z3, ct, torch.float64)
+    plain = _value_and_grads(
+        lambda a, b: infonce_dot.dot_lse_reference(a, b, 0.05), z1, z3, ct)
+    e_kern = [rel_err(g.double(), w) for g, w in zip(kern, exact)]
+    e_plain = [rel_err(g.double(), w) for g, w in zip(plain, exact)]
+    finite = all(bool(torch.isfinite(g).all()) for g in kern)
+    del kern, plain, exact
+    torch.cuda.empty_cache()
+    return e_kern, e_plain, finite
+
+
 def _lp_inputs(kind: str, rng) -> tuple[np.ndarray, np.ndarray]:
     """z1, z3 (BATCH, N_FEAT). "collapsed": every row one point plus noise
     of 1e-3, z3's rows shifted by 3e-3 in every feature, so that every w is
@@ -390,26 +435,19 @@ def phase_kernels() -> dict:
     # in the float32 plain version alike. So both are held against the
     # plain version in float64: the kernel's error may be at most the bar,
     # or STEP_FACTOR times the float32 plain version's own error.
-    z1 = _unit(rng.normal(size=(BATCH, N_FEAT))) * rng.uniform(0, 30, (BATCH, 1))
-    z3 = _unit(rng.normal(size=(BATCH, N_FEAT))) * rng.uniform(0, 30, (BATCH, 1))
-    z1, z3 = z1.astype(np.float32), z3.astype(np.float32)
-    ct = _cotangent(BATCH, rng)
-    kern, exact = dot_pair(0.05, z1, z3, ct, torch.float64)
-    plain = _value_and_grads(
-        lambda a, b: infonce_dot.dot_lse_reference(a, b, 0.05), z1, z3, ct)
-    e_kern = [rel_err(g.double(), w) for g, w in zip(kern, exact)]
-    e_plain = [rel_err(g.double(), w) for g, w in zip(plain, exact)]
+    e_kern, e_plain, finite = _dot_radii_errors(rng)
     print(f"[2 kernels] dot_lse radii<=30 tau=0.05 M=N={BATCH}, rel err vs "
           f"float64 (value, dz1, dz3): kernel {e_kern[0]:.2e} {e_kern[1]:.2e} "
           f"{e_kern[2]:.2e}; float32 plain {e_plain[0]:.2e} {e_plain[1]:.2e} "
           f"{e_plain[2]:.2e}")
-    if not all(torch.isfinite(g).all() for g in kern):
+    if not finite:
         raise AssertionError("dot_lse radii<=30: non-finite output")
     for e, ep, bar in zip(e_kern, e_plain, (VALUE_BAR, GRAD_BAR, GRAD_BAR)):
         if e > max(bar, STEP_FACTOR * ep):
             raise AssertionError(
                 f"dot_lse radii<=30 vs float64: kernel {e_kern}, float32 "
                 f"plain {e_plain}")
+    _hold_dot_uneven_splits(rng, worst)
     return worst
 
 

@@ -1,11 +1,14 @@
 // What the fused InfoNCE kernels of infonce_lp.cu (Lp distance) and
 // infonce_dot.cu (dot product) share: the block shape, the staging of the
-// other operand's rows through shared memory, and the row reductions.
+// other operand's rows through shared memory, and the row reductions; and
+// for the tiled gradients (neg_lse_grad_kernel, dot_lse_grad_kernel) their
+// block shape, the width of a staged row, and the reduce over chunks.
 //
-// A block owns kRows rows of one operand; the kLanes threads of a row split
-// the rows of the other operand between them, kTile of which are staged per
-// step. Each library is compiled from one .cu file, so everything here is
-// in an anonymous namespace.
+// A block of the forwards and first-version gradients owns kRows rows of
+// one operand; the kLanes threads of a row split the rows of the other
+// operand between them, kTile of which are staged per step. Each library
+// is compiled from one .cu file, so everything here is in an anonymous
+// namespace.
 
 #pragma once
 
@@ -84,5 +87,49 @@ __device__ __forceinline__ void online_lse_step(float x, float& m, double& s) {
 inline int blocks_for(int rows) { return (rows + kRows - 1) / kRows; }
 
 inline int width_slot(int n) { return n <= kNmaxSmall ? 0 : 1; }
+
+// ------------------------------------------------- the tiled gradients
+// 256 threads; the kGradCols threads of a row group hold kGradRows own rows
+// in registers and take every kGradCols-th row of a staged tile of the
+// other operand (see the note at the top of each .cu).
+constexpr int kGradThreads = 256;
+constexpr int kGradCols = 4;    // threads that share own rows
+constexpr int kGradRows = 2;    // own rows per thread
+constexpr int kGradBlockRows = kGradThreads / kGradCols * kGradRows;  // 128
+constexpr int kGradTile = 128;  // other rows staged per step
+
+// Floats per staged row: NF features, then (dz3) two floats of the row's
+// own (its exponent shift and its cotangent), padded to whole float4s. A
+// warp reads one float4 of four consecutive rows at once; a row of four
+// float4s would put rows 0 and 2 in the same banks, so it gets a fifth.
+template <int NF, bool DZ3>
+constexpr int kStagedQuads = (NF + (DZ3 ? 2 : 0) + 3) / 4;
+template <int NF, bool DZ3>
+constexpr int kStagedWidth =
+    4 * (kStagedQuads<NF, DZ3> % 4 == 0 ? kStagedQuads<NF, DZ3> + 1
+                                         : kStagedQuads<NF, DZ3>);
+
+// out[e] = scale * c_row * sum over s of part[s][e] for part (splits, rows,
+// n): the chunks' float partials added in double, s in order, so a run
+// repeats bit for bit. ct is null where the gradient has no per-row factor
+// (dz3).
+__global__ void __launch_bounds__(256)
+grad_reduce_kernel(const float* __restrict__ part, const float* __restrict__ ct,
+                   float* __restrict__ out, int rows, int n, int splits,
+                   double scale) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= rows * n) return;
+  double v = 0.0;
+  for (int s = 0; s < splits; ++s) v += (double)part[(size_t)s * rows * n + e];
+  if (ct != nullptr) scale *= (double)ct[e / n];
+  out[e] = (float)(scale * v);
+}
+
+inline void launch_grad_reduce(const float* part, const float* ct, float* out,
+                               int rows, int n, int splits, double scale,
+                               cudaStream_t st) {
+  grad_reduce_kernel<<<(rows * n + 255) / 256, 256, 0, st>>>(
+      part, ct, out, rows, n, splits, scale);
+}
 
 }  // namespace

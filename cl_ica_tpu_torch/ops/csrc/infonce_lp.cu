@@ -4,10 +4,10 @@
 //
 // Replaces the Pallas TPU kernels of cl_ica_tpu/ops/infonce_pallas.py:
 //   neg_lse_fwd_kernel <- _fwd_kernel  (pallas_call in _fwd, :232)
-//   dz1: neg_lse_grad_kernel<.., false> + neg_lse_grad_reduce_kernel for
+//   dz1: neg_lse_grad_kernel<.., false> + grad_reduce_kernel for
 //        n = 3, 8, 10; neg_lse_dz1_kernel for any other n
 //        <- _dz1_kernel  (pallas_call in _bwd, :262)
-//   dz3: neg_lse_grad_kernel<.., true> + neg_lse_grad_reduce_kernel for
+//   dz3: neg_lse_grad_kernel<.., true> + grad_reduce_kernel for
 //        n = 3, 8, 10; neg_lse_dz3_kernel for any other n
 //        <- _dz3_kernel  (pallas_call in _bwd, :280)
 //
@@ -45,7 +45,7 @@
 //    float32 running sum over the N/16 terms one thread sees could lose up
 //    to ~N/32 ulps.
 //
-// The gradients (neg_lse_grad_kernel + neg_lse_grad_reduce_kernel for
+// The gradients (neg_lse_grad_kernel + grad_reduce_kernel for
 // n = 3, 8 and 10, the widths of main_mlp and main_3dident). Both are
 //   out_r = -(p/tau) * c_own_r * sum_o c_oth_o * w_ro * g(own_r - oth_o),
 // with own = z1, oth = z3, c_own = c, c_oth = 1 for dz1, and own = z3,
@@ -71,10 +71,11 @@
 //    (ops/infonce.py:split_plan picks S from the shapes and the blocks the
 //    card holds at once), a grid of row blocks x S. Each block writes its
 //    rows' partial sums, in float, to a scratch buffer the wrapper
-//    allocates, and neg_lse_grad_reduce_kernel adds the S partials of each
-//    element in double, in the order of s, and scales them. With S = 1 the
-//    first kernel writes the result itself. The reduce kernel is part of
-//    the gradient: the wrapper counts one launch for the pair.
+//    allocates, and grad_reduce_kernel (infonce_common.cuh) adds the S
+//    partials of each element in double, in the order of s, and scales
+//    them. With S = 1 the first kernel writes the result itself. The
+//    reduce kernel is part of the gradient: the wrapper counts one launch
+//    for the pair.
 //  * Per pair: one FMA d * (-log2 e / tau) + (-log2 e * lse) and exp2f,
 //    in place of a division, a subtraction and the accurate expf; the
 //    staging divides by a compile-time n.
@@ -238,18 +239,10 @@ neg_lse_dz3_kernel(const float* __restrict__ z1, const float* __restrict__ z3,
 }
 
 // ------------------------------------------- dz1 and dz3 for n = 3, 8, 10
-// See the note at the top.
-constexpr int kGradThreads = 256;
-constexpr int kGradCols = 4;    // threads that share own rows
-constexpr int kGradRows = 2;    // own rows per thread
-constexpr int kGradBlockRows = kGradThreads / kGradCols * kGradRows;
-constexpr int kGradTile = 128;  // other rows staged per step
+// See the note at the top; the block shape is infonce_common.cuh's. A
+// staged row holds the n features, then (dz3) the row's exponent shift
+// -lse and its cotangent (kStagedWidth).
 constexpr float kLog2E = 1.4426950408889634f;  // exponents go to exp2f
-
-// Floats per staged row: the n features, then (dz3) the row's exponent
-// shift -lse and its cotangent, padded to whole float4s.
-template <int NF, bool DZ3>
-constexpr int kStagedWidth = (NF + (DZ3 ? 2 : 0) + 3) / 4 * 4;
 
 // Block (x, s) owns kGradBlockRows rows of `own` and adds over the rows
 // [s * chunk, (s + 1) * chunk) of `oth`. With `part` null (one chunk) it
@@ -363,21 +356,6 @@ neg_lse_grad_kernel(const float* __restrict__ own, const float* __restrict__ oth
   }
 }
 
-// out[e] = -(p/tau) * c_row * sum over s of part[s][e], in double, s in
-// order; ct is null for dz3.
-__global__ void __launch_bounds__(256)
-neg_lse_grad_reduce_kernel(const float* __restrict__ part,
-                           const float* __restrict__ ct, float* __restrict__ out,
-                           int rows, int n, int splits, float p, float tau) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= rows * n) return;
-  double v = 0.0;
-  for (int s = 0; s < splits; ++s) v += (double)part[(size_t)s * rows * n + e];
-  double scale = -(double)p / (double)tau;
-  if (ct != nullptr) scale *= (double)ct[e / n];
-  out[e] = (float)(scale * v);
-}
-
 // ---------------------------------------------------------------- launch
 bool bad_args(int M, int N, int n, int pmode) {
   return M < 1 || N < 1 || n < 1 || n > kNmaxLarge || pmode < 0 || pmode > 2;
@@ -411,8 +389,8 @@ cudaError_t dz3_impl(const float* z1, const float* z3, const float* lse,
 }
 
 // neg_lse_grad_kernel over (own row blocks) x (chunks of the other rows),
-// then, for more than one chunk, neg_lse_grad_reduce_kernel over part
-// (chunks, own rows, n).
+// then, for more than one chunk, grad_reduce_kernel over part (chunks, own
+// rows, n), scaled by -(p/tau) (and c_i for dz1).
 template <int PM, int NF, bool DZ3>
 cudaError_t grad_impl(const float* z1, const float* z3, const float* lse,
                       const float* ct, float* out, float* part, int chunk,
@@ -427,9 +405,8 @@ cudaError_t grad_impl(const float* z1, const float* z3, const float* lse,
       n_own, n_oth, chunk, p, tau);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const int elems = n_own * NF;
-  neg_lse_grad_reduce_kernel<<<(elems + 255) / 256, 256, 0, st>>>(
-      part, DZ3 ? nullptr : ct, out, n_own, NF, splits, p, tau);
+  launch_grad_reduce(part, DZ3 ? nullptr : ct, out, n_own, NF, splits,
+                     -(double)p / (double)tau, st);
   return cudaGetLastError();
 }
 

@@ -155,21 +155,40 @@ def split_plan(own_rows: int, other_rows: int, block_rows: int,
     return -(-other_rows // chunk), chunk
 
 
-@functools.cache
-def _grad_slots(device_index: int, which: str, n: int,
-                pmode: int) -> tuple[int, int] | None:
-    """(own rows per block, blocks the card holds at once) of the tiled
-    gradient kernel for these arguments, or None where the library has no
-    tiled kernel for n (the first version runs, in one chunk)."""
-    lib = load_kernels()
+def grad_slots(lib, prefix: str, device_index: int, which: str,
+               *args) -> tuple[int, int] | None:
+    """(own rows per block, blocks the card holds at once) of a library's
+    tiled gradient kernel, asked of ``clica_<prefix>_grad_blocks_per_sm``
+    (dz3, *args, &blocks), or None where the library has no tiled kernel
+    for these arguments (the first version runs, in one chunk)."""
     per_sm = _I()
-    rc = lib.clica_neg_lse_grad_blocks_per_sm(int(which == "dz3"), n, pmode,
-                                              ctypes.byref(per_sm))
-    _check_launch(lib, rc, f"neg_lse {which} occupancy")
+    rc = getattr(lib, f"clica_{prefix}_grad_blocks_per_sm")(
+        int(which == "dz3"), *args, ctypes.byref(per_sm))
+    _check_launch(lib, rc, f"{prefix} {which} occupancy")
     if per_sm.value == 0:
         return None
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return lib.clica_neg_lse_grad_block_rows(), sms * per_sm.value
+    return getattr(lib, f"clica_{prefix}_grad_block_rows")(), sms * per_sm.value
+
+
+def grad_scratch(rows: int, others: int, n: int, tiled, device):
+    """(chunk, part) of a gradient launch: the other operand's rows in
+    chunks (split_plan) and the (splits, rows, n) float buffer of the
+    chunks' partial sums, None for one chunk or where ``tiled`` (from
+    grad_slots) is None."""
+    if tiled is None:
+        return others, None
+    splits, chunk = split_plan(rows, others, *tiled)
+    part = None
+    if splits > 1:
+        part = torch.empty((splits, rows, n), device=device, dtype=torch.float32)
+    return chunk, part
+
+
+@functools.cache
+def _grad_slots(device_index: int, which: str, n: int,
+                pmode: int) -> tuple[int, int] | None:
+    return grad_slots(load_kernels(), "neg_lse", device_index, which, n, pmode)
 
 
 def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
@@ -177,12 +196,9 @@ def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
     (m, n), nn = z1.shape, z3.shape[0]
     rows, others = (m, nn) if which == "dz1" else (nn, m)
     out = torch.empty((rows, n), device=z1.device, dtype=torch.float32)
-    splits, chunk, part = 1, others, None
-    tiled = _grad_slots(z1.device.index, which, n, _pmode(p))
-    if tiled is not None:
-        splits, chunk = split_plan(rows, others, *tiled)
-    if splits > 1:
-        part = torch.empty((splits, rows, n), device=z1.device, dtype=torch.float32)
+    chunk, part = grad_scratch(rows, others, n,
+                               _grad_slots(z1.device.index, which, n, _pmode(p)),
+                               z1.device)
     fn = lib.clica_neg_lse_dz1 if which == "dz1" else lib.clica_neg_lse_dz3
     with torch.cuda.device(z1.device):
         rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),

@@ -11,7 +11,10 @@ note there for what bounds them and how they differ from the TPU
 kernels); the three products z1 z3ᵀ, W z3 and Wᵀ z1 are computed inside
 those kernels. This module builds and binds them, wraps them in a
 ``torch.autograd.Function``, and counts their launches beside
-``fused_neg_lse``'s (``ops.launch_counts``).
+``fused_neg_lse``'s (``ops.launch_counts``). The gradients take the other
+operand's rows in chunks where the library has a tiled kernel for n (it
+says which, ``clica_dot_lse_grad_blocks_per_sm``), with the same plan as
+``fused_neg_lse``'s (``ops.infonce.split_plan``).
 
 On CPU tensors ``fused_dot_lse`` computes ``dot_lse_reference``, the
 plain version, because there is no kernel to launch there. On CUDA
@@ -34,6 +37,8 @@ from .infonce import (
     _check_pair,
     _launches,
     _stream,
+    grad_scratch,
+    grad_slots,
 )
 
 LIBRARY = "infonce_dot"
@@ -51,16 +56,24 @@ def dot_lse_reference(z1: torch.Tensor, z3: torch.Tensor,
 
 @functools.cache
 def load_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' library, with every
-    entry point's C signature declared."""
-    lib = load_library(LIBRARY)
+    """Build (at first use) and load the kernels' library."""
+    return declare(load_library(LIBRARY))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of every entry point of a library built
+    from csrc/infonce_dot.cu."""
     lib.clica_dot_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _I, _I, _I, _F,
                                       ctypes.c_void_p]
     lib.clica_dot_lse_fwd.restype = _I
     for fn in (lib.clica_dot_lse_dz1, lib.clica_dot_lse_dz3):
-        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I, _F,
-                       ctypes.c_void_p]
+        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I,
+                       _I, _F, ctypes.c_void_p]
         fn.restype = _I
+    lib.clica_dot_lse_grad_block_rows.argtypes = []
+    lib.clica_dot_lse_grad_block_rows.restype = _I
+    lib.clica_dot_lse_grad_blocks_per_sm.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.clica_dot_lse_grad_blocks_per_sm.restype = _I
     lib.clica_error_string.argtypes = [_I]
     lib.clica_error_string.restype = ctypes.c_char_p
     return lib
@@ -78,17 +91,25 @@ def _launch_fwd(z1, z3, tau: float) -> torch.Tensor:
     return lse
 
 
+@functools.cache
+def _grad_slots(device_index: int, which: str, n: int) -> tuple[int, int] | None:
+    return grad_slots(load_kernels(), "dot_lse", device_index, which, n)
+
+
 def _launch_bwd(which: str, z1, z3, lse, ct, tau: float) -> torch.Tensor:
     lib = load_kernels()
     (m, n), nn = z1.shape, z3.shape[0]
-    rows = m if which == "dz1" else nn
+    rows, others = (m, nn) if which == "dz1" else (nn, m)
     out = torch.empty((rows, n), device=z1.device, dtype=torch.float32)
+    chunk, part = grad_scratch(rows, others, n,
+                               _grad_slots(z1.device.index, which, n), z1.device)
     fn = lib.clica_dot_lse_dz1 if which == "dz1" else lib.clica_dot_lse_dz3
     with torch.cuda.device(z1.device):
         rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
-                out.data_ptr(), m, nn, n, tau, _stream(z1))
+                out.data_ptr(), None if part is None else part.data_ptr(),
+                chunk, m, nn, n, tau, _stream(z1))
     _check_launch(lib, rc, f"dot_lse {which}")
-    _launches[f"dot_{which}"] += 1
+    _launches[f"dot_{which}"] += 1  # the gradient kernel and its reduce kernel
     return out
 
 

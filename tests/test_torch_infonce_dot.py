@@ -7,6 +7,8 @@ does. The Hopper kernels themselves are compared with the plain version
 on the card by chip_smoke.py: pytest cannot start there.
 """
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,14 +39,17 @@ def _rolled(m, n_rows, n_feat, seed, scale=0.5):
     return z1, z3
 
 
+@pytest.mark.parametrize("n_feat", [3, 6, 8, 10, 16])
 @pytest.mark.parametrize("tau", [0.5, 1.0])
 @pytest.mark.parametrize("shape", [(7, 7), (50, 50), (32, 96), (96, 32)])
-def test_dot_lse_matches_jax_kernel(tau, shape):
+def test_dot_lse_matches_jax_kernel(tau, shape, n_feat):
     # tolerances of tests/test_ops.py: values rtol 1e-4 / atol 1e-5, both
     # grads rtol 5e-3 / atol 5e-4 (float32 sums in different orders); the
-    # cotangent is not constant across rows, as after logaddexp and mean
+    # cotangent is not constant across rows, as after logaddexp and mean.
+    # n: main_3dident's angular slice (8), main_mlp's latents (10), and the
+    # widths around the kernel's instances (3, 6, 16)
     m, n_rows = shape
-    z1, z3 = _rolled(m, n_rows, 6, seed=m + n_rows)
+    z1, z3 = _rolled(m, n_rows, n_feat, seed=m + n_rows + n_feat)
     ct = np.linspace(0.5, 1.5, m).astype(np.float32)
 
     def jax_obj(a, b):
@@ -84,6 +89,67 @@ def test_reference_is_the_closed_form():
     np.testing.assert_allclose(got.detach().numpy(), lse, rtol=1e-5)
     np.testing.assert_allclose(a.grad.numpy(), cw @ z3, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(b.grad.numpy(), cw.T @ z1, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_feat", [3, 8, 10, 13])
+def test_zero_features_change_nothing(n_feat):
+    # The argument the kernel's instances rest on: a runtime n is staged
+    # into NF = 4, 8, 12 or 16 features, zero past n. Padding z1 and z3 with
+    # zero features to 16 leaves the value and the first n columns of both
+    # gradients as they were, to 1e-5 of their largest entry (the plain
+    # version's float32 sum over 16 products groups them otherwise than
+    # over n), and the padded columns' gradients exactly 0.
+    z1, z3 = _rolled(40, 56, n_feat, seed=n_feat)
+    ct = torch.linspace(0.5, 1.5, 40)
+    out = []
+    for width in (n_feat, 16):
+        a, b = (torch.tensor(np.pad(z, ((0, 0), (0, width - n_feat))),
+                             requires_grad=True) for z in (z1, z3))
+        lse = dot_lse_reference(a, b, 0.7)
+        (lse * ct).sum().backward()
+        out.append((lse.detach(), a.grad, b.grad))
+    (lse, d1, d3), (lse_p, d1_p, d3_p) = out
+    for got, want in ((lse_p, lse), (d1_p[:, :n_feat], d1), (d3_p[:, :n_feat], d3)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(d1_p[:, n_feat:], torch.zeros(40, 16 - n_feat))
+    assert torch.equal(d3_p[:, n_feat:], torch.zeros(56, 16 - n_feat))
+
+
+def _round_to_float32(x: Fraction) -> Fraction:
+    """x rounded to the nearest float32, ties to even (normal range)."""
+    if x == 0:
+        return x
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length() - 23
+    while x / Fraction(2) ** e >= 2 ** 24:
+        e += 1
+    while x / Fraction(2) ** e < 2 ** 23:
+        e -= 1
+    m = x / Fraction(2) ** e
+    whole, rest = divmod(m.numerator, m.denominator)
+    if 2 * rest > m.denominator or (2 * rest == m.denominator and whole % 2):
+        whole += 1
+    return sign * whole * Fraction(2) ** e
+
+
+@pytest.mark.parametrize("tau", [0.05, 0.7, 1.0, 0.1, 0.3, 1.7, 0.013, 9.0])
+def test_quotient_is_the_division(tau):
+    # csrc/infonce_dot.cu's quotient(): with rtau = RN(1 / tau), q =
+    # RN(d * rtau), then RN(q + RN(d - q * tau) * rtau) by two fmaf, must
+    # be RN(d / tau) bit for bit, the forward's x (Markstein's theorem).
+    # Every step is one float32 rounding of an exact rational, as fmaf and
+    # the product round on the card.
+    rng = np.random.default_rng(int(1000 * tau))
+    t = Fraction(float(np.float32(tau)))
+    rtau = _round_to_float32(1 / t)
+    ds = np.concatenate([rng.normal(size=500) * 10.0 ** rng.uniform(-6, 3, 500),
+                         rng.uniform(-900, 900, 250)]).astype(np.float32)
+    for d in map(Fraction, ds.astype(np.float64)):
+        q = _round_to_float32(d * rtau)
+        remainder = d - q * t
+        assert _round_to_float32(remainder) == remainder  # exact in one fmaf
+        got = _round_to_float32(q + remainder * rtau)
+        assert got == _round_to_float32(d / t), (float(d), tau)
 
 
 @pytest.mark.parametrize("shape", [(16, 16), (8, 24)])

@@ -8,13 +8,14 @@ and that a tensor off the CPU never takes the plain version.
 
 import contextlib
 import os
+import re
 import stat
 from pathlib import Path
 
 import pytest
 import torch
 
-from cl_ica_tpu_torch.ops import build, fused_neg_lse, infonce
+from cl_ica_tpu_torch.ops import build, fused_neg_lse, infonce, infonce_dot
 
 torch.set_num_threads(1)
 
@@ -172,3 +173,114 @@ def test_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want
     assert args[6:10] == (chunk, m, nn, n)
     assert (args[5] is None) == (splits == 1)
     assert infonce.launch_counts()[which] == before + 1
+
+
+class _FakeDotLib:
+    """csrc/infonce_dot.cu's library, recording each gradient call's
+    arguments. Like the library it has a tiled kernel for n <= 16: two
+    blocks of 128 own rows per SM there, none past it."""
+
+    def __init__(self):
+        self.calls = []
+
+        def entry(*args):
+            self.calls.append(args)
+            return 0
+
+        def blocks_per_sm(dz3, n, blocks):
+            blocks._obj.value = 2 if n <= 16 else 0
+            return 0
+
+        self.clica_dot_lse_dz1 = self.clica_dot_lse_dz3 = entry
+        self.clica_dot_lse_grad_blocks_per_sm = blocks_per_sm
+        self.clica_dot_lse_grad_block_rows = lambda: 128
+
+
+@pytest.mark.parametrize("which, n, m, nn, want", [
+    ("dz1", 10, 6144, 6144, (11, 559)),  # main_mlp --p 0: 48 x 11 blocks
+    ("dz3", 10, 6144, 6144, (11, 559)),
+    ("dz1", 8, 512, 512, (8, 64)),       # main_3dident's angular slice: 4 x 8
+    ("dz3", 8, 512, 512, (8, 64)),
+    ("dz1", 10, 6144, 700, (10, 70)),    # uneven chunks (chip_smoke phase 2)
+    ("dz3", 10, 6144, 700, (88, 70)),
+    ("dz1", 16, 33, 6144, (96, 64)),
+    ("dz1", 17, 6144, 6144, (1, 6144)),  # past 16: the first version, one chunk
+    ("dz3", 40, 70, 45, (1, 70)),
+])
+def test_dot_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want):
+    lib = _FakeDotLib()
+    monkeypatch.setattr(infonce_dot, "load_kernels", lambda: lib)
+    monkeypatch.setattr(  # 132 SMs x 2 blocks = 264 resident blocks
+        torch.cuda, "get_device_properties",
+        lambda d: type("Props", (), {"multi_processor_count": 132}))
+    infonce_dot._grad_slots.cache_clear()
+    monkeypatch.setattr(infonce_dot, "_grad_slots", infonce_dot._grad_slots.__wrapped__)
+    monkeypatch.setattr(infonce_dot, "_stream", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    empty = torch.empty
+    made = []
+
+    def record(shape, **kw):
+        made.append(tuple(shape))
+        return empty(shape, **kw)
+
+    z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
+    lse = ct = torch.zeros(m, device="meta")
+    before = infonce.launch_counts()
+    monkeypatch.setattr(torch, "empty", record)
+    out = infonce_dot._launch_bwd(which, z1, z3, lse, ct, 0.7)
+    rows, others = (m, nn) if which == "dz1" else (nn, m)
+    splits, chunk = want
+    assert out.shape == (rows, n)
+    assert made == [(rows, n)] + ([(splits, rows, n)] if splits > 1 else [])
+    if n > 16:
+        assert (splits, chunk) == (1, others)
+    (args,) = lib.calls
+    assert args[6:11] == (chunk, m, nn, n, 0.7)
+    assert (args[5] is None) == (splits == 1)
+    # one count for the gradient kernel and its reduce, no other counter
+    before[f"dot_{which}"] += 1
+    assert infonce.launch_counts() == before
+
+
+def _c_entry_points(source: str) -> dict:
+    """{name: number of arguments} of every function defined in the
+    extern "C" block of a csrc file."""
+    text = (build.CSRC / source).read_text()
+    block = text[text.index('extern "C" {'):]
+    out = {}
+    for name, params in re.findall(r"^\w[\w\s\*]*?\b(clica_\w+)\(([^)]*)\)\s*\{",
+                                   block, flags=re.M):
+        params = " ".join(params.split())
+        out[name] = 0 if params in ("", "void") else params.count(",") + 1
+    return out
+
+
+class _Declared:
+    """A stand-in library on which declare() sets argtypes and restype;
+    each entry point it is asked for is recorded."""
+
+    def __getattr__(self, name):
+        fn = type("Entry", (), {})()
+        setattr(self, name, fn)
+        return fn
+
+
+_LIBRARIES = {"infonce_lp.cu": infonce.declare, "infonce_dot.cu": infonce_dot.declare}
+
+
+@pytest.mark.parametrize("source, name", [
+    (source, name) for source in _LIBRARIES for name in _c_entry_points(source)])
+def test_declared_argtypes_match_the_c_definition(source, name):
+    # ctypes passes whatever it is given: an argtypes list one short or
+    # one long shifts every later argument (a pointer read as an int)
+    lib = _Declared()
+    _LIBRARIES[source](lib)
+    assert len(getattr(lib, name).argtypes) == _c_entry_points(source)[name]
+
+
+@pytest.mark.parametrize("source", sorted(_LIBRARIES))
+def test_every_c_entry_point_is_declared(source):
+    lib = _Declared()
+    _LIBRARIES[source](lib)
+    assert set(vars(lib)) == set(_c_entry_points(source))

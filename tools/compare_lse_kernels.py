@@ -21,8 +21,10 @@ process a turn:
 
   1. errors, in each checkout's first turn: fused_neg_lse's gradients at
      chip_smoke's collapsed and far-apart inputs (B = 6144, n = 10, p = 1
-     and 2) against the plain version in float64, beside the float32 plain
-     version's own error;
+     and 2), and fused_dot_lse's value and gradients at chip_smoke's two
+     large-logit inputs (tau = 0.05: rows of norm 30, rolled, and radii
+     uniform in (0, 30]), against the plain version in float64, beside the
+     float32 plain version's own error;
   2. times: every entry of chip_smoke.TIMED (main_mlp's M = N = 6144,
      n = 10 at p = 1, p = 2 and the dot product; main_3dident's 512-row
      slices, n = 3 at p = 2 and n = 8 dot), the device ms of the forward,
@@ -30,8 +32,8 @@ process a turn:
      CUDA graphs of 10 calls, median of 15 replays); a checkout's time is
      the better of its two turns;
   3. steps: main_mlp's training step at B = 6144, pairs/s of 50 steady
-     steps, sphere+vMF p=2 and box+Laplace p=1 (chip_smoke's
-     configurations).
+     steps, sphere+vMF p=2, box+Laplace p=1 and sphere+vMF p=0 SimCLR
+     (chip_smoke's configurations).
 
 Prints the card's name and power limit beside every number and writes
 every number as JSON to --out (default runs/compare_lse/result.json).
@@ -51,6 +53,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT_DIR = ROOT / "runs" / "compare_lse"
+STEP_CONFIGS = ("sphere", "box", "simclr")
 
 
 def _smoke_on(checkout: Path):
@@ -78,9 +81,45 @@ def build(checkout: Path) -> None:
                 print(f"    {ln.strip()}")
 
 
+def _say_errors(label: str, row: dict, smi: str) -> None:
+    print(f"[errors] {label}, rel err vs float64 ({', '.join(row['of'])}): "
+          + "; ".join(f"{k} " + " ".join(f"{e:.2e}" for e in v)
+                      for k, v in row.items() if k != "of")
+          + f" on {smi}", flush=True)
+
+
+def dot_errors(smoke, smi: str) -> dict:
+    """chip_smoke's two large-logit checks of fused_dot_lse at tau = 0.05,
+    M = N = 6144: rows of norm 30, rolled (logits of 1.8e4), and radii
+    uniform in (0, 30] (near-ties). {case: {"kernel" / "float32 plain":
+    [rel err of value, dz1, dz3]}} against the plain version in float64."""
+    rng = np.random.default_rng(0)
+    z1, z3 = (30 * smoke._unit(z) for z in smoke._pair(smoke.BATCH, smoke.BATCH, rng))
+    ct = smoke._cotangent(smoke.BATCH, rng)
+    got = {}
+    for who, fn, dtype in (("exact", smoke.infonce_dot.dot_lse_reference, torch.float64),
+                           ("kernel", smoke.infonce_dot.fused_dot_lse, torch.float32),
+                           ("float32 plain", smoke.infonce_dot.dot_lse_reference,
+                            torch.float32)):
+        got[who] = smoke._value_and_grads(lambda a, b: fn(a, b, 0.05), z1, z3, ct, dtype)
+    exact = got.pop("exact")
+    out = {"|z|=30": {"of": ["value", "dz1", "dz3"], **{
+        who: [smoke.rel_err(g.double(), w) for g, w in zip(v, exact)]
+        for who, v in got.items()}}}
+    del got, exact
+    torch.cuda.empty_cache()
+    e_kern, e_plain, _ = smoke._dot_radii_errors(rng)
+    out["radii<=30"] = {"of": ["value", "dz1", "dz3"], "kernel": e_kern,
+                        "float32 plain": e_plain}
+    for case, row in out.items():
+        _say_errors(f"dot_lse {case} tau=0.05 B={smoke.BATCH} n={smoke.N_FEAT}",
+                    row, smi)
+    return out
+
+
 def errors(smoke, smi: str) -> dict:
     """{case: {"kernel" / "float32 plain": [rel err of dz1, of dz3]}}
-    against the plain version in float64."""
+    against the plain version in float64, then dot_errors' cases."""
     rng = np.random.default_rng(0)
     out = {}
     for p in (1.0, 2.0):
@@ -98,13 +137,11 @@ def errors(smoke, smi: str) -> dict:
                 row[who] = [smoke.rel_err(g.double(), w)
                             for g, w in zip(got[1:], exact[1:])]
             label = f"{kind} p={p:g}"
-            out[label] = row
-            print(f"[errors] {label} B={z1.shape[0]} n={z1.shape[1]}, rel err vs "
-                  f"float64 (dz1, dz3): " + "; ".join(
-                      f"{k} {v[0]:.2e} {v[1]:.2e}" for k, v in row.items())
-                  + f" on {smi}", flush=True)
+            out[label] = {"of": ["dz1", "dz3"], **row}
+            _say_errors(f"{label} B={z1.shape[0]} n={z1.shape[1]}", out[label], smi)
             del exact
             torch.cuda.empty_cache()
+    out.update(dot_errors(smoke, smi))
     return out
 
 
@@ -116,7 +153,7 @@ def turn(checkout: Path, result: Path, with_errors: bool) -> None:
            "steps": {}}
     for label, (p, tau, m, n) in smoke.TIMED.items():
         out["times"][label] = smoke._time_loss(smoke._loss_cases(p, tau)[0], m, n)
-    for config in ("sphere", "box"):
+    for config in STEP_CONFIGS:
         out["steps"][config] = smoke._step_pairs_per_sec(config)
     result.write_text(json.dumps(out))
 
@@ -182,7 +219,7 @@ def main() -> int:
                   for name, t in times[label].items()), flush=True)
     steps = {config: {name: [t["steps"][config] for t in ts]
                       for name, ts in turns.items()}
-             for config in ("sphere", "box")}
+             for config in STEP_CONFIGS}
     for config, row in steps.items():
         print(f"[steps] main_mlp {config} B=6144, pairs/s of 50 steady steps, "
               f"each checkout's two turns, on {smi}: " + "; ".join(
