@@ -16,11 +16,15 @@ use) and no network, and it exits non-zero on any failure. Phases:
              also three temperatures, unit-sphere and normal inputs, and
              logits of order 1e4, and both losses at the column slices
              main_3dident's split loss hands them (512 rows, n = 3 at
-             p = 2 and n = 8); both losses' gradients also at shapes
-             that cut their chunks unevenly (the dot's at n = 3, 8, 10,
-             12, 13, 16, 17: every instance of its tiled kernel and the
-             first version past it), fused_neg_lse's at collapsed and
-             far-apart inputs against float64. The stem's two kernels (stem_fwd,
+             p = 2 and n = 8); both losses' three kernels also at shapes
+             that cut their chunks unevenly, at n = 3, 8, 10, 12, 13, 16
+             and 17 (every instance of the tiled forwards and of the
+             dot's tiled gradients, and the first versions past them),
+             fused_neg_lse's at collapsed and far-apart inputs against
+             float64; both losses at tau = 1e38, whose 1 / tau is not a
+             normal float (the libraries send it to the first
+             versions), against float64; two forward calls on the same
+             inputs, bit for bit. The stem's two kernels (stem_fwd,
              stem_bwd) against theirs, float32 and bfloat16: small ragged
              shapes, tied inputs, and the full (1024, 112, 112, 64)
   3 parity   loss and every encoder grad of one training step at full
@@ -118,13 +122,15 @@ STEM_MAP_BAR = 1e-6
 STEM_SUM_BAR = 1e-5
 BF16_ULP = 2.0 ** -7  # bfloat16: one unit in the last place, relative
 KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
-    "fwd": ("neg_lse_fwd", "cl_ica_tpu_torch/ops/csrc/infonce_lp.cu",
+    "fwd": ("neg_lse_fwd_tiled<PM, NF> + lse_reduce_kernel",
+            "cl_ica_tpu_torch/ops/csrc/infonce_lp.cu",
             "cl_ica_tpu/ops/infonce_pallas.py:84"),
     "dz1": ("neg_lse_dz1", "cl_ica_tpu_torch/ops/csrc/infonce_lp.cu",
             "cl_ica_tpu/ops/infonce_pallas.py:110"),
     "dz3": ("neg_lse_dz3", "cl_ica_tpu_torch/ops/csrc/infonce_lp.cu",
             "cl_ica_tpu/ops/infonce_pallas.py:148"),
-    "dot_fwd": ("dot_lse_fwd", "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
+    "dot_fwd": ("dot_lse_fwd_tiled<NF> + lse_reduce_kernel",
+                "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
                 "cl_ica_tpu/ops/infonce_pallas.py:319"),
     "dot_dz1": ("dot_lse_grad_kernel<NF, false> + grad_reduce_kernel",
                 "cl_ica_tpu_torch/ops/csrc/infonce_dot.cu",
@@ -273,11 +279,13 @@ def _hold_split_slices(rng, worst: dict) -> None:
 
 
 def _hold_uneven_splits(rng, worst: dict) -> None:
-    """fused_neg_lse's gradients at shapes that cut the other operand into
-    chunks of unequal length and leave ragged row blocks (ops/infonce.py:
-    split_plan), at every width the tiled kernel is built for (n = 3, 8,
-    10), p = 1 and 2."""
-    for n_feat in (3, 8, 10):
+    """fused_neg_lse's three kernels at shapes that cut the other operand
+    into chunks of unequal length and leave ragged row blocks (ops/infonce.py:
+    split_plan), p = 1 and 2, at a width of each instance of the tiled
+    forward (n = 3, 8, 10, 12 and 13, 16: NF = 4, 8, 10, 12, 16, a runtime
+    n zero-padded; the tiled gradients are built for n = 3, 8, 10) and at
+    n = 17, the first version's edge."""
+    for n_feat in (3, 8, 10, 12, 13, 16, 17):
         for p in (1.0, 2.0):
             for m, n in ((BATCH, 700), (33, BATCH)):
                 z1, z3 = _pair(m, n, rng, n_feat)
@@ -307,6 +315,67 @@ def _hold_dot_uneven_splits(rng, worst: dict) -> None:
                       _value_and_grads(lambda a, b: infonce_dot.dot_lse_reference(a, b, tau),
                                        z1, z3, ct),
                       worst)
+
+
+C6_TAU = 1e38  # 1 / tau = 1e-38 is below the smallest normal float
+
+
+def _hold_unnormal_rtau(rng) -> None:
+    """Both losses' forward and gradients at tau = C6_TAU, where quotient()
+    cannot stand for the division and the libraries run the first versions
+    of the forwards and of the dot's gradients. The gradients are of order
+    1 / tau, near float32's smallest normal, where the float32 plain
+    version's own products round to few bits: the kernels are held to the
+    bars against the plain version in float64, the float32 plain version's
+    error printed beside."""
+    m, n = BATCH, 700
+    z1, z3 = _pair(m, n, rng)
+    ct = _cotangent(m, rng)
+    cases = [(f"neg_lse p={p:g}", LP,
+              lambda a, b, p=p: infonce.fused_neg_lse(a, b, p, C6_TAU),
+              lambda a, b, p=p: infonce.neg_lse_reference(a, b, p, C6_TAU))
+             for p in (1.0, 2.0)]
+    cases.append(("dot_lse", DOT,
+                  lambda a, b: infonce_dot.fused_dot_lse(a, b, C6_TAU),
+                  lambda a, b: infonce_dot.dot_lse_reference(a, b, C6_TAU)))
+    for tag, names, kern_fn, plain_fn in cases:
+        infonce.reset_launch_counts()
+        kern = _value_and_grads(kern_fn, z1, z3, ct)
+        launched = infonce.launch_counts()
+        exact = _value_and_grads(plain_fn, z1, z3, ct, torch.float64)
+        plain = _value_and_grads(plain_fn, z1, z3, ct)
+        e_kern = [rel_err(g.double(), w) for g, w in zip(kern, exact)]
+        e_plain = [rel_err(g.double(), w) for g, w in zip(plain, exact)]
+        print(f"[2 kernels] {tag} tau={C6_TAU:g} M={m} N={n}, rel err vs float64 "
+              f"(value, dz1, dz3): kernel {e_kern[0]:.2e} {e_kern[1]:.2e} "
+              f"{e_kern[2]:.2e}; float32 plain {e_plain[0]:.2e} {e_plain[1]:.2e} "
+              f"{e_plain[2]:.2e}; launches {launched}")
+        if any(launched[k] != 1 for k in names):
+            raise AssertionError(f"{tag} tau={C6_TAU:g}: launches {launched}")
+        if not all(torch.isfinite(g).all() for g in kern):
+            raise AssertionError(f"{tag} tau={C6_TAU:g}: non-finite output")
+        if e_kern[0] > VALUE_BAR or max(e_kern[1:]) > GRAD_BAR:
+            raise AssertionError(f"{tag} tau={C6_TAU:g} vs float64: {e_kern}")
+    infonce.reset_launch_counts()
+
+
+def _hold_forward_repeats(rng) -> None:
+    """Two forward calls on the same inputs give the same lse bit for bit:
+    both losses at B = BATCH (n = 10, the forwards' chunks merged by
+    lse_reduce_kernel) and at main_3dident's slices."""
+    for m, n_feat in ((BATCH, N_FEAT), (SPLIT_B, SPLIT_NA), (SPLIT_B, SPLIT_N - SPLIT_NA)):
+        a, b = (torch.tensor(z, device="cuda") for z in _pair(m, m, rng, n_feat))
+        for tag, fn in (("neg_lse p=1", lambda: infonce.fused_neg_lse(a, b, 1.0, TAU)),
+                        ("neg_lse p=2", lambda: infonce.fused_neg_lse(a, b, 2.0, TAU)),
+                        ("dot_lse", lambda: infonce_dot.fused_dot_lse(a, b, TAU))):
+            first, again = fn(), fn()
+            torch.cuda.synchronize()
+            if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"{tag} M=N={m} n={n_feat}: two forward "
+                                     f"calls differ")
+    print(f"[2 kernels] forward repeats: two calls bit-equal at M=N={BATCH} "
+          f"n={N_FEAT} and M=N={SPLIT_B} n={SPLIT_NA}, {SPLIT_N - SPLIT_NA}, "
+          f"p=1, p=2 and dot")
 
 
 def _dot_radii_errors(rng) -> tuple[list, list, bool]:
@@ -448,6 +517,8 @@ def phase_kernels() -> dict:
                 f"dot_lse radii<=30 vs float64: kernel {e_kern}, float32 "
                 f"plain {e_plain}")
     _hold_dot_uneven_splits(rng, worst)
+    _hold_unnormal_rtau(rng)
+    _hold_forward_repeats(rng)
     return worst
 
 

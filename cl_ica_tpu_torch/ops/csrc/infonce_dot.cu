@@ -3,7 +3,9 @@
 // (cl_ica_tpu_torch/ops/infonce_dot.py).
 //
 // Replaces the Pallas TPU kernels of cl_ica_tpu/ops/infonce_pallas.py:
-//   dot_lse_fwd_kernel <- _dot_fwd_kernel  (:319, pallas_call in _dot_fwd, :411)
+//   forward: dot_lse_fwd_tiled<NF> + lse_reduce_kernel for n <= 16;
+//        dot_lse_fwd_kernel for 16 < n <= 64
+//        <- _dot_fwd_kernel  (:319, pallas_call in _dot_fwd, :411)
 //   dz1: dot_lse_grad_kernel<NF, false> + grad_reduce_kernel for n <= 16;
 //        dot_lse_dz1_kernel for 16 < n <= 64
 //        <- _dot_dz1_kernel  (:345, pallas_call in _dot_bwd, :448)
@@ -35,11 +37,9 @@
 // How it differs from the TPU kernels, on purpose:
 //  * The TPU grid runs in order and carries (max, sum) or the accumulator in
 //    VMEM scratch across the column steps. Hopper blocks run in no order, so
-//    a forward block owns kRows rows and loops over ALL tiles of the other
-//    operand itself; the gradients' blocks own rows and one chunk of the
-//    other operand, and a second kernel adds the chunks (below). dz3 is a
-//    pass of its own over z3's rows: no atomics, so the result is the same
-//    on every run.
+//    a block owns rows of one operand and one chunk of the other, and a
+//    second kernel merges the chunks (below). dz3 is a pass of its own over
+//    z3's rows: no atomics, so the result is the same on every run.
 //  * Logits have either sign and no bound (the inputs need not be
 //    normalised). The forward subtracts the running max before every exp;
 //    the backward forms exp(x - lse) as ONE subtraction, never
@@ -54,11 +54,49 @@
 //    for bit, so at logits of 1e4, where one ulp of x is 1e-3, w =
 //    exp(x - lse) is as exact as the forward's lse. The gradients' 1 / tau
 //    is applied once per output.
-//  * Accurate expf/logf (no fast math). The forward's sum of exponentials is
-//    a double per thread: its terms are all positive, so a float32 running
-//    sum over the N/16 terms a thread sees could lose ~N/32 ulps. It costs
-//    one float-to-double conversion and one double add per pair, on a card
-//    whose double rate is half its float rate.
+//  * Accurate expf/logf (no fast math), but for the tiled forwards' terms
+//    (exp_neg_abs, below). The forward's sum of exponentials
+//    is a double across tiles: its terms are all positive, so a float32
+//    running sum over the thousands of terms a thread sees could lose
+//    ulps in proportion; no float32 sum runs over more than 32 terms.
+//
+// The forward for n <= 16 (dot_lse_fwd_tiled + lse_reduce_kernel). The work
+// is one multiply-add for each of the M * N * n (pair, feature) terms, plus
+// a division and an exponential per pair, against 0.5 MB of data: issue
+// slots on the CUDA cores bound it. The first version (still below, for
+// 16 < n <= 64 and for a tau quotient() cannot divide by) mirrored the
+// first-version gradients, and spent them so; this design is the tiled
+// gradients' (below), with a (max, sum) in place of their sums:
+//  * A shared-memory load per term, from a feature-major tile that
+//    stage_tile fills with an integer division per word. Here two own rows
+//    a thread in registers, four threads a row group, float4 reads of four
+//    rows of a row-major tile (kStagedWidth floats a row, four-float4 rows
+//    padded to five against bank conflicts): one load feeds 2 x 4 terms,
+//    and the staging divides by a compile-time NF.
+//  * 16 feature slots behind tests of k < n. Here a runtime n is staged,
+//    zero-padded, into the narrowest of NF = 4, 8, 10, 12, 16 that holds
+//    it; fmaf(0, 0, d) == d, so x keeps its bits.
+//  * A true division per pair. Here quotient(), its bits in three
+//    instructions, so x is the x the gradients recompute bit for bit, and
+//    the max m is that x exactly: at logits of 1e4, where an ulp of x is
+//    1e-3, the gradients' w = exp(x - lse) rests on it.
+//  * Per pair, a data-dependent branch, an accurate expf, a float-to-
+//    double conversion and a double add (online_lse_step). Here lse_step:
+//    one exponential of -|x - m|, which is exp(x - m), or exp(m - x) to
+//    rescale the sum at a new max, and predicated adds in place of the
+//    branch; the max's own term 1 stays out of the float sum, which runs
+//    over a tile's 32 terms and is folded into the double once per tile.
+//    The exponential is the SFU's 2^x of (x - m) log2 e (exp_neg_abs):
+//    x and m keep their bits, and only the difference is scaled.
+//  * A grid of M / 16 blocks, each over all of z3: 384 blocks at 6144
+//    rows, 32 on 132 SMs at 512. Here row blocks x S chunks of z3
+//    (split_plan, with clica_dot_lse_fwd_blocks_per_sm: three blocks an
+//    SM at n = 10, so 48 x 16 in two waves, and 4 x 8 at 512). With S > 1
+//    each block writes its rows' partial (m, s), float and double, and
+//    lse_reduce_kernel merges the S partials of a row in double, in the
+//    order of the chunks; the wrapper counts one launch for the pair.
+//  * A merge over the 16 lanes of a row, four shuffle rounds of (float,
+//    double) with two expf each. Here two rounds over a row group of four.
 //
 // The gradients for n <= 16 (dot_lse_grad_kernel + grad_reduce_kernel), the
 // widths of main_mlp (10) and main_3dident (8). Both are
@@ -105,15 +143,15 @@
 //  * A division and an exponential per pair. The exponent stays
 //    expf(dot / tau - lse) with the forward's x (see above), but the
 //    quotient is formed as Markstein's corrected product (quotient(),
-//    below): the same bits in three instructions. exp2f with log2 e / tau
-//    folded into one FMA rounds the exponent twice more, ~2e-3 at logits
-//    of 1.8e4, twenty times the gradient bar.
+//    infonce_common.cuh): the same bits in three instructions. A tau whose
+//    1 / tau is not a normal float goes to the first version, which
+//    divides. exp2f with log2 e / tau folded into one FMA rounds the
+//    exponent twice more, ~2e-3 at logits of 1.8e4, twenty times the
+//    gradient bar.
 // Left for later: one pass for both gradients, and 3xTF32 mma.sync on an n
 // padded to a K of 16 (HIGHEST precision rules out plain TF32).
 
-#include <cmath>
-
-#include "infonce_common.cuh"  // block shape, stage_tile, lane reductions
+#include "infonce_common.cuh"  // block shapes, staging, quotient, reductions
 
 namespace {
 
@@ -153,6 +191,33 @@ dot_lse_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z3,
   }
   lane_merge_lse(m, s);
   if (lane == 0 && i < M) lse[i] = m + (float)log(s);
+}
+
+// ------------------------------------------------- forward for n <= 16
+// x of an own row a and a staged row b: the gradients' logit, the same
+// products in the same order, d / tau by quotient().
+template <int NF>
+struct DotLogit {
+  float tau, rtau;
+  template <int W>
+  __device__ __forceinline__ float operator()(const float (&a)[NF],
+                                              const float (&b)[W]) const {
+    float d = 0.f;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) d = fmaf(a[k], b[k], d);
+    return quotient(d, tau, rtau);
+  }
+};
+
+// tiled_lse_forward (infonce_common.cuh) with the dot's logit.
+template <int NF>
+__global__ void __launch_bounds__(kGradThreads, 2)
+dot_lse_fwd_tiled(const float* __restrict__ z1, const float* __restrict__ z3,
+                  float* __restrict__ lse, float* __restrict__ part_m,
+                  double* __restrict__ part_s, int M, int N, int n, int chunk,
+                  float tau) {
+  tiled_lse_forward<NF>(z1, z3, lse, part_m, part_s, M, N, n, chunk,
+                        DotLogit<NF>{tau, 1.f / tau});
 }
 
 // ------------------------------------- dz1 (rows), the first version
@@ -258,16 +323,6 @@ dot_lse_dz3_kernel(const float* __restrict__ z1, const float* __restrict__ z3,
 }
 
 // ------------------------------------------------ dz1 and dz3 for n <= 16
-// d / tau rounded to nearest, as the division gives it, for rtau = 1.f /
-// tau (Markstein's theorem): q = d * rtau is within an ulp of the quotient,
-// the remainder d - q * tau is exact in one FMA, and one correction by it
-// rounds to the quotient's nearest float. Three instructions in place of
-// the division's subroutine; __fmul_rn keeps nvcc from fusing the product.
-__device__ __forceinline__ float quotient(float d, float tau, float rtau) {
-  const float q = __fmul_rn(d, rtau);
-  return fmaf(fmaf(-q, tau, d), rtau, q);
-}
-
 // See the note at the top; the block shape is infonce_common.cuh's. Block
 // (x, s) owns kGradBlockRows rows of `own` and adds over the rows
 // [s * chunk, (s + 1) * chunk) of `oth`. With `part` null (one chunk) it
@@ -386,6 +441,45 @@ bool bad_args(int M, int N, int n) {
   return M < 1 || N < 1 || n < 1 || n > kNmaxLarge;
 }
 
+// The first version's forward, for 16 < n <= 64 and for a tau whose 1 / tau
+// is not a normal float (part_m, part_s and chunk unused).
+cudaError_t fwd_first(const float* z1, const float* z3, float* lse, float*,
+                      double*, int, int M, int N, int n, float tau,
+                      cudaStream_t st) {
+  if (width_slot(n) == 0)
+    dot_lse_fwd_kernel<kNmaxSmall><<<blocks_for(M), kThreads, 0, st>>>(
+        z1, z3, lse, M, N, n, tau);
+  else
+    dot_lse_fwd_kernel<kNmaxLarge><<<blocks_for(M), kThreads, 0, st>>>(
+        z1, z3, lse, M, N, n, tau);
+  return cudaGetLastError();
+}
+
+// dot_lse_fwd_tiled over (z1 row blocks) x (chunks of z3), then, for more
+// than one chunk, lse_reduce_kernel over the partial (m, s) (chunks, M).
+template <int NF>
+cudaError_t fwd_tiled(const float* z1, const float* z3, float* lse,
+                      float* part_m, double* part_s, int chunk, int M, int N,
+                      int n, float tau, cudaStream_t st) {
+  const int splits = (N + chunk - 1) / chunk;
+  if (splits > 1 && (part_m == nullptr || part_s == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((M + kGradBlockRows - 1) / kGradBlockRows, splits);
+  dot_lse_fwd_tiled<NF><<<grid, kGradThreads, 0, st>>>(
+      z1, z3, lse, splits > 1 ? part_m : nullptr,
+      splits > 1 ? part_s : nullptr, M, N, n, chunk, tau);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  launch_lse_reduce(part_m, part_s, lse, M, splits, st);
+  return cudaGetLastError();
+}
+
+template <int NF>
+cudaError_t fwd_occupancy(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, dot_lse_fwd_tiled<NF>, kGradThreads, 0);
+}
+
 // The first version's launches, for 16 < n <= 64 (part and chunk unused),
 // then the tiled gradients'.
 cudaError_t dz1_wide(const float* z1, const float* z3, const float* lse,
@@ -432,12 +526,20 @@ cudaError_t grad_occupancy(int* blocks) {
       blocks, dot_lse_grad_kernel<NF, DZ3>, kGradThreads, 0);
 }
 
+using FwdFn = cudaError_t (*)(const float*, const float*, float*, float*,
+                              double*, int, int, int, int, float, cudaStream_t);
 using BwdFn = cudaError_t (*)(const float*, const float*, const float*,
                               const float*, float*, float*, int, int, int, int,
                               float, cudaStream_t);
 using OccFn = cudaError_t (*)(int*);
 
-// [dz3][tiled_slot(n)]
+// [padded_slot(n)]
+const FwdFn kFwd[5] = {fwd_tiled<4>, fwd_tiled<8>, fwd_tiled<10>,
+                       fwd_tiled<12>, fwd_tiled<16>};
+const OccFn kFwdOcc[5] = {fwd_occupancy<4>, fwd_occupancy<8>,
+                          fwd_occupancy<10>, fwd_occupancy<12>,
+                          fwd_occupancy<16>};
+// [dz3][padded_slot(n)]
 #define CLICA_BY_WIDTH(F, DZ3) \
   {F<4, DZ3>, F<8, DZ3>, F<10, DZ3>, F<12, DZ3>, F<16, DZ3>}
 const BwdFn kGrad[2][5] = {CLICA_BY_WIDTH(grad_impl, false),
@@ -447,19 +549,11 @@ const OccFn kGradOcc[2][5] = {CLICA_BY_WIDTH(grad_occupancy, false),
 #undef CLICA_BY_WIDTH
 const BwdFn kWide[2] = {dz1_wide, dz3_wide};
 
-// The instance of dot_lse_grad_kernel (NF = 4, 8, 10, 12, 16) that takes
-// n, -1 for an n past 16.
-int tiled_slot(int n) {
-  return n <= 4 ? 0 : n <= 8 ? 1 : n <= 10 ? 2 : n <= 12 ? 3 : n <= 16 ? 4 : -1;
-}
-
 int launch_grad(int dz3, const float* z1, const float* z3, const float* lse,
                 const float* ct, float* out, float* part, int chunk, int M,
                 int N, int n, float tau, void* stream) {
   if (bad_args(M, N, n) || chunk < 1) return (int)cudaErrorInvalidValue;
-  const int slot = tiled_slot(n);
-  // quotient() needs 1 / tau to be a normal float (3e-39 < tau < 8e37)
-  if (slot >= 0 && !std::isnormal(1.f / tau)) return (int)cudaErrorInvalidValue;
+  const int slot = quotient_slot(n, tau);
   const BwdFn fn = slot >= 0 ? kGrad[dz3][slot] : kWide[dz3];
   return (int)fn(z1, z3, lse, ct, out, part, chunk, M, N, n, tau,
                  (cudaStream_t)stream);
@@ -471,23 +565,39 @@ int launch_grad(int dz3, const float* z1, const float* z3, const float* lse,
 // (0 = launched). None synchronizes or allocates.
 extern "C" {
 
-int clica_dot_lse_fwd(const float* z1, const float* z3, float* lse, int M,
-                      int N, int n, float tau, void* stream) {
-  if (bad_args(M, N, n)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (width_slot(n) == 0)
-    dot_lse_fwd_kernel<kNmaxSmall><<<blocks_for(M), kThreads, 0, st>>>(
-        z1, z3, lse, M, N, n, tau);
-  else
-    dot_lse_fwd_kernel<kNmaxLarge><<<blocks_for(M), kThreads, 0, st>>>(
-        z1, z3, lse, M, N, n, tau);
-  return (int)cudaGetLastError();
+// lse (M,). For n <= 16 z3's rows go in chunks of `chunk`, and with more
+// than one chunk part_m must hold (chunks, M) floats and part_s (chunks, M)
+// doubles; for n > 16, or a tau whose 1 / tau is not a normal float, the
+// first version runs and the three are unused.
+int clica_dot_lse_fwd(const float* z1, const float* z3, float* lse,
+                      float* part_m, double* part_s, int chunk, int M, int N,
+                      int n, float tau, void* stream) {
+  if (bad_args(M, N, n) || chunk < 1) return (int)cudaErrorInvalidValue;
+  const int slot = quotient_slot(n, tau);
+  const FwdFn fn = slot >= 0 ? kFwd[slot] : fwd_first;
+  return (int)fn(z1, z3, lse, part_m, part_s, chunk, M, N, n, tau,
+                 (cudaStream_t)stream);
+}
+
+// Own rows per block of dot_lse_fwd_tiled.
+int clica_dot_lse_fwd_block_rows() { return kGradBlockRows; }
+
+// Blocks of dot_lse_fwd_tiled one SM holds at once; 0 for an n past 16,
+// whose forward runs the first version (no chunks).
+int clica_dot_lse_fwd_blocks_per_sm(int n, int* blocks) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (padded_slot(n) < 0) {
+    *blocks = 0;
+    return 0;
+  }
+  return (int)kFwdOcc[padded_slot(n)](blocks);
 }
 
 // dz1 (M, n) and dz3 (N, n). For n <= 16 the other operand's rows (z3's
 // for dz1, z1's for dz3) go in chunks of `chunk`, and with more than one
-// chunk `part` must hold (chunks, own rows, n) floats; for n > 16 both are
-// unused.
+// chunk `part` must hold (chunks, own rows, n) floats; for n > 16, or a
+// tau whose 1 / tau is not a normal float, the first version runs and both
+// are unused.
 int clica_dot_lse_dz1(const float* z1, const float* z3, const float* lse,
                       const float* ct, float* dz1, float* part, int chunk,
                       int M, int N, int n, float tau, void* stream) {
@@ -509,11 +619,11 @@ int clica_dot_lse_grad_block_rows() { return kGradBlockRows; }
 // whose gradients run the first version (no chunks).
 int clica_dot_lse_grad_blocks_per_sm(int dz3, int n, int* blocks) {
   if (dz3 < 0 || dz3 > 1 || n < 1) return (int)cudaErrorInvalidValue;
-  if (tiled_slot(n) < 0) {
+  if (padded_slot(n) < 0) {
     *blocks = 0;
     return 0;
   }
-  return (int)kGradOcc[dz3][tiled_slot(n)](blocks);
+  return (int)kGradOcc[dz3][padded_slot(n)](blocks);
 }
 
 const char* clica_error_string(int code) {

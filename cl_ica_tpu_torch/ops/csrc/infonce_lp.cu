@@ -3,7 +3,9 @@
 // (cl_ica_tpu_torch/ops/infonce.py).
 //
 // Replaces the Pallas TPU kernels of cl_ica_tpu/ops/infonce_pallas.py:
-//   neg_lse_fwd_kernel <- _fwd_kernel  (pallas_call in _fwd, :232)
+//   forward: neg_lse_fwd_tiled<.., NF> + lse_reduce_kernel for n <= 16;
+//        neg_lse_fwd_kernel for 16 < n <= 64
+//        <- _fwd_kernel  (:84, pallas_call in _fwd, :232)
 //   dz1: neg_lse_grad_kernel<.., false> + grad_reduce_kernel for
 //        n = 3, 8, 10; neg_lse_dz1_kernel for any other n
 //        <- _dz1_kernel  (pallas_call in _bwd, :262)
@@ -29,7 +31,8 @@
 // How it differs from the TPU kernel, on purpose:
 //  * The TPU grid runs in order and carries sums in VMEM scratch across
 //    grid steps. Hopper blocks run in no order, so a block owns a tile of
-//    rows and loops over ALL tiles of the other operand itself.
+//    rows and one chunk of the other operand, and a second kernel merges
+//    the chunks (below).
 //  * p == 2 sums (z1_ik - z3_jk)^2 directly. The TPU kernel's dot identity
 //    |a|^2 + |b|^2 - 2ab only serves to reach the MXU; with n = 10 there is
 //    no tensor-core tile to fill, and the direct sum needs no clamp at 0.
@@ -38,12 +41,33 @@
 //    distance to a zero row.
 //  * The running max starts at the finite sentinel -1e30, as the TPU code's
 //    NEG_INF: with -INFINITY, exp(m_old - m_new) is NaN on the first step.
-//  * fp32 arithmetic with the accurate expf/logf/powf (no fast math), as
-//    the TPU kernel pins Precision.HIGHEST, but each thread's running sum
-//    of exponentials is double. Early in training the encoder's outputs are
-//    nearly collapsed, so the terms of one row's sums share a sign, and a
-//    float32 running sum over the N/16 terms one thread sees could lose up
-//    to ~N/32 ulps.
+//  * fp32 arithmetic with the accurate expf/logf/powf (no fast math, but
+//    for the tiled forward's terms, exp_neg_abs in infonce_common.cuh, and
+//    the tiled gradients' exp2f, below), as the TPU kernel pins
+//    Precision.HIGHEST, but each row's sum of
+//    exponentials is a double across tiles. Early in training the
+//    encoder's outputs are nearly collapsed, so the terms of one row's sums
+//    share a sign, and a float32 running sum over the thousands of terms
+//    one thread sees could lose ulps in proportion: no float32 sum runs
+//    over more than 32 terms.
+//
+// The forward for n <= 16 (neg_lse_fwd_tiled + lse_reduce_kernel) is the
+// dot library's tiled forward (see the note of infonce_dot.cu) with the
+// distance in place of the dot: two own rows a thread, four threads a row
+// group reading float4s of four rows of a row-major tile; a runtime n
+// zero-padded into NF = 4, 8, 10, 12 or 16 features (|0 - 0|^p = 0 adds
+// nothing to d); per pair, x = -quotient(d), the bits of the first
+// version's (-d) / tau, and one exponential of -|x - m| (exp_neg_abs) into
+// a float sum of the tile's 32 terms, folded into a double once per tile;
+// row blocks x S chunks of z3 (split_plan, clica_neg_lse_fwd_blocks_per_sm),
+// the S partial
+// (m, s) of a row merged in double, in order, by lse_reduce_kernel. What
+// the first version (below, for 16 < n <= 64 and for a tau quotient()
+// cannot divide by) spent its issue slots on: a shared-memory load per
+// term from a feature-major tile, 16 feature slots behind tests of k < n,
+// a true division, a branch, a conversion to double and a double add per
+// pair, a grid of M / 16 blocks (384 at 6144 rows, 32 at 512), and a
+// merge over 16 lanes.
 //
 // The gradients (neg_lse_grad_kernel + grad_reduce_kernel for
 // n = 3, 8 and 10, the widths of main_mlp and main_3dident). Both are
@@ -83,7 +107,7 @@
 // by two xor-shuffles (the same sum in every lane), the chunks are added
 // in a fixed order, so a run repeats bit for bit.
 
-#include "infonce_common.cuh"  // block shape, stage_tile, lane reductions
+#include "infonce_common.cuh"  // block shapes, staging, quotient, reductions
 
 namespace {
 
@@ -144,6 +168,34 @@ neg_lse_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z3,
   }
   lane_merge_lse(m, s);
   if (lane == 0 && i < M) lse[i] = m + (float)log(s);
+}
+
+// ------------------------------------------------- forward for n <= 16
+// x of an own row a and a staged row b: the first version's d, its terms in
+// its order (a zero feature adds |0 - 0|^p = 0), and -quotient(d), the
+// bits of its (-d) / tau.
+template <int PM, int NF>
+struct LpLogit {
+  float p, tau, rtau;
+  template <int W>
+  __device__ __forceinline__ float operator()(const float (&a)[NF],
+                                              const float (&b)[W]) const {
+    float d = 0.f;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) d += dist_term<PM>(a[k] - b[k], p);
+    return -quotient(d, tau, rtau);
+  }
+};
+
+// tiled_lse_forward (infonce_common.cuh) with the Lp logit.
+template <int PM, int NF>
+__global__ void __launch_bounds__(kGradThreads, 2)
+neg_lse_fwd_tiled(const float* __restrict__ z1, const float* __restrict__ z3,
+                  float* __restrict__ lse, float* __restrict__ part_m,
+                  double* __restrict__ part_s, int M, int N, int n, int chunk,
+                  float p, float tau) {
+  tiled_lse_forward<NF>(z1, z3, lse, part_m, part_s, M, N, n, chunk,
+                        LpLogit<PM, NF>{p, tau, 1.f / tau});
 }
 
 // ------------------------------------- dz1 (rows), the first version
@@ -361,11 +413,40 @@ bool bad_args(int M, int N, int n, int pmode) {
   return M < 1 || N < 1 || n < 1 || n > kNmaxLarge || pmode < 0 || pmode > 2;
 }
 
+// The first version's forward, for 16 < n <= 64 and for a tau whose 1 / tau
+// is not a normal float (part_m, part_s and chunk unused).
 template <int PM, int NMAX>
-void fwd_impl(const float* z1, const float* z3, float* lse, int M, int N,
-              int n, float p, float tau, cudaStream_t st) {
+cudaError_t fwd_first(const float* z1, const float* z3, float* lse, float*,
+                      double*, int, int M, int N, int n, float p, float tau,
+                      cudaStream_t st) {
   neg_lse_fwd_kernel<PM, NMAX><<<blocks_for(M), kThreads, 0, st>>>(
       z1, z3, lse, M, N, n, p, tau);
+  return cudaGetLastError();
+}
+
+// neg_lse_fwd_tiled over (z1 row blocks) x (chunks of z3), then, for more
+// than one chunk, lse_reduce_kernel over the partial (m, s) (chunks, M).
+template <int PM, int NF>
+cudaError_t fwd_tiled(const float* z1, const float* z3, float* lse,
+                      float* part_m, double* part_s, int chunk, int M, int N,
+                      int n, float p, float tau, cudaStream_t st) {
+  const int splits = (N + chunk - 1) / chunk;
+  if (splits > 1 && (part_m == nullptr || part_s == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((M + kGradBlockRows - 1) / kGradBlockRows, splits);
+  neg_lse_fwd_tiled<PM, NF><<<grid, kGradThreads, 0, st>>>(
+      z1, z3, lse, splits > 1 ? part_m : nullptr,
+      splits > 1 ? part_s : nullptr, M, N, n, chunk, p, tau);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  launch_lse_reduce(part_m, part_s, lse, M, splits, st);
+  return cudaGetLastError();
+}
+
+template <int PM, int NF>
+cudaError_t fwd_occupancy(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, neg_lse_fwd_tiled<PM, NF>, kGradThreads, 0);
 }
 
 // The first version's launches, for any n but 3, 8 and 10 (part and chunk
@@ -416,18 +497,29 @@ cudaError_t grad_occupancy(int* blocks) {
       blocks, neg_lse_grad_kernel<PM, NF, DZ3>, kGradThreads, 0);
 }
 
-using FwdFn = void (*)(const float*, const float*, float*, int, int, int,
-                       float, float, cudaStream_t);
+using FwdFn = cudaError_t (*)(const float*, const float*, float*, float*,
+                              double*, int, int, int, int, float, float,
+                              cudaStream_t);
 using BwdFn = cudaError_t (*)(const float*, const float*, const float*,
                               const float*, float*, float*, int, int, int, int,
                               float, float, cudaStream_t);
 using OccFn = cudaError_t (*)(int*);
 
 // [pmode][n <= kNmaxSmall ? 0 : 1]
-const FwdFn kFwd[3][2] = {
-    {fwd_impl<kPGeneral, kNmaxSmall>, fwd_impl<kPGeneral, kNmaxLarge>},
-    {fwd_impl<kP1, kNmaxSmall>, fwd_impl<kP1, kNmaxLarge>},
-    {fwd_impl<kP2, kNmaxSmall>, fwd_impl<kP2, kNmaxLarge>}};
+const FwdFn kFwdFirst[3][2] = {
+    {fwd_first<kPGeneral, kNmaxSmall>, fwd_first<kPGeneral, kNmaxLarge>},
+    {fwd_first<kP1, kNmaxSmall>, fwd_first<kP1, kNmaxLarge>},
+    {fwd_first<kP2, kNmaxSmall>, fwd_first<kP2, kNmaxLarge>}};
+// [pmode][padded_slot(n)]
+#define CLICA_BY_PADDED_WIDTH(F, PM) \
+  {F<PM, 4>, F<PM, 8>, F<PM, 10>, F<PM, 12>, F<PM, 16>}
+#define CLICA_BY_P(F)                                                     \
+  {CLICA_BY_PADDED_WIDTH(F, kPGeneral), CLICA_BY_PADDED_WIDTH(F, kP1), \
+   CLICA_BY_PADDED_WIDTH(F, kP2)}
+const FwdFn kFwd[3][5] = CLICA_BY_P(fwd_tiled);
+const OccFn kFwdOcc[3][5] = CLICA_BY_P(fwd_occupancy);
+#undef CLICA_BY_P
+#undef CLICA_BY_PADDED_WIDTH
 // [dz3][pmode][n <= kNmaxSmall ? 0 : 1]
 const BwdFn kWide[2][3][2] = {
     {{dz1_impl<kPGeneral, kNmaxSmall>, dz1_impl<kPGeneral, kNmaxLarge>},
@@ -469,13 +561,32 @@ int launch_grad(int dz3, const float* z1, const float* z3, const float* lse,
 // (0 = launched). None synchronizes or allocates.
 extern "C" {
 
-int clica_neg_lse_fwd(const float* z1, const float* z3, float* lse, int M,
-                      int N, int n, int pmode, float p, float tau,
-                      void* stream) {
-  if (bad_args(M, N, n, pmode)) return (int)cudaErrorInvalidValue;
-  kFwd[pmode][width_slot(n)](z1, z3, lse, M, N, n, p, tau,
-                             (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+// lse (M,). For n <= 16 z3's rows go in chunks of `chunk`, and with more
+// than one chunk part_m must hold (chunks, M) floats and part_s (chunks, M)
+// doubles; for n > 16, or a tau whose 1 / tau is not a normal float, the
+// first version runs and the three are unused.
+int clica_neg_lse_fwd(const float* z1, const float* z3, float* lse,
+                      float* part_m, double* part_s, int chunk, int M, int N,
+                      int n, int pmode, float p, float tau, void* stream) {
+  if (bad_args(M, N, n, pmode) || chunk < 1) return (int)cudaErrorInvalidValue;
+  const int slot = quotient_slot(n, tau);
+  const FwdFn fn = slot >= 0 ? kFwd[pmode][slot] : kFwdFirst[pmode][width_slot(n)];
+  return (int)fn(z1, z3, lse, part_m, part_s, chunk, M, N, n, p, tau,
+                 (cudaStream_t)stream);
+}
+
+// Own rows per block of neg_lse_fwd_tiled.
+int clica_neg_lse_fwd_block_rows() { return kGradBlockRows; }
+
+// Blocks of neg_lse_fwd_tiled one SM holds at once; 0 for an n past 16,
+// whose forward runs the first version (no chunks).
+int clica_neg_lse_fwd_blocks_per_sm(int n, int pmode, int* blocks) {
+  if (n < 1 || pmode < 0 || pmode > 2) return (int)cudaErrorInvalidValue;
+  if (padded_slot(n) < 0) {
+    *blocks = 0;
+    return 0;
+  }
+  return (int)kFwdOcc[pmode][padded_slot(n)](blocks);
 }
 
 // dz1 (M, n) and dz3 (N, n). For n = 3, 8, 10 the other operand's rows

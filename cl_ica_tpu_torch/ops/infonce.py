@@ -9,7 +9,10 @@ for p ≥ 1, without the M×N matrix ever reaching device memory. The
 forward and both backward kernels are CUDA C++ in csrc/infonce_lp.cu
 (see the note there for what bounds them and how they differ from the
 TPU kernels); this module builds and binds them (ops/build.py), wraps
-them in a ``torch.autograd.Function``, and counts their launches.
+them in a ``torch.autograd.Function``, and counts their launches. Where
+the library has a tiled kernel for the arguments (it says which, through
+``clica_neg_lse_{fwd,grad}_blocks_per_sm``), the other operand's rows go
+in chunks (``split_plan``) and the wrapper allocates the chunks' partials.
 
 On CPU tensors ``fused_neg_lse`` computes ``neg_lse_reference``, the
 plain version, because there is no kernel to launch there. On CUDA
@@ -59,6 +62,7 @@ def neg_lse_reference(z1: torch.Tensor, z3: torch.Tensor, p: float,
 
 
 _F32P = ctypes.c_void_p
+_F64P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
@@ -72,9 +76,13 @@ def load_kernels() -> ctypes.CDLL:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of every entry point of a library built
     from csrc/infonce_lp.cu."""
-    lib.clica_neg_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _I, _I, _I, _I,
-                                      _F, _F, ctypes.c_void_p]
+    lib.clica_neg_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _F32P, _F64P, _I,
+                                      _I, _I, _I, _I, _F, _F, ctypes.c_void_p]
     lib.clica_neg_lse_fwd.restype = _I
+    lib.clica_neg_lse_fwd_block_rows.argtypes = []
+    lib.clica_neg_lse_fwd_block_rows.restype = _I
+    lib.clica_neg_lse_fwd_blocks_per_sm.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.clica_neg_lse_fwd_blocks_per_sm.restype = _I
     for fn in (lib.clica_neg_lse_dz1, lib.clica_neg_lse_dz3):
         fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I,
                        _I, _I, _F, _F, ctypes.c_void_p]
@@ -129,66 +137,97 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _launch_fwd(z1, z3, p: float, tau: float) -> torch.Tensor:
-    lib = load_kernels()
-    (m, n), nn = z1.shape, z3.shape[0]
-    lse = torch.empty(m, device=z1.device, dtype=torch.float32)
-    with torch.cuda.device(z1.device):
-        rc = lib.clica_neg_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
-                                   m, nn, n, _pmode(p), p, tau, _stream(z1))
-    _check_launch(lib, rc, "neg_lse fwd")
-    _launches["fwd"] += 1
-    return lse
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def split_plan(own_rows: int, other_rows: int, block_rows: int,
                slots: int) -> tuple[int, int]:
-    """(splits, chunk) for a tiled gradient: the other operand's rows in
+    """(splits, chunk) for a tiled kernel: the other operand's rows in
     ``splits`` chunks of ``chunk`` (the last may be shorter), so that the
-    grid of ceil(own_rows / block_rows) x splits blocks makes at least two
-    waves of the ``slots`` blocks the card holds at once, with no chunk
-    under MIN_CHUNK rows unless the other operand is."""
+    grid of ceil(own_rows / block_rows) x splits blocks fills as much of
+    two waves of the ``slots`` blocks the card holds at once as whole
+    row blocks allow, and no more (a third wave of a few blocks would
+    cost a third of the time), with no chunk under MIN_CHUNK rows unless
+    the other operand is."""
     row_blocks = -(-own_rows // block_rows)
-    want = -(-2 * slots // row_blocks)
+    want = 2 * slots // row_blocks
     splits = max(1, min(want, other_rows // MIN_CHUNK))
     chunk = -(-other_rows // splits)
     return -(-other_rows // chunk), chunk
 
 
-def grad_slots(lib, prefix: str, device_index: int, which: str,
-               *args) -> tuple[int, int] | None:
+def tiled_slots(lib, kernel: str, device_index: int,
+                *args) -> tuple[int, int] | None:
     """(own rows per block, blocks the card holds at once) of a library's
-    tiled gradient kernel, asked of ``clica_<prefix>_grad_blocks_per_sm``
-    (dz3, *args, &blocks), or None where the library has no tiled kernel
-    for these arguments (the first version runs, in one chunk)."""
+    tiled kernel, asked of ``clica_<kernel>_blocks_per_sm(*args, &blocks)``
+    and ``clica_<kernel>_block_rows()``, or None where the library has no
+    tiled kernel for these arguments (the first version runs, in one
+    chunk)."""
     per_sm = _I()
-    rc = getattr(lib, f"clica_{prefix}_grad_blocks_per_sm")(
-        int(which == "dz3"), *args, ctypes.byref(per_sm))
-    _check_launch(lib, rc, f"{prefix} {which} occupancy")
+    rc = getattr(lib, f"clica_{kernel}_blocks_per_sm")(*args, ctypes.byref(per_sm))
+    _check_launch(lib, rc, f"{kernel} occupancy")
     if per_sm.value == 0:
         return None
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return getattr(lib, f"clica_{prefix}_grad_block_rows")(), sms * per_sm.value
+    return getattr(lib, f"clica_{kernel}_block_rows")(), sms * per_sm.value
+
+
+def chunks(rows: int, others: int, tiled) -> tuple[int, int]:
+    """(splits, chunk) of a launch over ``rows`` own rows: split_plan's, or
+    the other operand's rows in one chunk where ``tiled`` (from
+    tiled_slots) is None."""
+    return (1, others) if tiled is None else split_plan(rows, others, *tiled)
 
 
 def grad_scratch(rows: int, others: int, n: int, tiled, device):
     """(chunk, part) of a gradient launch: the other operand's rows in
-    chunks (split_plan) and the (splits, rows, n) float buffer of the
-    chunks' partial sums, None for one chunk or where ``tiled`` (from
-    grad_slots) is None."""
-    if tiled is None:
-        return others, None
-    splits, chunk = split_plan(rows, others, *tiled)
+    chunks and the (splits, rows, n) float buffer of the chunks' partial
+    sums, None for one chunk."""
+    splits, chunk = chunks(rows, others, tiled)
     part = None
     if splits > 1:
         part = torch.empty((splits, rows, n), device=device, dtype=torch.float32)
     return chunk, part
 
 
+def lse_scratch(rows: int, others: int, tiled, device):
+    """(chunk, part_m, part_s) of a forward launch: the other operand's
+    rows in chunks, and each chunk's partial (max, sum) of every row,
+    (splits, rows) float and double, None for one chunk."""
+    splits, chunk = chunks(rows, others, tiled)
+    if splits == 1:
+        return chunk, None, None
+    return (chunk,
+            torch.empty((splits, rows), device=device, dtype=torch.float32),
+            torch.empty((splits, rows), device=device, dtype=torch.float64))
+
+
+@functools.cache
+def _fwd_slots(device_index: int, n: int, pmode: int) -> tuple[int, int] | None:
+    return tiled_slots(load_kernels(), "neg_lse_fwd", device_index, n, pmode)
+
+
+def _launch_fwd(z1, z3, p: float, tau: float) -> torch.Tensor:
+    lib = load_kernels()
+    (m, n), nn = z1.shape, z3.shape[0]
+    lse = torch.empty(m, device=z1.device, dtype=torch.float32)
+    chunk, part_m, part_s = lse_scratch(
+        m, nn, _fwd_slots(z1.device.index, n, _pmode(p)), z1.device)
+    with torch.cuda.device(z1.device):
+        rc = lib.clica_neg_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
+                                   _ptr(part_m), _ptr(part_s), chunk, m, nn, n,
+                                   _pmode(p), p, tau, _stream(z1))
+    _check_launch(lib, rc, "neg_lse fwd")
+    _launches["fwd"] += 1  # the forward kernel and its reduce kernel
+    return lse
+
+
 @functools.cache
 def _grad_slots(device_index: int, which: str, n: int,
                 pmode: int) -> tuple[int, int] | None:
-    return grad_slots(load_kernels(), "neg_lse", device_index, which, n, pmode)
+    return tiled_slots(load_kernels(), "neg_lse_grad", device_index,
+                       int(which == "dz3"), n, pmode)
 
 
 def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
@@ -202,8 +241,8 @@ def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
     fn = lib.clica_neg_lse_dz1 if which == "dz1" else lib.clica_neg_lse_dz3
     with torch.cuda.device(z1.device):
         rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
-                out.data_ptr(), None if part is None else part.data_ptr(),
-                chunk, m, nn, n, _pmode(p), p, tau, _stream(z1))
+                out.data_ptr(), _ptr(part), chunk, m, nn, n, _pmode(p), p, tau,
+                _stream(z1))
     _check_launch(lib, rc, f"neg_lse {which}")
     _launches[which] += 1  # the gradient kernel and its reduce kernel
     return out

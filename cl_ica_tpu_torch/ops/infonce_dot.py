@@ -11,10 +11,10 @@ note there for what bounds them and how they differ from the TPU
 kernels); the three products z1 z3ᵀ, W z3 and Wᵀ z1 are computed inside
 those kernels. This module builds and binds them, wraps them in a
 ``torch.autograd.Function``, and counts their launches beside
-``fused_neg_lse``'s (``ops.launch_counts``). The gradients take the other
+``fused_neg_lse``'s (``ops.launch_counts``). Each kernel takes the other
 operand's rows in chunks where the library has a tiled kernel for n (it
-says which, ``clica_dot_lse_grad_blocks_per_sm``), with the same plan as
-``fused_neg_lse``'s (``ops.infonce.split_plan``).
+says which, ``clica_dot_lse_{fwd,grad}_blocks_per_sm``), with the same
+plan as ``fused_neg_lse``'s (``ops.infonce.split_plan``).
 
 On CPU tensors ``fused_dot_lse`` computes ``dot_lse_reference``, the
 plain version, because there is no kernel to launch there. On CUDA
@@ -32,13 +32,16 @@ from .build import load_library
 from .infonce import (
     _F,
     _F32P,
+    _F64P,
     _I,
     _check_launch,
     _check_pair,
     _launches,
+    _ptr,
     _stream,
     grad_scratch,
-    grad_slots,
+    lse_scratch,
+    tiled_slots,
 )
 
 LIBRARY = "infonce_dot"
@@ -63,9 +66,13 @@ def load_kernels() -> ctypes.CDLL:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of every entry point of a library built
     from csrc/infonce_dot.cu."""
-    lib.clica_dot_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _I, _I, _I, _F,
-                                      ctypes.c_void_p]
+    lib.clica_dot_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _F32P, _F64P, _I,
+                                      _I, _I, _I, _F, ctypes.c_void_p]
     lib.clica_dot_lse_fwd.restype = _I
+    lib.clica_dot_lse_fwd_block_rows.argtypes = []
+    lib.clica_dot_lse_fwd_block_rows.restype = _I
+    lib.clica_dot_lse_fwd_blocks_per_sm.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.clica_dot_lse_fwd_blocks_per_sm.restype = _I
     for fn in (lib.clica_dot_lse_dz1, lib.clica_dot_lse_dz3):
         fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I,
                        _I, _F, ctypes.c_void_p]
@@ -79,21 +86,30 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _fwd_slots(device_index: int, n: int) -> tuple[int, int] | None:
+    return tiled_slots(load_kernels(), "dot_lse_fwd", device_index, n)
+
+
 def _launch_fwd(z1, z3, tau: float) -> torch.Tensor:
     lib = load_kernels()
     (m, n), nn = z1.shape, z3.shape[0]
     lse = torch.empty(m, device=z1.device, dtype=torch.float32)
+    chunk, part_m, part_s = lse_scratch(m, nn, _fwd_slots(z1.device.index, n),
+                                        z1.device)
     with torch.cuda.device(z1.device):
         rc = lib.clica_dot_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
-                                   m, nn, n, tau, _stream(z1))
+                                   _ptr(part_m), _ptr(part_s), chunk, m, nn, n,
+                                   tau, _stream(z1))
     _check_launch(lib, rc, "dot_lse fwd")
-    _launches["dot_fwd"] += 1
+    _launches["dot_fwd"] += 1  # the forward kernel and its reduce kernel
     return lse
 
 
 @functools.cache
 def _grad_slots(device_index: int, which: str, n: int) -> tuple[int, int] | None:
-    return grad_slots(load_kernels(), "dot_lse", device_index, which, n)
+    return tiled_slots(load_kernels(), "dot_lse_grad", device_index,
+                       int(which == "dz3"), n)
 
 
 def _launch_bwd(which: str, z1, z3, lse, ct, tau: float) -> torch.Tensor:
@@ -106,8 +122,7 @@ def _launch_bwd(which: str, z1, z3, lse, ct, tau: float) -> torch.Tensor:
     fn = lib.clica_dot_lse_dz1 if which == "dz1" else lib.clica_dot_lse_dz3
     with torch.cuda.device(z1.device):
         rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
-                out.data_ptr(), None if part is None else part.data_ptr(),
-                chunk, m, nn, n, tau, _stream(z1))
+                out.data_ptr(), _ptr(part), chunk, m, nn, n, tau, _stream(z1))
     _check_launch(lib, rc, f"dot_lse {which}")
     _launches[f"dot_{which}"] += 1  # the gradient kernel and its reduce kernel
     return out

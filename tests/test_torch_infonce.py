@@ -114,6 +114,32 @@ def test_neg_lse_at_collapsed_inputs(p):
         assert np.abs(g - e).max() <= 1e-5 * np.abs(e).max()
 
 
+@pytest.mark.parametrize("p", [1.0, 2.0, 3.0])
+@pytest.mark.parametrize("n_feat", [3, 8, 10, 13])
+def test_zero_features_change_nothing(p, n_feat):
+    # What the tiled forward's instances rest on: a runtime n is staged into
+    # NF = 4, 8, 10, 12 or 16 features, zero past n, and |0 - 0|^p adds 0
+    # to every distance. Padding z1 and z3 with zero features to 16 leaves
+    # the value and the first n columns of both gradients as they were, to
+    # 1e-5 of their largest entry (the plain version's float32 sum over 16
+    # terms groups them otherwise than over n), and the padded columns'
+    # gradients exactly 0 (sgn(0) = 0 at p = 1).
+    z1, z3 = _rolled(40, 56, n_feat, seed=n_feat)
+    ct = torch.linspace(0.5, 1.5, 40)
+    out = []
+    for width in (n_feat, 16):
+        a, b = (torch.tensor(np.pad(z, ((0, 0), (0, width - n_feat))),
+                             requires_grad=True) for z in (z1, z3))
+        lse = fused_neg_lse(a, b, p, 0.7)
+        (lse * ct).sum().backward()
+        out.append((lse.detach(), a.grad, b.grad))
+    (lse, d1, d3), (lse_p, d1_p, d3_p) = out
+    for got, want in ((lse_p, lse), (d1_p[:, :n_feat], d1), (d3_p[:, :n_feat], d3)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(d1_p[:, n_feat:], torch.zeros(40, 16 - n_feat))
+    assert torch.equal(d3_p[:, n_feat:], torch.zeros(56, 16 - n_feat))
+
+
 @pytest.mark.parametrize("p", [0.5, 1.0, 2.0, 3.0])
 @pytest.mark.parametrize("compat", [True, False])
 @pytest.mark.parametrize("pow_", [True, False])

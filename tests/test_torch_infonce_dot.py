@@ -134,9 +134,10 @@ def _round_to_float32(x: Fraction) -> Fraction:
 
 @pytest.mark.parametrize("tau", [0.05, 0.7, 1.0, 0.1, 0.3, 1.7, 0.013, 9.0])
 def test_quotient_is_the_division(tau):
-    # csrc/infonce_dot.cu's quotient(): with rtau = RN(1 / tau), q =
+    # csrc/infonce_common.cuh's quotient(), the x of both tiled forwards and
+    # of the dot's tiled gradients: with rtau = RN(1 / tau), q =
     # RN(d * rtau), then RN(q + RN(d - q * tau) * rtau) by two fmaf, must
-    # be RN(d / tau) bit for bit, the forward's x (Markstein's theorem).
+    # be RN(d / tau) bit for bit, the division's x (Markstein's theorem).
     # Every step is one float32 rounding of an exact rational, as fmaf and
     # the product round on the card.
     rng = np.random.default_rng(int(1000 * tau))

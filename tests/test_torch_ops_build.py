@@ -12,6 +12,7 @@ import re
 import stat
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -102,6 +103,7 @@ def test_kernel_arguments_out_of_range_raise(p, shape, match):
     (700, 6144, 128, 264, (88, 70)),     # dz3 of the same
     (6144, 50, 128, 264, (1, 50)),       # under one chunk: no split
     (100000, 6144, 128, 264, (1, 6144)),  # many row blocks: no split
+    (6144, 6144, 128, 396, (16, 384)),   # three blocks an SM: 768 of 792
 ])
 def test_split_plan(own, other, block_rows, slots, want):
     splits, chunk = infonce.split_plan(own, other, block_rows, slots)
@@ -109,15 +111,19 @@ def test_split_plan(own, other, block_rows, slots, want):
     # every other row in exactly one chunk, none empty
     assert (splits - 1) * chunk < other <= splits * chunk
     assert chunk >= min(infonce.MIN_CHUNK, other)
+    # at most two waves of blocks, and one more chunk would pass them
+    # unless the chunks are at their least
     row_blocks = -(-own // block_rows)
     if splits > 1:
-        assert row_blocks * splits >= 2 * slots or chunk < 2 * infonce.MIN_CHUNK
+        assert row_blocks * splits <= 2 * slots
+        assert row_blocks * (splits + 1) > 2 * slots or chunk < 2 * infonce.MIN_CHUNK
 
 
 class _FakeLib:
-    """The kernels' library, recording each gradient call's arguments. Like
-    csrc/infonce_lp.cu it has a tiled kernel for n = 3, 8 and 10 only: two
-    blocks of 128 own rows per SM there, none for any other n."""
+    """The kernels' library, recording each call's arguments. Like
+    csrc/infonce_lp.cu it has a tiled gradient for n = 3, 8 and 10 only and
+    a tiled forward for n <= 16: two blocks of 128 own rows per SM there,
+    none for any other n."""
 
     def __init__(self):
         self.calls = []
@@ -126,13 +132,44 @@ class _FakeLib:
             self.calls.append(args)
             return 0
 
-        def blocks_per_sm(dz3, n, pmode, blocks):
+        def grad_blocks_per_sm(dz3, n, pmode, blocks):
             blocks._obj.value = 2 if n in (3, 8, 10) else 0
             return 0
 
-        self.clica_neg_lse_dz1 = self.clica_neg_lse_dz3 = entry
-        self.clica_neg_lse_grad_blocks_per_sm = blocks_per_sm
-        self.clica_neg_lse_grad_block_rows = lambda: 128
+        def fwd_blocks_per_sm(n, pmode, blocks):
+            blocks._obj.value = 2 if n <= 16 else 0
+            return 0
+
+        self.clica_neg_lse_fwd = self.clica_neg_lse_dz1 = self.clica_neg_lse_dz3 = entry
+        self.clica_neg_lse_grad_blocks_per_sm = grad_blocks_per_sm
+        self.clica_neg_lse_fwd_blocks_per_sm = fwd_blocks_per_sm
+        self.clica_neg_lse_grad_block_rows = self.clica_neg_lse_fwd_block_rows = lambda: 128
+
+
+def _on_fake_card(monkeypatch, module, lib) -> list:
+    """Route ``module``'s launches to ``lib`` on a card of 132 SMs (x 2
+    blocks = 264 resident blocks), with no stream or device switch, and
+    record the shape and dtype of every torch.empty from then on; the
+    record is returned."""
+    monkeypatch.setattr(module, "load_kernels", lambda: lib)
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda d: type("Props", (), {"multi_processor_count": 132}))
+    for name in ("_grad_slots", "_fwd_slots"):
+        getattr(module, name).cache_clear()
+        monkeypatch.setattr(module, name, getattr(module, name).__wrapped__)
+    monkeypatch.setattr(module, "_stream", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    empty = torch.empty
+    made = []
+
+    def record(shape, **kw):
+        made.append((torch.Size([shape] if isinstance(shape, int) else shape),
+                     kw.get("dtype")))
+        return empty(shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", record)
+    return made
 
 
 @pytest.mark.parametrize("which, n, m, nn, want", [
@@ -145,30 +182,16 @@ class _FakeLib:
 ])
 def test_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want):
     lib = _FakeLib()
-    monkeypatch.setattr(infonce, "load_kernels", lambda: lib)
-    monkeypatch.setattr(  # 132 SMs x 2 blocks = 264 resident blocks
-        torch.cuda, "get_device_properties",
-        lambda d: type("Props", (), {"multi_processor_count": 132}))
-    infonce._grad_slots.cache_clear()
-    monkeypatch.setattr(infonce, "_grad_slots", infonce._grad_slots.__wrapped__)
-    monkeypatch.setattr(infonce, "_stream", lambda t: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    empty = torch.empty
-    made = []
-
-    def record(shape, **kw):
-        made.append(tuple(shape))
-        return empty(shape, **kw)
-
     z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
     lse = ct = torch.zeros(m, device="meta")
     before = infonce.launch_counts()[which]
-    monkeypatch.setattr(torch, "empty", record)
+    made = _on_fake_card(monkeypatch, infonce, lib)
     out = infonce._launch_bwd(which, z1, z3, lse, ct, 2.0, 0.7)
     rows = m if which == "dz1" else nn
     splits, chunk = want
     assert out.shape == (rows, n)
-    assert made == [(rows, n)] + ([(splits, rows, n)] if splits > 1 else [])
+    assert [shape for shape, _ in made] == [(rows, n)] + (
+        [(splits, rows, n)] if splits > 1 else [])
     (args,) = lib.calls
     assert args[6:10] == (chunk, m, nn, n)
     assert (args[5] is None) == (splits == 1)
@@ -176,8 +199,8 @@ def test_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want
 
 
 class _FakeDotLib:
-    """csrc/infonce_dot.cu's library, recording each gradient call's
-    arguments. Like the library it has a tiled kernel for n <= 16: two
+    """csrc/infonce_dot.cu's library, recording each call's arguments. Like
+    the library it has a tiled forward and tiled gradients for n <= 16: two
     blocks of 128 own rows per SM there, none past it."""
 
     def __init__(self):
@@ -187,13 +210,17 @@ class _FakeDotLib:
             self.calls.append(args)
             return 0
 
-        def blocks_per_sm(dz3, n, blocks):
+        def grad_blocks_per_sm(dz3, n, blocks):
             blocks._obj.value = 2 if n <= 16 else 0
             return 0
 
-        self.clica_dot_lse_dz1 = self.clica_dot_lse_dz3 = entry
-        self.clica_dot_lse_grad_blocks_per_sm = blocks_per_sm
-        self.clica_dot_lse_grad_block_rows = lambda: 128
+        def fwd_blocks_per_sm(n, blocks):
+            return grad_blocks_per_sm(0, n, blocks)
+
+        self.clica_dot_lse_fwd = self.clica_dot_lse_dz1 = self.clica_dot_lse_dz3 = entry
+        self.clica_dot_lse_grad_blocks_per_sm = grad_blocks_per_sm
+        self.clica_dot_lse_fwd_blocks_per_sm = fwd_blocks_per_sm
+        self.clica_dot_lse_grad_block_rows = self.clica_dot_lse_fwd_block_rows = lambda: 128
 
 
 @pytest.mark.parametrize("which, n, m, nn, want", [
@@ -209,30 +236,16 @@ class _FakeDotLib:
 ])
 def test_dot_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want):
     lib = _FakeDotLib()
-    monkeypatch.setattr(infonce_dot, "load_kernels", lambda: lib)
-    monkeypatch.setattr(  # 132 SMs x 2 blocks = 264 resident blocks
-        torch.cuda, "get_device_properties",
-        lambda d: type("Props", (), {"multi_processor_count": 132}))
-    infonce_dot._grad_slots.cache_clear()
-    monkeypatch.setattr(infonce_dot, "_grad_slots", infonce_dot._grad_slots.__wrapped__)
-    monkeypatch.setattr(infonce_dot, "_stream", lambda t: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    empty = torch.empty
-    made = []
-
-    def record(shape, **kw):
-        made.append(tuple(shape))
-        return empty(shape, **kw)
-
     z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
     lse = ct = torch.zeros(m, device="meta")
     before = infonce.launch_counts()
-    monkeypatch.setattr(torch, "empty", record)
+    made = _on_fake_card(monkeypatch, infonce_dot, lib)
     out = infonce_dot._launch_bwd(which, z1, z3, lse, ct, 0.7)
     rows, others = (m, nn) if which == "dz1" else (nn, m)
     splits, chunk = want
     assert out.shape == (rows, n)
-    assert made == [(rows, n)] + ([(splits, rows, n)] if splits > 1 else [])
+    assert [shape for shape, _ in made] == [(rows, n)] + (
+        [(splits, rows, n)] if splits > 1 else [])
     if n > 16:
         assert (splits, chunk) == (1, others)
     (args,) = lib.calls
@@ -241,6 +254,115 @@ def test_dot_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, 
     # one count for the gradient kernel and its reduce, no other counter
     before[f"dot_{which}"] += 1
     assert infonce.launch_counts() == before
+
+
+# loss -> (module, fake library, launch counter, forward of (z1, z3, tau),
+# the arguments after lse: part_m, part_s, chunk, M, N, n, ..., tau, stream)
+_FORWARDS = {
+    "lp": (infonce, _FakeLib, "fwd",
+           lambda z1, z3, tau: infonce._launch_fwd(z1, z3, 2.0, tau)),
+    "dot": (infonce_dot, _FakeDotLib, "dot_fwd",
+            lambda z1, z3, tau: infonce_dot._launch_fwd(z1, z3, tau)),
+}
+
+
+@pytest.mark.parametrize("loss", sorted(_FORWARDS))
+@pytest.mark.parametrize("n, m, nn, want", [
+    (10, 6144, 6144, (11, 559)),  # main_mlp: 48 x 11 blocks
+    (3, 512, 512, (8, 64)),       # main_3dident's position slice: 4 x 8
+    (8, 512, 512, (8, 64)),       # and its angular slice
+    (10, 6144, 700, (10, 70)),    # uneven chunks (chip_smoke phase 2)
+    (10, 33, 6144, (96, 64)),     # one row block
+    (17, 6144, 6144, (1, 6144)),  # past 16: the first version, one chunk
+])
+def test_forward_launch_takes_the_split_plan(monkeypatch, loss, n, m, nn, want):
+    # _launch_fwd asks the library's forward occupancy, allocates the
+    # chunks' partial (max, sum), float and double, only for more than one
+    # chunk, passes the chunk, and counts one launch for the forward and
+    # its reduce
+    module, fake, counter, forward = _FORWARDS[loss]
+    lib = fake()
+    z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
+    before = infonce.launch_counts()
+    made = _on_fake_card(monkeypatch, module, lib)
+    lse = forward(z1, z3, 0.7)
+    splits, chunk = want
+    assert lse.shape == (m,)
+    assert made == [((m,), torch.float32)] + (
+        [((splits, m), torch.float32), ((splits, m), torch.float64)]
+        if splits > 1 else [])
+    (args,) = lib.calls
+    assert (args[3] is None, args[4] is None) == (splits == 1, splits == 1)
+    assert args[5:9] == (chunk, m, nn, n)
+    before[counter] += 1
+    assert infonce.launch_counts() == before
+
+
+@pytest.mark.parametrize("loss", sorted(_FORWARDS))
+@pytest.mark.parametrize("tau", [1e38, 1e-3])
+def test_wrappers_hand_tau_to_the_library(monkeypatch, loss, tau):
+    # 1 / 1e38 is not a normal float: the library, not the wrapper, sends
+    # that tau to the first versions (ROADMAP C6), so forward and both
+    # gradients reach it with tau unchanged and nothing refused
+    module, fake, _, forward = _FORWARDS[loss]
+    lib = fake()
+    z1, z3 = torch.zeros(64, 10, device="meta"), torch.zeros(80, 10, device="meta")
+    ct = torch.zeros(64, device="meta")
+    _on_fake_card(monkeypatch, module, lib)
+    lse = forward(z1, z3, tau)
+    for which in ("dz1", "dz3"):
+        if loss == "lp":
+            infonce._launch_bwd(which, z1, z3, lse, ct, 2.0, tau)
+        else:
+            infonce_dot._launch_bwd(which, z1, z3, lse, ct, tau)
+    assert len(lib.calls) == 3
+    # tau is the argument before the stream in every entry point
+    assert [args[-2] for args in lib.calls] == [tau] * 3
+
+
+def _chunk_partials(x: torch.Tensor, chunk: int):
+    """Each chunk's partial (m_c, s_c) of every row of the logits x, as the
+    tiled forwards leave them: m_c the chunk's largest logit, s_c the sum of
+    exp(x - m_c) over the chunk less the max's own term, 1."""
+    parts = [(c.max(1).values, torch.exp(c - c.max(1, keepdim=True).values).sum(1) - 1)
+             for c in x.split(chunk, dim=1)]
+    return torch.stack([m for m, _ in parts]), torch.stack([s for _, s in parts])
+
+
+def _merged(part_m: torch.Tensor, part_s: torch.Tensor) -> torch.Tensor:
+    """lse_reduce_kernel's arithmetic: m the largest m_c, the first chunk
+    that holds it giving s_c and every other (1 + s_c) exp(m_c - m), added
+    in the order of the chunks, lse = m + log1p(sum)."""
+    top = part_m.argmax(0)  # the first chunk of the largest max
+    m = part_m.max(0).values
+    s = torch.zeros_like(part_s[0])
+    for c in range(part_m.shape[0]):
+        e = torch.exp(part_m[c] - m)
+        s = s + part_s[c] * e + torch.where(top == c, 0.0, e)
+    return m + torch.log1p(s)
+
+
+@pytest.mark.parametrize("loss", ["p=1", "p=2", "dot"])
+@pytest.mark.parametrize("chunk", [64, 97, 300])
+def test_chunk_partials_merge_to_the_plain_version(loss, chunk):
+    # per-chunk (max, sum) pairs of float32 logits, merged in the chunks'
+    # order in double, equal the plain version to 1e-6 of its largest lse
+    rng = np.random.default_rng(chunk)
+    z1 = (0.5 * rng.normal(size=(48, 10))).astype(np.float32)
+    z3 = (0.5 * rng.normal(size=(300, 10))).astype(np.float32)
+    z3[1:49] = z1  # rolled: every row has one exact match
+    a, b = torch.tensor(z1), torch.tensor(z3)
+    if loss == "dot":
+        x = (a[:, None, :] * b[None, :, :]).sum(-1) / 0.7
+        want = infonce_dot.dot_lse_reference(a, b, 0.7)
+    else:
+        p = float(loss[2:])
+        x = -(torch.abs(a[:, None, :] - b[None, :, :]) ** p).sum(-1) / 0.7
+        want = infonce.neg_lse_reference(a, b, p, 0.7)
+    part_m, part_s = _chunk_partials(x.double(), chunk)
+    got = _merged(part_m.float(), part_s)
+    assert got.dtype == torch.float64
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 def _c_entry_points(source: str) -> dict:

@@ -19,8 +19,8 @@ all started together) and prints its ptxas registers and spills. Then the
 checkouts take turns in the order given and back (two: A, B, B, A), one
 process a turn:
 
-  1. errors, in each checkout's first turn: fused_neg_lse's gradients at
-     chip_smoke's collapsed and far-apart inputs (B = 6144, n = 10, p = 1
+  1. errors, in each checkout's first turn: fused_neg_lse's value and
+     gradients at chip_smoke's collapsed and far-apart inputs (B = 6144, n = 10, p = 1
      and 2), and fused_dot_lse's value and gradients at chip_smoke's two
      large-logit inputs (tau = 0.05: rows of norm 30, rolled, and radii
      uniform in (0, 30]), against the plain version in float64, beside the
@@ -118,7 +118,7 @@ def dot_errors(smoke, smi: str) -> dict:
 
 
 def errors(smoke, smi: str) -> dict:
-    """{case: {"kernel" / "float32 plain": [rel err of dz1, of dz3]}}
+    """{case: {"kernel" / "float32 plain": [rel err of value, dz1, dz3]}}
     against the plain version in float64, then dot_errors' cases."""
     rng = np.random.default_rng(0)
     out = {}
@@ -134,10 +134,9 @@ def errors(smoke, smi: str) -> dict:
                             ("float32 plain", smoke.infonce.neg_lse_reference)):
                 got = smoke._value_and_grads(lambda a, b: fn(a, b, p, smoke.TAU),
                                              z1, z3, ct)
-                row[who] = [smoke.rel_err(g.double(), w)
-                            for g, w in zip(got[1:], exact[1:])]
+                row[who] = [smoke.rel_err(g.double(), w) for g, w in zip(got, exact)]
             label = f"{kind} p={p:g}"
-            out[label] = {"of": ["dz1", "dz3"], **row}
+            out[label] = {"of": ["value", "dz1", "dz3"], **row}
             _say_errors(f"{label} B={z1.shape[0]} n={z1.shape[1]}", out[label], smi)
             del exact
             torch.cuda.empty_cache()

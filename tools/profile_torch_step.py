@@ -119,7 +119,7 @@ def trace(step, steps: int, tag: str, card: str) -> None:
           f"{card}")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     # the 15 longest, and every kernel of the port's own wherever it ranks
-    own = ("neg_lse_", "dot_lse_", "grad_reduce_", "stem_")
+    own = ("neg_lse_", "dot_lse_", "grad_reduce_", "lse_reduce_", "stem_")
     for rank, e in enumerate(events):
         if rank < 15 or any(k in e.key for k in own):
             print(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
