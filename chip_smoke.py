@@ -24,9 +24,10 @@ use) and no network, and it exits non-zero on any failure. Phases:
              float64; both losses at tau = 1e38, whose 1 / tau is not a
              normal float (the libraries send it to the first
              versions), against float64; two forward calls on the same
-             inputs, bit for bit. The stem's two kernels (stem_fwd,
-             stem_bwd) against theirs, float32 and bfloat16: small ragged
-             shapes, tied inputs, and the full (1024, 112, 112, 64)
+             inputs, bit for bit. The stem's three kernels (stem_fwd,
+             stem_bwd, stem_dx) against theirs, float32 and bfloat16:
+             small ragged shapes, tied inputs, C of 256 vectors, and the
+             full (1024, 112, 112, 64); two backward calls, bit for bit
   3 parity   loss and every encoder grad of one training step at full
              width (n=10, 100-500-500-500-500-100, B=6144), fused vs not,
              for three configurations
@@ -42,16 +43,18 @@ use) and no network, and it exits non-zero on any failure. Phases:
   6 3dident  a synthetic 3DIdent fixture (4096 renders at 224x224, written
              under runs/chip_smoke/), then cli.main_3dident at full width
              (ResNet18, batch 512, both views in one forward of 1024
-             images): 6a unsupervised with --fused-stem, where all eight
+             images): 6a unsupervised with --fused-stem, where all nine
              kernels are launched once per step; 6b the same seed without
              --fused-stem against 6a's first losses; 6c --mode test on
              6a's saved model; 6d 6a stopped at a checkpoint and resumed,
              loss for loss; 6e 6a's seed with --no-fused-loss against
              6a's first losses, the six loss counters at 0
-  7 times    the stem's kernels, the whole fused function and PyTorch's own
-             calls at (1024, 112, 112, 64), float32 and bfloat16, with
-             each kernel's bound; the 3DIdent step's pairs/s with and
-             without --fused-stem, float32 and --bf16
+  7 times    the stem's kernels, the whole backward (stem_bwd and stem_dx),
+             the three tensor passes stem_dx replaced, the whole fused
+             function and PyTorch's own calls at (1024, 112, 112, 64),
+             float32 and bfloat16, with each kernel's bound; the 3DIdent
+             step's pairs/s and peak GiB with and without --fused-stem,
+             float32 and --bf16
 
 ``--only a,b`` runs a subset of {mlp, stem, 3dident, times} (the build
 always runs) for a short look at one part. Such a run is no pass: it
@@ -112,7 +115,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 LP = ("fwd", "dz1", "dz3")               # fused_neg_lse's launch counters
 DOT = ("dot_fwd", "dot_dz1", "dot_dz3")  # fused_dot_lse's
-STEM = ("stem_fwd", "stem_bwd")          # the stem tail's
+STEM = ("stem_fwd", "stem_bwd", "stem_dx")  # the stem tail's
 STEM_FULL = (1024, 112, 112, 64)         # conv7's output for 1024 images of 224x224
 # float32: the kernel and the plain version round x*a and +b separately and
 # add at most four g's in one order, so pooled and dy should be equal; the
@@ -140,8 +143,11 @@ KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
                 "cl_ica_tpu/ops/infonce_pallas.py:369"),
     "stem_fwd": ("stem_fwd", "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
                  "cl_ica_tpu/ops/stem_pallas.py:223"),
-    "stem_bwd": ("stem_bwd", "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
+    "stem_bwd": ("stem_bwd_kernel + stem_reduce_kernel",
+                 "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
                  "cl_ica_tpu/ops/stem_pallas.py:235"),
+    "stem_dx": ("stem_dx_kernel", "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
+                "cl_ica_tpu/ops/stem_pallas.py:429 (XLA pass, not a pallas_call)"),
 }
 _RUN = ("--n 10 --batch-size 6144 --only-unsupervised --n-steps 100 "
         "--n-log-steps 50 --num-eval-batches 2 --seed 0").split()
@@ -902,18 +908,43 @@ def _map_err(got, want, dtype) -> tuple[float, float]:
     return float(diff.max()), over
 
 
+def _dx_factors(x, scale, mean, rstd, sb, sg):
+    """The dx kernel's per-channel factors, as _BnReluPool.backward forms
+    them: k1, -k2, -k3*rstd."""
+    m = x.shape[0] * x.shape[1] * x.shape[2]
+    k1 = scale * rstd
+    return k1, -(k1 * sb / m), -(k1 * sg / m * rstd)
+
+
+def _three_pass_dx(x, dy, k1, nk2, nk3, mean):
+    """dx as the backward formed it before stem_dx (the parent's three
+    tensor passes and a cast): the yardstick of the dx kernel's time."""
+    dx = torch.addcmul(nk2, dy, k1)
+    dx.addcmul_(x.float() - mean, nk3)
+    return dx.to(x.dtype)
+
+
 def _hold_stem(tag, shape, dtype, gen, worst, tied=False) -> None:
     x, scale, bias, g = _stem_inputs(shape, dtype, gen, tied)
     a, b, mean, rstd = _fold(x, scale, bias)
     pooled = stem.launch_stem_fwd(x, a, b)
     dy, sb, sg = stem.launch_stem_bwd(x, g, a, b, mean, rstd)
+    factors = _dx_factors(x, scale, mean, rstd, sb, sg)
+    dx = stem.launch_stem_dx(x, dy, *factors, mean)
+    # two calls on the same inputs: the same bits (no atomics anywhere)
+    again = stem.launch_stem_bwd(x, g, a, b, mean, rstd)
+    again += (stem.launch_stem_dx(x, dy, *factors, mean),)
     torch.cuda.synchronize()
+    repeats = all(torch.equal(p, q) for p, q in zip((dy, sb, sg, dx), again))
+    del again
     pooled_p = stem.stem_fwd_reference(x, a, b)
     dy_p, sb_p, sg_p = stem.stem_bwd_reference(x, g, a, b, mean, rstd)
+    dx_p = stem.stem_dx_reference(x, dy, *factors, mean)
     e_fwd, o_fwd = _map_err(pooled, pooled_p, dtype)
     e_dy, o_dy = _map_err(dy, dy_p, dtype)
+    e_dxk, o_dxk = _map_err(dx, dx_p, dtype)
     e_sum = max(rel_err(sb, sb_p), rel_err(sg, sg_p))
-    del pooled, pooled_p, dy, dy_p
+    del pooled, pooled_p, dy, dy_p, dx, dx_p
 
     # the whole function through autograd, kernel route against plain route
     def grads(fn):
@@ -929,44 +960,50 @@ def _hold_stem(tag, shape, dtype, gen, worst, tied=False) -> None:
     dx_bar = BF16_ULP if dtype == torch.bfloat16 else STEM_SUM_BAR
     worst["stem_fwd"] = max(worst.get("stem_fwd", 0.0), e_fwd)
     worst["stem_bwd"] = max(worst.get("stem_bwd", 0.0), e_dy)
+    worst["stem_dx"] = max(worst.get("stem_dx", 0.0), e_dxk)
     worst["stem_sums_rel"] = max(worst.get("stem_sums_rel", 0.0), e_sum)
     name = str(dtype).removeprefix("torch.")
     print(f"[2 kernels] stem {tag} {tuple(shape)} {name}: max abs err pooled "
-          f"{e_fwd:.2e} dy {e_dy:.2e} (error/bar {o_fwd:.2f}, {o_dy:.2f}); "
-          f"rel err sums {e_sum:.2e}, dx {e_dx:.2e} dscale {e_ds:.2e} "
-          f"dbias {e_db:.2e}")
-    if (o_fwd > 1.0 or o_dy > 1.0 or e_sum > STEM_SUM_BAR or e_dx > dx_bar
-            or max(e_ds, e_db) > STEM_SUM_BAR):
+          f"{e_fwd:.2e} dy {e_dy:.2e} dx kernel {e_dxk:.2e} (error/bar "
+          f"{o_fwd:.2f}, {o_dy:.2f}, {o_dxk:.2f}); rel err sums {e_sum:.2e}; "
+          f"whole function dx {e_dx:.2e} dscale {e_ds:.2e} dbias {e_db:.2e}; "
+          f"two calls {'bit-equal' if repeats else 'DIFFER'}")
+    if (o_fwd > 1.0 or o_dy > 1.0 or o_dxk > 1.0 or e_sum > STEM_SUM_BAR
+            or e_dx > dx_bar or max(e_ds, e_db) > STEM_SUM_BAR or not repeats):
         raise AssertionError(f"stem kernels vs plain, {tag} {shape} {name}")
 
 
 def phase_stem_kernels(worst: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
-        # the last two: 3x3 tiles of the backward's 8x8 quads with ragged
-        # edges, and more channels than one block takes (256)
+        # ragged strips and segments of the backward's tiles, more channels
+        # than one block's slice (16 vectors) and, last, C of 256 vectors,
+        # the widest the kernels take
+        widest = (2, 6, 10, 256 * stem.vector_width(dtype))
         for shape in ((3, 16, 16, 8), (2, 12, 20, 16), (5, 6, 10, 24),
                       (1, 2, 2, 8), (7, 30, 14, 64), (1, 40, 36, 8),
-                      (2, 4, 6, 320)):
+                      (2, 4, 6, 320), (2, 8, 70, 64), widest):
             _hold_stem("ragged", shape, dtype, gen, worst)
             _hold_stem("tied", shape, dtype, gen, worst, tied=True)
         _hold_stem("full", STEM_FULL, dtype, gen, worst)
         _hold_stem("full tied", STEM_FULL, dtype, gen, worst, tied=True)
         torch.cuda.empty_cache()
-    # what the wrapper refuses
+    # what the wrappers refuse
     x = torch.zeros((2, 8, 8, 8), device="cuda")
     v = torch.ones(8, device="cuda")
     for bad, exc in ((x.permute(0, 2, 1, 3), ValueError),   # not dense
                      (x[:, :7], ValueError),                # odd H
                      (x.cpu(), ValueError),                 # not on the card
                      (x.double(), TypeError)):
-        try:
-            stem.launch_stem_fwd(bad, v.to(bad.dtype).to(bad.device),
-                                 v.to(bad.dtype).to(bad.device))
-        except exc:
-            continue
-        raise AssertionError(f"launch_stem_fwd took {bad.shape} {bad.dtype}")
-    print("[2 kernels] stem wrapper raises on a strided, odd, CPU or float64 x")
+        vb = v.to(bad.dtype).to(bad.device)
+        for launch in (lambda: stem.launch_stem_fwd(bad, vb, vb),
+                       lambda: stem.launch_stem_dx(bad, bad, v, v, v, v)):
+            try:
+                launch()
+            except exc:
+                continue
+            raise AssertionError(f"a stem wrapper took {bad.shape} {bad.dtype}")
+    print("[2 kernels] stem wrappers raise on a strided, odd, CPU or float64 x")
 
 
 FIXTURE = os.path.join(OUT_DIR, "fixture_3dident")
@@ -1105,18 +1142,25 @@ def phase_3dident() -> dict:
 
 
 def _stem_bounds(shape, dtype) -> dict:
-    """The least ms for the two kernels at this shape: bytes over the
+    """The least ms for the stem's kernels at this shape: bytes over the
     memory rate (forward: x read, a quarter of it written; backward: x and
-    g read, dy written) against operations over the float32 rate (forward:
-    per input element a multiply and an add, and 9/4 comparisons; backward:
-    nine window recomputes of three operations per input element, plus the
-    mask and the two sums)."""
+    g read, dy written; dx: x and dy read, dx written) against operations
+    over the float32 rate (forward: per input element a multiply and an
+    add, and 9/4 comparisons; backward: nine window recomputes of three
+    operations per input element, plus the mask and the two sums; dx: five
+    operations per element). "stem_bwd+dx" is the whole backward, the
+    function from (x, g) to dx: dx needs the channel sums of the whole
+    batch, so x and g are read once for the sums and once more for dx,
+    which is written, 3.5 x elements x size; dy need not reach memory, so
+    its round trip between the two kernels is not counted."""
     n, h, w, c = shape
     elems = n * h * w * c
     size = 2 if dtype == torch.bfloat16 else 4
     out = {}
     for k, nbytes, ops in (("stem_fwd", elems * size * 1.25, elems * 4.25),
-                           ("stem_bwd", elems * size * 2.25, elems * 32)):
+                           ("stem_bwd", elems * size * 2.25, elems * 32),
+                           ("stem_dx", elems * size * 3, elems * 5),
+                           ("stem_bwd+dx", elems * size * 3.5, elems * 37)):
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
         out[k] = (1e3 * max(t_bytes, t_ops),
                   "bytes" if t_bytes >= t_ops else "operations")
@@ -1130,15 +1174,37 @@ def _library_stem(x_nchw, scale, bias):
                                             True, 0.1, 1e-5)), 3, 2, 1)
 
 
+STEM_TIMED = ("fwd", "bwd", "dx", "bwd+dx", "fn fwd", "fn fwd+bwd")
+
+
 def _time_stem(dtype, smi: str) -> dict:
-    """ms at STEM_FULL: the two kernels alone against their plain versions;
-    the whole function (statistics, kernels, dx) forward and
-    forward+backward on the kernel route, the plain route and through
-    PyTorch's own calls."""
+    """ms at STEM_FULL: the three kernels alone and the whole backward
+    (stem_bwd, then stem_dx on its sums) against their plain versions; the
+    whole function (statistics, kernels, dx) forward and forward+backward
+    on the kernel route, the plain route and through PyTorch's own calls;
+    and the three tensor passes that formed dx before stem_dx. PyTorch's
+    call for dx alone is torch.batch_norm_backward_elemt, SyncBatchNorm's,
+    on the same dy and channel sums (channels_last views of x and dy); it
+    is held to the kernel's dx first, so that it is known to compute the
+    same function."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     x, scale, bias, g = _stem_inputs(STEM_FULL, dtype, gen)
     a, b, mean, rstd = _fold(x, scale, bias)
+    dy, sb, sg = stem.stem_bwd_reference(x, g, a, b, mean, rstd)
+    factors = _dx_factors(x, scale, mean, rstd, sb, sg)
     x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    lib_dx_args = (dy.permute(0, 3, 1, 2), x_nchw, mean, rstd, scale, sb,
+                   sg / rstd,  # Σdy·(x − mean)
+                   torch.tensor([x.numel() // x.shape[3]], device="cuda",
+                                dtype=torch.int32))
+    lib_dx = torch.batch_norm_backward_elemt(*lib_dx_args).permute(0, 2, 3, 1)
+    plain_dx = stem.stem_dx_reference(x, dy, *factors, mean)
+    lib_err = (lib_dx.float() - plain_dx.float()).abs().max().item()
+    # a loose bar, there to catch another function, not to rank roundings:
+    # a thousandth of the largest |dx| in float32, two bfloat16 ulps of it
+    lib_bar = (2.0**-7 if dtype == torch.bfloat16 else 1e-3) \
+        * plain_dx.float().abs().max().item()
+    del lib_dx, plain_dx
     sc = scale.clone().requires_grad_()
     bi = bias.clone().requires_grad_()
     reps = 9
@@ -1154,41 +1220,68 @@ def _time_stem(dtype, smi: str) -> dict:
         return lambda: torch.autograd.grad(out, (xs, sc, bi), g_nchw,
                                            retain_graph=True)
 
+    def whole_bwd(bwd, dx):
+        def run():
+            d, s1, s2 = bwd(x, g, a, b, mean, rstd)
+            return dx(x, d, *_dx_factors(x, scale, mean, rstd, s1, s2), mean)
+        return run
+
     lib_bwd = lib_bwd_only()
     cases = {
         "kernel": {
             "fwd": lambda: stem.launch_stem_fwd(x, a, b),
             "bwd": lambda: stem.launch_stem_bwd(x, g, a, b, mean, rstd),
+            "dx": lambda: stem.launch_stem_dx(x, dy, *factors, mean),
+            "bwd+dx": whole_bwd(stem.launch_stem_bwd, stem.launch_stem_dx),
             "fn fwd": lambda: stem.bn_relu_pool_train(x, scale, bias),
             "fn fwd+bwd": lambda: fwd_bwd(stem.bn_relu_pool_train, x, g)},
         "plain": {
             "fwd": lambda: stem.stem_fwd_reference(x, a, b),
             "bwd": lambda: stem.stem_bwd_reference(x, g, a, b, mean, rstd),
+            "dx": lambda: stem.stem_dx_reference(x, dy, *factors, mean),
+            "bwd+dx": whole_bwd(stem.stem_bwd_reference, stem.stem_dx_reference),
             "fn fwd": lambda: stem.bn_relu_pool_reference(x, scale, bias),
             "fn fwd+bwd": lambda: fwd_bwd(stem.bn_relu_pool_reference, x, g)},
         "library": {
             "fwd": lambda: _library_stem(x_nchw, scale, bias),
             "bwd": lib_bwd,
+            "dx": lambda: torch.batch_norm_backward_elemt(*lib_dx_args),
+            "bwd+dx": lib_bwd,
             "fn fwd": lambda: _library_stem(x_nchw, scale, bias),
             "fn fwd+bwd": lambda: fwd_bwd(_library_stem, x_nchw, g_nchw)},
+        "three passes": {
+            "dx": lambda: _three_pass_dx(x, dy, *factors, mean)},
     }
-    # in turns: plain, library, kernel, kernel, library, plain
+    # in turns: plain, library, kernel, three passes, three passes, kernel,
+    # library, plain
+    order = ("plain", "library", "kernel", "three passes")
     turns = [(who, {k: _median_ms(f, reps=reps, warmup=2)
                     for k, f in cases[who].items()})
-             for who in ("plain", "library", "kernel", "kernel", "library", "plain")]
+             for who in order + order[::-1]]
     out = {}
     for who, t in turns:
         out[who] = {k: min(v, out.get(who, {}).get(k, v)) for k, v in t.items()}
+    for who in order:
+        out[who] = {k: out[who].get(k) for k in STEM_TIMED}
     name = str(dtype).removeprefix("torch.")
+    ms = lambda v: "-" if v is None else f"{v:.3f}"
     _say_time(f"[7 times] stem {STEM_FULL} {name} ms (kernel / plain / library), "
               f"median of {reps} after warm-up, better of two turns, on {smi}: "
-              + "; ".join(f"{k} {out['kernel'][k]:.3f} / {out['plain'][k]:.3f} / "
-                          f"{out['library'][k]:.3f}" for k in out["kernel"]))
-    _say_time("[7 times]   (library fwd = fn fwd: F.batch_norm takes the statistics "
-              "itself; library bwd includes the norm's backward, which the port "
-              "leaves to the dx pass of fn fwd+bwd)")
-    for k, (ms, by) in _stem_bounds(STEM_FULL, dtype).items():
-        _say_time(f"[7 times] bound {k} {name}: {ms:.3f} ms, set by {by} "
+              + "; ".join(f"{k} {ms(out['kernel'][k])} / {ms(out['plain'][k])} / "
+                          f"{ms(out['library'][k])}" for k in STEM_TIMED))
+    _say_time(f"[7 times]   dx as three tensor passes (before stem_dx) "
+              f"{ms(out['three passes']['dx'])} ms; library bwd = library "
+              "bwd+dx, PyTorch's autograd of the library forward, which includes "
+              "the norm's backward; library fwd = fn fwd (F.batch_norm takes the "
+              "statistics itself); library dx = torch.batch_norm_backward_elemt "
+              f"on the same dy and sums, {lib_err:.3g} from the plain dx at most "
+              f"(bar {lib_bar:.3g})")
+    if not lib_err <= lib_bar:
+        raise AssertionError(f"7 times: batch_norm_backward_elemt is {lib_err} "
+                             f"from the plain dx (bar {lib_bar}): not the same "
+                             "function")
+    for k, (t, by) in _stem_bounds(STEM_FULL, dtype).items():
+        _say_time(f"[7 times] bound {k} {name}: {t:.3f} ms, set by {by} "
                   f"(3.35 TB/s, 67 TFLOP/s fp32)")
     return out
 
@@ -1313,6 +1406,17 @@ def main() -> int:
                 "library_ms_bf16": t16["library"][k]})
             if key == "stem_bwd":
                 entry["sums_max_rel_err"] = worst["stem_sums_rel"]
+            if key == "stem_dx":
+                # the whole backward, and the tensor passes dx replaced
+                entry.update({
+                    "three_pass_ms": t32["three passes"]["dx"],
+                    "three_pass_ms_bf16": t16["three passes"]["dx"],
+                    "bwd_dx_ms": t32["kernel"]["bwd+dx"],
+                    "bwd_dx_ms_bf16": t16["kernel"]["bwd+dx"],
+                    "bwd_dx_bound_ms": stem_bounds["stem_bwd+dx"][0],
+                    "bwd_dx_bound_ms_bf16": stem_bounds16["stem_bwd+dx"][0],
+                    "library_bwd_ms": t32["library"]["bwd+dx"],
+                    "library_bwd_ms_bf16": t16["library"]["bwd+dx"]})
         else:
             k = key.removeprefix("dot_")
             kern, plain, lib = times["p=0" if key in DOT else "p=2"]

@@ -7,7 +7,7 @@ ops/knn.py         ← cl_ica_tpu/ops/knn.py (l2_topk; no kernel)
 
 The CUDA sources are in ops/csrc and are built at first use by
 ops/build.py, one library per .cu file. ``launch_counts`` returns the
-launches of all eight kernels.
+launches of all nine kernels.
 """
 
 from .infonce import (
@@ -22,6 +22,7 @@ from .stem import (
     bn_relu_pool_reference,
     bn_relu_pool_train,
     stem_bwd_reference,
+    stem_dx_reference,
     stem_fwd_reference,
 )
 
@@ -36,5 +37,6 @@ __all__ = [
     "neg_lse_reference",
     "reset_launch_counts",
     "stem_bwd_reference",
+    "stem_dx_reference",
     "stem_fwd_reference",
 ]

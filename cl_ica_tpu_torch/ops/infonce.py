@@ -39,7 +39,7 @@ MIN_CHUNK = 64  # the fewest rows of the other operand a tiled gradient block ta
 # (ops/infonce_dot.py), stem_* the stem tail's (ops/stem.py).
 _launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0,
                              "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0,
-                             "stem_fwd": 0, "stem_bwd": 0}
+                             "stem_fwd": 0, "stem_bwd": 0, "stem_dx": 0}
 
 
 def launch_counts() -> Dict[str, int]:

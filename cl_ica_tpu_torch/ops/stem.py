@@ -13,35 +13,42 @@ the input positions, and sums Σdy and Σdy·x̂ per channel for the
 through-the-statistics batch-norm gradient. The post-norm activation, four
 times the pooled output, never reaches device memory.
 
-The two kernels are CUDA C++ in csrc/stem_pool.cu (see the note there):
-``stem_fwd`` (affine, relu, pool) and ``stem_bwd`` (winner recompute,
-routing, mask, channel sums). As in the JAX package, the batch statistics,
-dx = k1·dy − k2 − k3·x̂ and the parameter gradients stay plain tensor
-operations around them. This module builds and binds the kernels, wraps
+The three kernels are CUDA C++ in csrc/stem_pool.cu (see the note there):
+``stem_fwd`` (affine, relu, pool), ``stem_bwd`` (winner recompute,
+routing, mask, channel sums) and ``stem_dx`` (dx = k1·dy − k2 − k3·x̂ in
+one pass over x and dy, where the JAX package leaves one fused XLA pass).
+As in the JAX package, the batch statistics and the parameter gradients
+stay plain tensor operations around them. This module builds and binds
+the kernels, plans the backward's persistent grid (``bwd_plan``), wraps
 them in a ``torch.autograd.Function``, and counts their launches beside
-the InfoNCE kernels' (``ops.launch_counts``: ``stem_fwd``, ``stem_bwd``).
+the InfoNCE kernels' (``ops.launch_counts``: ``stem_fwd``, ``stem_bwd``,
+``stem_dx``).
 
 Layout: (N, H, W, C), dense, as in the JAX package. H and W even; C a
 multiple of the kernels' 16-byte vector (4 float32, 8 bfloat16 values),
 at most 256 vectors. float32 and bfloat16.
 
 On CPU tensors ``bn_relu_pool_train`` runs the plain versions
-(``stem_fwd_reference``, ``stem_bwd_reference``), because there is no
-kernel to launch there. On CUDA tensors it launches the kernels or raises;
-it never falls back, and it never copies x to make it dense.
+(``stem_fwd_reference``, ``stem_bwd_reference``, ``stem_dx_reference``),
+because there is no kernel to launch there. On CUDA tensors it launches
+the kernels or raises; it never falls back, and it never copies x to make
+it dense.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .build import load_library
 from .infonce import _check_launch, _launches, _stream
+
+THREADS = 256  # a backward block's threads: (ws + 1) * cv of them compute
+MAX_SLICE = 16  # the most channel vectors a backward block takes
 
 LIBRARY = "stem_pool"
 
@@ -145,6 +152,19 @@ def stem_bwd_reference(x, g, a, b, mean, rstd
     return dyf.to(g.dtype), sb, sg
 
 
+def stem_dx_reference(x, dy, k1, nk2, nk3, mean) -> torch.Tensor:
+    """The plain version of the dx kernel: dx = (dy·k1 + nk2) + (x − mean)·nk3
+    per channel (nk2 = −k2, nk3 = −k3·rstd), each operation one rounded
+    float32 tensor operation in the kernel's order, rounded once to x's
+    dtype."""
+    t = dy.float() * k1
+    t += nk2
+    d = x.float() - mean
+    d *= nk3
+    t += d
+    return t.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -152,18 +172,77 @@ def stem_bwd_reference(x, g, a, b, mean, rstd
 
 @functools.cache
 def load_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' library, with every
-    entry point's C signature declared."""
-    lib = load_library(LIBRARY)
-    lib.clica_stem_sum_rows.argtypes = [_LL, _I, _I, _I, _I]
-    lib.clica_stem_sum_rows.restype = _I
+    """Build (at first use) and load the kernels' library."""
+    return declare(load_library(LIBRARY))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of every entry point of a library built
+    from csrc/stem_pool.cu."""
+    lib.clica_stem_bwd_blocks_per_sm.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.clica_stem_bwd_blocks_per_sm.restype = _I
+    lib.clica_stem_dx_blocks_per_sm.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.clica_stem_dx_blocks_per_sm.restype = _I
     lib.clica_stem_fwd.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
     lib.clica_stem_fwd.restype = _I
-    lib.clica_stem_bwd.argtypes = [_P] * 9 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_stem_bwd.argtypes = [_P] * 9 + [_LL] + [_I] * 10 + [_LL, _I, _P]
     lib.clica_stem_bwd.restype = _I
+    lib.clica_stem_dx.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _I, _P]
+    lib.clica_stem_dx.restype = _I
     lib.clica_error_string.argtypes = [_I]
     lib.clica_error_string.restype = ctypes.c_char_p
     return lib
+
+
+class BwdPlan(NamedTuple):
+    """The backward's persistent grid (csrc/stem_pool.cu): a block takes a
+    slice of ``cv`` channel vectors (``slices`` of them cover C), and walks
+    tiles of one image, a strip of ``ws`` window columns (``strips`` of
+    them) and a segment of ``ks`` quad rows (``segs``); ``tiles`` = N ·
+    segs · strips, strip fastest. ``grid`` blocks a slice: block b takes
+    tiles b, b + grid, ... The kernel takes the plan whole, in this order."""
+    cv: int
+    slices: int
+    ws: int
+    strips: int
+    ks: int
+    segs: int
+    tiles: int
+    grid: int
+
+
+def bwd_geometry(w: int, c: int, dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(cv, slices, ws, strips): C's vectors in the fewest slices of at most
+    MAX_SLICE, evened out; then the widest strip that a block's threads
+    cover, a thread per window column and vector, evened out over W/2."""
+    cvs = c // vector_width(dtype)
+    slices = -(-cvs // MAX_SLICE)
+    cv = -(-cvs // slices)
+    wo = w // 2
+    strips = -(-wo // min(wo, THREADS // cv - 1))
+    return cv, slices, -(-wo // strips), strips
+
+
+def bwd_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+             slots: int) -> BwdPlan:
+    """The plan for x = (n, h, w, c) on a card that holds ``slots`` backward
+    blocks at once: the geometry, then the segment length that finishes
+    soonest, each block taking ceil(tiles / grid) tiles of ks + 2 steps
+    (a segment's first step recomputes one window row, and its stages
+    reach one row past it); ties go to the longer segment."""
+    cv, slices, ws, strips = bwd_geometry(w, c, dtype)
+    ho = h // 2
+    grid = max(1, slots // slices)
+    best = None
+    for want in range(1, ho + 1):
+        ks = -(-ho // want)
+        segs = -(-ho // ks)
+        cost = -(-(n * segs * strips) // grid) * (ks + 2)
+        if best is None or cost < best[0]:
+            best = (cost, ks, segs)
+    _, ks, segs = best
+    tiles = n * segs * strips
+    return BwdPlan(cv, slices, ws, strips, ks, segs, tiles, min(grid, tiles))
 
 
 def _check_map(name: str, t: torch.Tensor, like: torch.Tensor = None) -> None:
@@ -226,6 +305,21 @@ def launch_stem_fwd(x, a, b) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def _slots(device_index: int, kernel: str, *args: int) -> int:
+    """Blocks of one kernel that the card holds at once: "bwd" for a slice
+    and strip (args cv, ws, bf16), "dx" (args bf16)."""
+    lib = load_kernels()
+    per_sm = _I()
+    rc = getattr(lib, f"clica_stem_{kernel}_blocks_per_sm")(
+        *args, ctypes.byref(per_sm))
+    _check_launch(lib, rc, f"stem {kernel} occupancy")
+    if per_sm.value < 1:
+        raise RuntimeError(f"stem {kernel}: no block fits an SM at {args}")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm.value
+
+
 def launch_stem_bwd(x, g, a, b, mean, rstd):
     """The backward kernel (and the reduction of its partial sums):
     (dy in g's dtype, Σdy, Σdy·x̂)."""
@@ -241,20 +335,47 @@ def launch_stem_bwd(x, g, a, b, mean, rstd):
     _check_vec("rstd", rstd, c, torch.float32, x.device)
     lib = load_kernels()
     bf16 = int(x.dtype == torch.bfloat16)
-    rows = lib.clica_stem_sum_rows(n, h, w, c, bf16)
-    if rows < 1:
-        raise ValueError(f"the stem kernels do not take shape {tuple(x.shape)}")
+    cv, _, ws, _ = bwd_geometry(w, c, x.dtype)
+    plan = bwd_plan(n, h, w, c, x.dtype, _slots(x.device.index, "bwd", cv, ws, bf16))
     dy = torch.empty_like(x)
-    partial = torch.empty((2, rows, c), device=x.device, dtype=torch.float32)
+    partial = torch.empty((2, plan.grid, c), device=x.device, dtype=torch.float32)
     sums = torch.empty((2, c), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         rc = lib.clica_stem_bwd(x.data_ptr(), g.data_ptr(), a.data_ptr(),
                                 b.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                                 dy.data_ptr(), partial.data_ptr(),
-                                sums.data_ptr(), n, h, w, c, bf16, _stream(x))
+                                sums.data_ptr(), n, h, w, c, bf16, *plan,
+                                _stream(x))
     _check_launch(lib, rc, "stem bwd")
     _launches["stem_bwd"] += 1
     return dy, sums[0], sums[1]
+
+
+def launch_stem_dx(x, dy, k1, nk2, nk3, mean) -> torch.Tensor:
+    """The dx kernel on dense NHWC x and dy (x's dtype); k1, nk2 = −k2,
+    nk3 = −k3·rstd and mean (C,) float32: dx in x's dtype."""
+    _check_map("x", x)
+    _check_shape(x)
+    _check_map("dy", dy, like=x)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    n, h, w, c = x.shape
+    for name, t in (("k1", k1), ("nk2", nk2), ("nk3", nk3), ("mean", mean)):
+        _check_vec(name, t, c, torch.float32, x.device)
+    lib = load_kernels()
+    bf16 = int(x.dtype == torch.bfloat16)
+    # a block takes THREADS // vectors positions a pass: no more blocks than
+    # the positions need, nor than the card holds at once
+    per = THREADS // (c // vector_width(x.dtype))
+    grid = min(-(-n * h * w // per), _slots(x.device.index, "dx", bf16))
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.clica_stem_dx(x.data_ptr(), dy.data_ptr(), k1.data_ptr(),
+                               nk2.data_ptr(), nk3.data_ptr(), mean.data_ptr(),
+                               dx.data_ptr(), n, h, w, c, bf16, grid, _stream(x))
+    _check_launch(lib, rc, "stem dx")
+    _launches["stem_dx"] += 1
+    return dx
 
 
 # ---------------------------------------------------------------------------
@@ -304,11 +425,10 @@ class _BnReluPool(torch.autograd.Function):
         k1 = scale * rstd
         k2 = k1 * sb / m_count
         k3 = k1 * sg / m_count
-        # dx = k1·dy − k2 − k3·x̂ in three passes: (k1·dy − k2), (x − mean),
-        # and their sum with x̂'s factor rstd folded into k3
-        dx = torch.addcmul(-k2, dy, k1)
-        dx.addcmul_(x.float() - mean, -(k3 * rstd))
-        return dx.to(x.dtype), sg, sb, None, None
+        # dx = k1·dy − k2 − k3·x̂ in one pass, x̂'s factor rstd folded into k3
+        dx_fn = launch_stem_dx if ctx.use_kernels else stem_dx_reference
+        dx = dx_fn(x, dy, k1, -k2, -(k3 * rstd), mean)
+        return dx, sg, sb, None, None
 
 
 def _bn_relu_pool(x, scale, bias, eps, use_kernels):
@@ -333,8 +453,8 @@ def bn_relu_pool_train(x: torch.Tensor, scale: torch.Tensor,
     what the normalisation used), which carry NO gradient: they exist to
     update running-statistics buffers.
 
-    CUDA tensors run the Hopper kernels (``stem_fwd`` here, ``stem_bwd`` in
-    backward) or raise; CPU tensors run the plain versions.
+    CUDA tensors run the Hopper kernels (``stem_fwd`` here, ``stem_bwd`` and
+    ``stem_dx`` in backward) or raise; CPU tensors run the plain versions.
     """
     return _bn_relu_pool(x, scale, bias, eps, x.device.type != "cpu")
 

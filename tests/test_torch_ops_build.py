@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from cl_ica_tpu_torch.ops import build, fused_neg_lse, infonce, infonce_dot
+from cl_ica_tpu_torch.ops import build, fused_neg_lse, infonce, infonce_dot, stem
 
 torch.set_num_threads(1)
 
@@ -388,7 +388,8 @@ class _Declared:
         return fn
 
 
-_LIBRARIES = {"infonce_lp.cu": infonce.declare, "infonce_dot.cu": infonce_dot.declare}
+_LIBRARIES = {"infonce_lp.cu": infonce.declare, "infonce_dot.cu": infonce_dot.declare,
+              "stem_pool.cu": stem.declare}
 
 
 @pytest.mark.parametrize("source, name", [

@@ -7,6 +7,8 @@ kernels. The kernels themselves are held against those plain versions on
 the card by chip_smoke.py.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cl_ica_tpu.ops import stem_pallas
 from cl_ica_tpu.ops.stem_pallas import bn_relu_pool_train as jax_stem
 from cl_ica_tpu_torch.models.layers import FastBatchNorm2d, StemBNReLUPool
 from cl_ica_tpu_torch.ops import launch_counts
@@ -22,8 +25,10 @@ from cl_ica_tpu_torch.ops.stem import (
     bn_relu_pool_reference,
     bn_relu_pool_train,
     launch_stem_bwd,
+    launch_stem_dx,
     launch_stem_fwd,
     stem_bwd_reference,
+    stem_dx_reference,
     stem_fwd_reference,
 )
 
@@ -323,3 +328,279 @@ def test_stem_module_training_matches_unfused_and_updates_running(channels_last)
     np.testing.assert_allclose(plain.running_var.numpy(),
                                (0.9 * start + 0.1 * var * n / (n - 1)).numpy(),
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# dx in one pass (stem_dx_reference, the plain version of stem_dx_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _dx_case(seed, dtype, shape=(3, 16, 16, 8)):
+    """x, a stand-in for the routed dy (in x's dtype), the norm's scale, the
+    float32 batch statistics and the two channel sums, as numpy float32
+    (x and dy already rounded to ``dtype``)."""
+    rng = np.random.default_rng(seed)
+    x, scale, _ = _data(seed, *shape)
+    dy = rng.normal(size=shape).astype(np.float32)
+    dy[rng.uniform(size=shape) < 0.6] = 0.0  # most positions win no window
+    x, dy = (torch.tensor(t).to(dtype).float().numpy() for t in (x, dy))
+    mean = x.mean((0, 1, 2), dtype=np.float64).astype(np.float32)
+    var = ((x.astype(np.float64) - mean) ** 2).mean((0, 1, 2))
+    rstd = (1.0 / np.sqrt(var + 1e-5)).astype(np.float32)
+    sb = dy.sum((0, 1, 2), dtype=np.float64).astype(np.float32)
+    sg = (dy.astype(np.float64) * (x - mean) * rstd).sum((0, 1, 2)).astype(np.float32)
+    return x, dy, scale, mean, rstd, sb, sg
+
+
+def _port_dx(x, dy, scale, mean, rstd, sb, sg, dtype):
+    """stem_dx_reference on the factors _BnReluPool.backward forms."""
+    t = {k: torch.tensor(v) for k, v in dict(scale=scale, mean=mean, rstd=rstd,
+                                             sb=sb, sg=sg).items()}
+    m = x.shape[0] * x.shape[1] * x.shape[2]
+    k1 = t["scale"] * t["rstd"]
+    k2 = k1 * t["sb"] / m
+    k3 = k1 * t["sg"] / m
+    return stem_dx_reference(torch.tensor(x).to(dtype), torch.tensor(dy).to(dtype),
+                             k1, -k2, -(k3 * t["rstd"]), t["mean"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_reference_matches_the_jax_vjp(monkeypatch, dtype):
+    # _vjp_bwd (stem_pallas.py:421-434) itself, its kernel replaced by the
+    # same (dy, Σdy, Σdy·x̂) handed to the port: what is compared is the dx
+    # formula alone. The two round different products: JAX k3·((x − mean)·
+    # rstd), the port (x − mean)·(k3·rstd); XLA may also contract a product
+    # and a sum into one FMA. Each way moves a term by at most one rounding,
+    # so float32 agrees within 4 roundings of the sum of the terms'
+    # magnitudes, |k1·dy| + |k2| + |k3·x̂| (2^-24 each). Both then round the
+    # float32 result once to x's dtype: in bfloat16 two values on either
+    # side of a rounding boundary may land one bfloat16 ulp apart (2^-7 of
+    # the value at most), and no further.
+    x, dy, scale, mean, rstd, sb, sg = _dx_case(20, dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jdy = jnp.asarray(dy, jdt)
+    monkeypatch.setattr(stem_pallas, "_run_bwd",
+                        lambda *args: (jdy, jnp.asarray(sb), jnp.asarray(sg)))
+    res = (jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(mean),
+           jnp.asarray(rstd), None, None)
+    g = jnp.zeros((x.shape[0], x.shape[1] // 2, x.shape[2] // 2, x.shape[3]), jdt)
+    want_dx, want_sg, want_sb = stem_pallas._vjp_bwd(1e-5, True, res, (g, None, None))
+    want = np.asarray(want_dx.astype(jnp.float32))
+    got = _port_dx(x, dy, scale, mean, rstd, sb, sg, dtype)
+    assert got.dtype == dtype and got.shape == x.shape
+    got = got.float().numpy()
+    m = x.shape[0] * x.shape[1] * x.shape[2]
+    k1 = scale.astype(np.float64) * rstd
+    terms = (np.abs(k1 * dy) + np.abs(k1 * sb / m)
+             + np.abs(k1 * sg / m * (x - mean) * rstd))
+    bound = 4 * 2.0 ** -24 * terms
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * np.maximum(np.abs(got), np.abs(want))
+        # and one ulp is the exception: most values round alike
+        assert np.mean(got == want) > 0.95
+    assert np.all(np.abs(got - want) <= bound)
+    np.testing.assert_array_equal(np.asarray(want_sb), sb)
+    np.testing.assert_array_equal(np.asarray(want_sg), sg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_reference_is_the_kernels_order_of_rounded_operations(dtype):
+    # dx = ((dy·k1 + nk2) + (x − mean)·nk3), each step one rounded float32
+    # operation, the result rounded once: element by element in float32
+    # numpy, the same bits
+    x, dy, scale, mean, rstd, sb, sg = _dx_case(21, dtype)
+    rng = np.random.default_rng(22)
+    k1, nk2, nk3 = (rng.normal(size=x.shape[3]).astype(np.float32) for _ in range(3))
+    got = stem_dx_reference(torch.tensor(x).to(dtype), torch.tensor(dy).to(dtype),
+                            *(torch.tensor(v) for v in (k1, nk2, nk3, mean)))
+    f32 = np.float32
+    want = f32(f32(dy * k1) + nk2) + f32(f32(x - mean) * nk3)
+    assert torch.equal(got, torch.tensor(want.astype(np.float32)).to(dtype))
+
+
+def test_cpu_backward_runs_the_plain_versions_in_order(monkeypatch):
+    # on CPU tensors the backward is stem_bwd_reference, then
+    # stem_dx_reference on its sums, and no launch counter moves
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls.append(name)
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(stem, "stem_bwd_reference", spy("bwd", stem_bwd_reference))
+    monkeypatch.setattr(stem, "stem_dx_reference", spy("dx", stem_dx_reference))
+    for name in ("launch_stem_fwd", "launch_stem_bwd", "launch_stem_dx"):
+        monkeypatch.setattr(stem, name, spy(name, getattr(stem, name)))
+    before = launch_counts()
+    x, scale, bias = _data(23)
+    got = _torch_grads(bn_relu_pool_train, x, scale, bias)
+    assert calls == ["bwd", "dx"]
+    assert launch_counts() == before
+    want = _torch_grads(bn_relu_pool_reference, x, scale, bias)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_dx_wrapper_refuses_cpu_tensors():
+    x = torch.zeros((1, 4, 4, 8))
+    v = torch.ones(8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch_stem_dx(x, x, v, v, v, v)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's persistent grid (bwd_plan) and its tile walk
+# ---------------------------------------------------------------------------
+
+
+def _walk(plan, shape, dtype, stages=4):
+    """A mirror of stem_bwd_kernel's walk (csrc/stem_pool.cu): block (b,
+    slice) takes tiles b, b + grid, ...; tile t is strip t % strips, segment
+    (t // strips) % segs of image t // (strips · segs); its threads own the
+    quads of window columns j0 .. j0 + ws − 1 inside the image, of quad rows
+    k0 .. k1 − 1, and the slice's vectors. Returns how often each (image,
+    quad row, quad column, vector) is written, and checks the ring: the
+    step of quad row k reads loads c and c + 1, which the producer filled
+    with stages k and k + 1, at most ``stages`` loads ahead."""
+    n, h, w, c = shape
+    ho, wo, cvs = h // 2, w // 2, c // stem.vector_width(dtype)
+    count = np.zeros((n, ho, wo, cvs), np.int32)
+    for sl in range(plan.slices):
+        v0 = sl * plan.cv
+        for b in range(plan.grid):
+            tiles = range(b, plan.tiles, plan.grid)
+            loads = []  # the producer's order: (tile, stage)
+            for t in tiles:
+                rest = t // plan.strips
+                k0 = rest % plan.segs * plan.ks
+                k1 = min(k0 + plan.ks, ho)
+                loads += [(t, st) for st in range(k0 - 1, k1 + 1)]
+            c_ = 0
+            for t in tiles:
+                j0 = t % plan.strips * plan.ws
+                rest = t // plan.strips
+                k0 = rest % plan.segs * plan.ks
+                k1 = min(k0 + plan.ks, ho)
+                img = rest // plan.segs
+                assert img < n and k0 < ho and j0 < wo
+                for k in range(k0 - 1, k1):
+                    assert loads[c_] == (t, k) and loads[c_ + 1] == (t, k + 1)
+                    assert c_ + 1 < c_ + stages  # both in the ring at once
+                    c_ += 1
+                c_ += 1
+                count[img, k0:k1, j0:min(j0 + plan.ws, wo), v0:v0 + plan.cv] += 1
+            assert c_ == len(loads)
+    return count
+
+
+# (N, H, W, channel vectors): C is these vectors of the dtype's width
+_WALK_SHAPES = [
+    (1024, 112, 112, 16),   # main_3dident's stem tail in float32, 1024 images
+    (1, 2, 2, 2),           # one quad
+    (3, 30, 14, 16),        # Ho = 15: ragged segments
+    (2, 40, 70, 2),         # Wo = 35: ragged strips
+    (1, 14, 18, 256),       # the widest C: 16 slices
+    (5, 6, 250, 40),        # wide rows; 3 slices of 14, 14 and 12 vectors
+    (1, 14, 18, 1),         # one vector
+]
+
+
+@pytest.mark.parametrize("slots", [1, 7, 264, 396])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _WALK_SHAPES)
+def test_bwd_walk_writes_every_quad_once(shape, dtype, slots):
+    n, h, w, cvs = shape
+    shape = (n, h, w, cvs * stem.vector_width(dtype))
+    plan = stem.bwd_plan(*shape, dtype, slots)
+    ho, wo = h // 2, w // 2
+    # the kernel's own constraints on a plan (clica_stem_bwd refuses others)
+    assert plan.cv >= 1 and plan.ws >= 1 and plan.ks >= 1
+    assert (plan.ws + 1) * plan.cv <= stem.THREADS and plan.cv <= stem.MAX_SLICE
+    assert (plan.slices - 1) * plan.cv < cvs <= plan.slices * plan.cv
+    assert (plan.strips - 1) * plan.ws < wo <= plan.strips * plan.ws
+    assert (plan.segs - 1) * plan.ks < ho <= plan.segs * plan.ks
+    assert plan.tiles == n * plan.segs * plan.strips
+    assert 1 <= plan.grid <= plan.tiles
+    assert plan.grid * plan.slices <= max(slots, plan.slices)  # one wave
+    count = _walk(plan, shape, dtype)
+    assert count.min() == 1 and count.max() == 1
+    assert stem.bwd_plan(*shape, dtype, slots) == plan  # a fixed plan
+
+
+@pytest.mark.parametrize("dtype, slots, want", [
+    # main_3dident's (1024, 112, 112, 64): 4 strips of 14 window columns in
+    # float32 (15 x 16 threads), 2 of 28 in bfloat16 (29 x 8)
+    (torch.float32, 264, (16, 1, 14, 4, 56, 1, 4096, 264)),
+    (torch.float32, 396, (16, 1, 14, 4, 28, 2, 8192, 396)),
+    (torch.bfloat16, 264, (8, 1, 28, 2, 56, 1, 2048, 264)),
+    (torch.bfloat16, 396, (8, 1, 28, 2, 28, 2, 4096, 396)),
+])
+def test_bwd_plan_at_the_main_path(dtype, slots, want):
+    assert tuple(stem.bwd_plan(1024, 112, 112, 64, dtype, slots)) == want
+
+
+class _FakeStemLib:
+    """csrc/stem_pool.cu's library, recording each call's arguments; two
+    backward blocks and eight dx blocks fit an SM."""
+
+    def __init__(self):
+        self.calls = []
+
+        def blocks_per_sm(name, per_sm):
+            def query(*args):
+                self.calls.append((name,) + args[:-1])
+                args[-1]._obj.value = per_sm
+                return 0
+            return query
+
+        def entry(name):
+            return lambda *args: self.calls.append((name,) + args) or 0
+
+        self.clica_stem_bwd_blocks_per_sm = blocks_per_sm("bwd blocks_per_sm", 2)
+        self.clica_stem_dx_blocks_per_sm = blocks_per_sm("dx blocks_per_sm", 8)
+        self.clica_stem_bwd = entry("bwd")
+        self.clica_stem_dx = entry("dx")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_and_dx_launches_take_the_plan(monkeypatch, dtype):
+    # launch_stem_bwd asks the library how many blocks fit an SM for the
+    # geometry, hands bwd_plan whole to the kernel with a (2, grid, C)
+    # buffer of partial sums, and counts one launch; launch_stem_dx asks
+    # the same of its kernel, hands the shape and the smaller of the
+    # blocks the positions need and the blocks the card holds, and counts
+    # one
+    lib = _FakeStemLib()
+    monkeypatch.setattr(stem, "load_kernels", lambda: lib)
+    monkeypatch.setattr(stem, "_check_map", lambda *args, **kw: None)
+    monkeypatch.setattr(stem, "_stream", lambda t: None)
+    monkeypatch.setattr(stem, "_slots", stem._slots.__wrapped__)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda d: type("Props", (), {"multi_processor_count": 132}))
+    shape = (1024, 112, 112, 64)
+    x = torch.zeros(shape, device="meta", dtype=dtype)
+    g = torch.zeros((1024, 56, 56, 64), device="meta", dtype=dtype)
+    v = torch.zeros(64, device="meta", dtype=dtype)
+    f = torch.zeros(64, device="meta")
+    empty = torch.empty
+    made = []
+    monkeypatch.setattr(torch, "empty", lambda s, **kw: made.append(tuple(s)) or empty(s, **kw))
+    before = launch_counts()
+    dy, sb, sg = launch_stem_bwd(x, g, v, v, f, f)
+    dx = launch_stem_dx(x, dy, f, f, f, f)
+    plan = stem.bwd_plan(*shape, dtype, 264)
+    bf16 = int(dtype == torch.bfloat16)
+    assert lib.calls[0] == ("bwd blocks_per_sm", plan.cv, plan.ws, bf16)
+    assert lib.calls[2] == ("dx blocks_per_sm", bf16)
+    bwd, dxc = lib.calls[1], lib.calls[3]
+    assert bwd[0] == "bwd" and len(bwd) == 24
+    assert bwd[10:] == (*shape, bf16, *plan, None)
+    assert (2, plan.grid, 64) in made
+    assert dxc[0] == "dx" and dxc[8:] == (*shape, bf16, 132 * 8, None)
+    assert dy.shape == dx.shape == shape and sb.shape == sg.shape == (64,)
+    before["stem_bwd"] += 1
+    before["stem_dx"] += 1
+    assert launch_counts() == before

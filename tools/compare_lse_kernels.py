@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""fused_neg_lse's and fused_dot_lse's kernels of two or more checkouts of
-this repository, in turns, on one GPU.
+"""fused_neg_lse's and fused_dot_lse's kernels (or, with --stem, the stem
+tail's backward) of two or more checkouts of this repository, in turns, on
+one GPU.
 
-    python3 tools/compare_lse_kernels.py [--out FILE] CHECKOUT [CHECKOUT ...]
+    python3 tools/compare_lse_kernels.py [--stem] [--out FILE] CHECKOUT [CHECKOUT ...]
 
 A CHECKOUT is a directory holding a tree of the repository: "." for this
 one, another commit unpacked with ``git archive`` into a directory that
@@ -35,8 +36,24 @@ process a turn:
      steps, sphere+vMF p=2, box+Laplace p=1 and sphere+vMF p=0 SimCLR
      (chip_smoke's configurations).
 
+With --stem, each checkout builds its stem library, this tree writes
+chip_smoke's 3DIdent fixture (4096 renders at 224x224, under
+runs/chip_smoke/) while the builds run, and a turn measures instead:
+
+  1. at chip_smoke.STEM_FULL = (1024, 112, 112, 64), float32 and bfloat16,
+     device ms (chip_smoke._median_ms, median of 9) of the checkout's
+     launch_stem_bwd; of its dx: launch_stem_dx where the checkout has it,
+     else the three tensor passes its backward ran (chip_smoke._three_pass_dx,
+     the same code); of those three passes in every checkout; and of
+     bn_relu_pool_train's forward+backward; a checkout's time is the
+     better of its turns;
+  2. main_3dident's training step, ResNet18, B = 512, --fused-stem,
+     float32 (TF32 off) and --bf16: pairs/s of 10 steady steps and peak
+     GiB (chip_smoke._step3d_pairs_per_sec), listed turn by turn.
+
 Prints the card's name and power limit beside every number and writes
-every number as JSON to --out (default runs/compare_lse/result.json).
+every number as JSON to --out (default runs/compare_lse/result.json, with
+--stem runs/compare_lse/stem.json).
 """
 
 from __future__ import annotations
@@ -54,6 +71,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 OUT_DIR = ROOT / "runs" / "compare_lse"
 STEP_CONFIGS = ("sphere", "box", "simclr")
+STEM_TIMED = ("bwd", "dx", "dx three passes", "fn fwd+bwd")
+STEM_STEPS = ("float32", "bf16")
 
 
 def _smoke_on(checkout: Path):
@@ -69,10 +88,12 @@ def _smoke_on(checkout: Path):
     return smoke
 
 
-def build(checkout: Path) -> None:
-    """Build the checkout's two loss libraries and print ptxas's report."""
+def build(checkout: Path, stem: bool) -> None:
+    """Build the checkout's two loss libraries (its stem library with
+    ``stem``) and print ptxas's report."""
     smoke = _smoke_on(checkout)
-    names = (smoke.infonce.LIBRARY, smoke.infonce_dot.LIBRARY)
+    names = ((smoke.stem.LIBRARY,) if stem
+             else (smoke.infonce.LIBRARY, smoke.infonce_dot.LIBRARY))
     smoke.build.build_libraries(names)
     for name in names:
         print(f"[build] {checkout} {name}:")
@@ -144,10 +165,53 @@ def errors(smoke, smi: str) -> dict:
     return out
 
 
-def turn(checkout: Path, result: Path, with_errors: bool) -> None:
+def stem_times(smoke, dtype) -> dict:
+    """{what: device ms} at STEM_FULL in this dtype (the note above, --stem 1)."""
+    stem = smoke.stem
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, scale, bias, g = smoke._stem_inputs(smoke.STEM_FULL, dtype, gen)
+    a, b, mean, rstd = smoke._fold(x, scale, bias)
+    dy, sb, sg = stem.launch_stem_bwd(x, g, a, b, mean, rstd)
+    factors = smoke._dx_factors(x, scale, mean, rstd, sb, sg)
+    dx = getattr(stem, "launch_stem_dx", smoke._three_pass_dx)
+    sc, bi = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+
+    def fwd_bwd():
+        xs = x.detach().requires_grad_()
+        stem.bn_relu_pool_train(xs, sc, bi)[0].backward(g)
+
+    cases = {"bwd": lambda: stem.launch_stem_bwd(x, g, a, b, mean, rstd),
+             "dx": lambda: dx(x, dy, *factors, mean),
+             "dx three passes": lambda: smoke._three_pass_dx(x, dy, *factors, mean),
+             "fn fwd+bwd": fwd_bwd}
+    out = {k: smoke._median_ms(f, reps=9, warmup=2) for k, f in cases.items()}
+    out["dx is"] = "launch_stem_dx" if dx is not smoke._three_pass_dx else "three passes"
+    return out
+
+
+def stem_turn(smoke) -> dict:
+    """--stem's turn: stem_times in both types, then the 3DIdent steps."""
+    out = {"stem": {}, "steps": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        out["stem"][str(dtype).removeprefix("torch.")] = stem_times(smoke, dtype)
+        torch.cuda.empty_cache()
+    args = smoke.main_3dident.parse_args(smoke._RUN3D + ["--mode", "unsupervised"])
+    latent_space, _, _ = smoke.main_3dident.setup_latent_space(args)
+    sampler = smoke.ThreeDIdentBatchSampler(smoke.FIXTURE, latent_space, 512,
+                                            device="cuda")
+    for label in STEM_STEPS:
+        out["steps"][label] = smoke._step3d_pairs_per_sec(sampler, True,
+                                                          label == "bf16")
+    return out
+
+
+def turn(checkout: Path, result: Path, with_errors: bool, stem: bool) -> None:
     """One turn of one checkout; every number goes to ``result``."""
     smoke = _smoke_on(checkout)
     _, smi = smoke.phase_device()
+    if stem:
+        result.write_text(json.dumps(stem_turn(smoke)))
+        return
     out = {"errors": errors(smoke, smi) if with_errors else None, "times": {},
            "steps": {}}
     for label, (p, tau, m, n) in smoke.TIMED.items():
@@ -162,51 +226,9 @@ def _run(args: list[str]) -> None:
                    check=True, timeout=1200)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("checkouts", nargs="*", type=Path,
-                    help="directories holding a tree of the repository")
-    ap.add_argument("--out", type=Path, default=OUT_DIR / "result.json")
-    ap.add_argument("--build", type=Path, help=argparse.SUPPRESS)
-    ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
-    ap.add_argument("--result", type=Path, help=argparse.SUPPRESS)
-    ap.add_argument("--errors", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.build is not None:
-        build(args.build.resolve())
-        return 0
-    if args.turn is not None:
-        turn(args.turn.resolve(), args.result, args.errors)
-        return 0
-    if not args.checkouts:
-        ap.error("name at least one checkout")
-    if not torch.cuda.is_available():
-        raise SystemExit("compare_lse_kernels: no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    names = [str(c) for c in args.checkouts]
-    builds = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                "--build", str(c)]) for c in args.checkouts]
-    if any(proc.wait(timeout=1200) != 0 for proc in builds):
-        raise SystemExit("compare_lse_kernels: a build failed")
-
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    order = list(range(len(names))) + list(range(len(names)))[::-1]
-    turns = {name: [] for name in names}
-    errs = {}
-    for k, i in enumerate(order):
-        path = OUT_DIR / f"turn{k}.json"
-        first = names[i] not in errs
-        _run(["--turn", str(args.checkouts[i]), "--result", str(path)]
-             + (["--errors"] if first else []))
-        got = json.loads(path.read_text())
-        if first:
-            errs[names[i]] = got["errors"]
-        turns[names[i]].append(got)
-        print(f"[turn {k}] {names[i]} done", flush=True)
-
+def report_loss(turns: dict, errs: dict, smi: str) -> dict:
+    """Print the loss kernels' times and steps; the result's numbers."""
+    names = list(turns)
     times = {}
     for label in turns[names[0]][0]["times"]:
         times[label] = {name: {k: min(t["times"][label][k] for t in ts)
@@ -224,12 +246,93 @@ def main() -> int:
               f"each checkout's two turns, on {smi}: " + "; ".join(
                   f"{name} " + " ".join(f"{v:.0f}" for v in vs)
                   for name, vs in row.items()), flush=True)
-    result = {"card": smi, "order": [names[i] for i in order], "errors": errs,
-              "times": times, "steps": steps,
-              "turns": {name: [t["times"] for t in ts] for name, ts in turns.items()}}
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(result, indent=1))
-    print(f"[compare] written to {args.out}")
+    return {"errors": errs, "times": times, "steps": steps,
+            "turns": {name: [t["times"] for t in ts] for name, ts in turns.items()}}
+
+
+def report_stem(turns: dict, smi: str) -> dict:
+    """Print the stem's times and 3DIdent steps; the result's numbers."""
+    best = {}
+    for dtype in ("float32", "bfloat16"):
+        best[dtype] = {name: {k: min(t["stem"][dtype][k] for t in ts)
+                              for k in STEM_TIMED}
+                       for name, ts in turns.items()}
+        print(f"[stem] {dtype} (1024, 112, 112, 64), device ms (median of 9), "
+              f"better of the turns, on {smi}: " + "; ".join(
+                  f"{name} ({ts[0]['stem'][dtype]['dx is']}): " + " ".join(
+                      f"{k} {best[dtype][name][k]:.4f}" for k in STEM_TIMED)
+                  for name, ts in turns.items()), flush=True)
+    steps = {label: {name: [t["steps"][label] for t in ts]
+                     for name, ts in turns.items()}
+             for label in STEM_STEPS}
+    for label, row in steps.items():
+        print(f"[steps] main_3dident --fused-stem {label}, ResNet18 B=512, "
+              f"pairs/s (peak GiB) of 10 steady steps, each checkout's turns, "
+              f"on {smi}: " + "; ".join(
+                  f"{name} " + " ".join(f"{p:.1f} ({g:.2f})" for p, g in vs)
+                  for name, vs in row.items()), flush=True)
+    return {"stem": best, "steps": steps,
+            "turns": {name: [t["stem"] for t in ts] for name, ts in turns.items()}}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkouts", nargs="*", type=Path,
+                    help="directories holding a tree of the repository")
+    ap.add_argument("--stem", action="store_true",
+                    help="compare the stem tail's backward and the 3DIdent step")
+    ap.add_argument("--out", type=Path,
+                    help="default runs/compare_lse/result.json (--stem: stem.json)")
+    ap.add_argument("--build", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--result", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--errors", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.build is not None:
+        build(args.build.resolve(), args.stem)
+        return 0
+    if args.turn is not None:
+        turn(args.turn.resolve(), args.result, args.errors, args.stem)
+        return 0
+    part = ["--stem"] if args.stem else []
+    out = args.out or OUT_DIR / ("stem.json" if args.stem else "result.json")
+    if not args.checkouts:
+        ap.error("name at least one checkout")
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_lse_kernels: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    names = [str(c) for c in args.checkouts]
+    builds = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                "--build", str(c), *part]) for c in args.checkouts]
+    if args.stem:
+        _smoke_on(ROOT).phase_fixture()
+    if any(proc.wait(timeout=1200) != 0 for proc in builds):
+        raise SystemExit("compare_lse_kernels: a build failed")
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    order = list(range(len(names))) + list(range(len(names)))[::-1]
+    turns = {name: [] for name in names}
+    errs = {}
+    for k, i in enumerate(order):
+        path = OUT_DIR / f"turn{k}.json"
+        first = names[i] not in errs
+        _run(["--turn", str(args.checkouts[i]), "--result", str(path), *part]
+             + (["--errors"] if first and not args.stem else []))
+        got = json.loads(path.read_text())
+        if first:
+            errs[names[i]] = got.get("errors")
+        turns[names[i]].append(got)
+        print(f"[turn {k}] {names[i]} done", flush=True)
+
+    result = {"card": smi, "order": [names[i] for i in order],
+              **(report_stem(turns, smi) if args.stem
+                 else report_loss(turns, errs, smi))}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(f"[compare] written to {out}")
     return 0
 
 
