@@ -2,6 +2,7 @@
 
 main_mlp     ← cl_ica_tpu/cli/main_mlp.py
 main_3dident ← cl_ica_tpu/cli/main_3dident.py
+main_kitti   ← cl_ica_tpu/cli/main_kitti.py (with kitti_solver, kitti_evaluate)
 """
 
 

@@ -1,8 +1,19 @@
 """Data pipelines of the port.
 
-threedident ← cl_ica_tpu/data/threedident.py
+threedident    ← cl_ica_tpu/data/threedident.py
+kitti          ← cl_ica_tpu/data/kitti.py
+kitti_analysis ← cl_ica_tpu/data/kitti_analysis.py (numpy + scipy; pandas,
+                 scikit-learn and matplotlib imported where used)
 """
 
+from .kitti import (
+    KittiDeviceSampler,
+    KittiMasks,
+    augment_mask_pairs,
+    augment_mask_pairs_fast,
+    interleave_pairs,
+    return_data,
+)
 from .threedident import (
     BUDGET_ENV,
     THREEDIDENT_MEAN,
@@ -16,6 +27,12 @@ from .threedident import (
 )
 
 __all__ = [
+    "KittiDeviceSampler",
+    "KittiMasks",
+    "augment_mask_pairs",
+    "augment_mask_pairs_fast",
+    "interleave_pairs",
+    "return_data",
     "BUDGET_ENV",
     "THREEDIDENT_MEAN",
     "THREEDIDENT_STD",

@@ -7,6 +7,7 @@ from .layers import (
 )
 from .invertible import InvertibleMLP, construct_invertible_mlp
 from .mlp import MLPEncoder, get_mlp
+from .conv import ConvEncoder64
 from .resnet import (
     BasicBlock,
     Bottleneck,
@@ -18,6 +19,8 @@ from .resnet import (
     ResNet152,
 )
 from .convert import (
+    conv_encoder_params_from_flax,
+    conv_encoder_params_to_flax,
     encoder_params_from_flax,
     encoder_params_to_flax,
     resnet_params_from_flax,
@@ -34,6 +37,9 @@ __all__ = [
     "construct_invertible_mlp",
     "MLPEncoder",
     "get_mlp",
+    "ConvEncoder64",
+    "conv_encoder_params_from_flax",
+    "conv_encoder_params_to_flax",
     "encoder_params_from_flax",
     "encoder_params_to_flax",
     "FastBatchNorm2d",

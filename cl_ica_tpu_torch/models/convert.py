@@ -1,5 +1,5 @@
-"""Flax variables <-> the port's state dicts: ``MLPEncoder``, ``ResNet``
-and the 3DIdent encoder.
+"""Flax variables <-> the port's state dicts: ``MLPEncoder``, ``ResNet``,
+the KITTI ``ConvEncoder64`` and the 3DIdent encoder.
 
 The JAX package's encoder variables (as numpy arrays) map onto the port's
 parameters by name:
@@ -24,6 +24,12 @@ The ResNet (``resnet_params_from_flax`` / ``resnet_params_to_flax``):
     .../{FastBatchNorm,MinResBN,BatchNorm}_k/...   -> blocks.i.norms.k....
     .../conv_proj/kernel, .../norm_proj/...        -> blocks.i.conv_proj, norm_proj
     params/Dense_0/{kernel,bias}                   -> fc.{weight,bias}
+
+the KITTI conv encoder (``conv_encoder_params_from_flax`` / ``..._to_flax``):
+
+    params/Conv_k/kernel  HWIO -> convs.k.weight OIHW;  Conv_k/bias -> convs.k.bias
+    params/Dense_0/{kernel,bias}                  -> fc.{weight,bias}
+    params/SoftclipLayer_0/max_abs_bound          -> head.max_abs_bound
 
 and the 3DIdent encoder (``threedident_params_from_flax`` / ``..._to_flax``):
 ``ResNet_0`` (or ``MLPEncoder_0`` under --dummy-mixing) -> ``backbone``,
@@ -295,3 +301,45 @@ def threedident_params_to_flax(state_dict, head_names: Dict[str, str],
         else:
             raise KeyError(f"unknown encoder state {key}")
     return out
+
+
+def conv_encoder_params_from_flax(flax_vars) -> Dict[str, torch.Tensor]:
+    """Flax ``ConvEncoder64`` variables ({'params': ...}, or the bare
+    'params' tree) -> a state dict for the port's ``ConvEncoder64``."""
+    params = flax_vars.get("params", flax_vars)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaves in params.items():
+        prefix, _, idx = name.rpartition("_")
+        if (prefix == "Conv" or name == "Dense_0") and set(leaves) == {"kernel", "bias"}:
+            key = f"convs.{idx}" if prefix == "Conv" else "fc"
+            kernel = np.asarray(leaves["kernel"])
+            # HWIO -> OIHW; a Dense kernel (in, out) -> (out, in)
+            sd[f"{key}.weight"] = _f32(kernel.transpose(3, 2, 0, 1)
+                                       if prefix == "Conv" else kernel.T)
+            sd[f"{key}.bias"] = _f32(leaves["bias"])
+        elif name == "SoftclipLayer_0" and set(leaves) == {"max_abs_bound"}:
+            sd["head.max_abs_bound"] = _f32(leaves["max_abs_bound"])
+        else:
+            raise KeyError(f"unknown ConvEncoder64 parameter {name}/{sorted(leaves)}")
+    return sd
+
+
+def conv_encoder_params_to_flax(state_dict) -> dict:
+    """Inverse of ``conv_encoder_params_from_flax``."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        value = value.detach().cpu().numpy()
+        parts = key.split(".")
+        if parts[0] == "convs" and parts[2] in ("weight", "bias"):
+            leaf = "kernel" if parts[2] == "weight" else "bias"
+            params.setdefault(f"Conv_{parts[1]}", {})[leaf] = (
+                value.transpose(2, 3, 1, 0).copy() if leaf == "kernel" else value)
+        elif key == "fc.weight":
+            params.setdefault("Dense_0", {})["kernel"] = value.T.copy()
+        elif key == "fc.bias":
+            params.setdefault("Dense_0", {})["bias"] = value
+        elif key == "head.max_abs_bound":
+            params["SoftclipLayer_0"] = {"max_abs_bound": value}
+        else:
+            raise KeyError(f"unknown ConvEncoder64 state {key}")
+    return {"params": params}

@@ -2,7 +2,9 @@
 
 Port of cl_ica_tpu/train/metrics.py, which is jax-free but cannot be
 imported from here: cl_ica_tpu/train/__init__.py pulls in jax. Its
-TensorBoard option waits for the KITTI driver, its only user (ROADMAP A9).
+TensorBoard option is not ported: its only user, main_kitti's
+--use-writer, hands the writer the run's args alone, and ``log_args``
+writes them as args.json.
 """
 
 from __future__ import annotations

@@ -18,18 +18,19 @@ import torch
 
 
 def make_optimizer(params, lr: float, weight_decay: float = 0.0,
-                   cosine_steps: Optional[int] = None, kind: str = "adam"
+                   cosine_steps: Optional[int] = None, kind: str = "adam",
+                   betas: Tuple[float, float] = (0.9, 0.999)
                    ) -> Tuple[torch.optim.Optimizer,
                               Optional[torch.optim.lr_scheduler.LambdaLR]]:
-    """optax.adam(lr) -> Adam, optax.adamw(lr, weight_decay) -> AdamW
-    (b1 0.9, b2 0.999, eps 1e-8 in both packages). ``cosine_steps`` T
-    adds optax.cosine_decay_schedule's closed form
+    """optax.adam(lr, b1, b2) -> Adam, optax.adamw(lr, b1, b2,
+    weight_decay) -> AdamW (``betas`` = (b1, b2), eps 1e-8 in both
+    packages). ``cosine_steps`` T adds optax.cosine_decay_schedule's closed form
     0.5·(1 + cos(π·min(t, T)/T)) as a LambdaLR, stepped once per update.
     ``kind='sgd'``: optax.sgd(lr) -> SGD, and with weight decay
     optax.chain(add_decayed_weights, sgd) -> SGD(weight_decay), which adds
     weight_decay·p to the gradient as that chain does.
     """
-    kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    kw = dict(lr=lr, betas=tuple(betas), eps=1e-8)
     if kind == "sgd":
         opt = torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
     elif kind != "adam":

@@ -246,6 +246,7 @@ def test_port_imports_no_jax():
         "import cl_ica_tpu_torch.models.resnet, cl_ica_tpu_torch.ops.stem\n"
         "import cl_ica_tpu_torch.ops.knn\n"
         "import cl_ica_tpu_torch.tools.make_synthetic_3dident\n"
+        "import cl_ica_tpu_torch.cli.main_kitti, cl_ica_tpu_torch.data.kitti, cl_ica_tpu_torch.tools.make_synthetic_kitti\n"
         "import chip_smoke\n"
         "import tools.profile_torch_step\n"
         "import tools.compare_lse_kernels\n"

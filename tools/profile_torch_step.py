@@ -22,8 +22,17 @@ norm, relu, pool), the rest of the encoder, the loss, backward, Adam.
 computes the backbone in bfloat16, --tf32 lets float32 convolutions and
 products use TF32.
 
+With --kitti it does the same for main_kitti's default step (ConvEncoder64,
+batch 64 = 32 pairs, z_dim 10, p = 1, the corpus on the device), on the
+synthetic corpus (150 sequences x 30 frames, seed 0) it writes under
+runs/profile_kitti/ (or the one given with --fixture). The phases there:
+sample (and, with --augment, the fast augmentation), encoder forward of
+the 64 images, the loss forward (the fused Lp kernel and the positive
+term), backward (encoder, dz1 and dz3), Adam.
+
 Usage: python3 tools/profile_torch_step.py [--box | --p 0] [--steps N]
        python3 tools/profile_torch_step.py --3dident [--fused-stem] [--bf16]
+       python3 tools/profile_torch_step.py --kitti [--augment] [--fixture DIR]
 Prints the card's name and power limit beside every number.
 """
 
@@ -41,11 +50,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cl_ica_tpu_torch.cli import main_3dident, main_mlp  # noqa: E402
-from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, normalize_3dident  # noqa: E402
+from cl_ica_tpu_torch.cli import kitti_solver, main_3dident, main_kitti, main_mlp  # noqa: E402
+from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, kitti, normalize_3dident  # noqa: E402
 from cl_ica_tpu_torch.models import construct_invertible_mlp, get_mlp  # noqa: E402
 from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: E402
-from cl_ica_tpu_torch.tools import make_synthetic_3dident  # noqa: E402
+from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti  # noqa: E402
 from cl_ica_tpu_torch.train import make_optimizer, make_synthetic_train_step  # noqa: E402
 
 SPHERE = "--space-type sphere --c-p 0 --c-param 20 --p 2 --n 10 --batch-size 6144"
@@ -110,8 +119,12 @@ def trace(step, steps: int, tag: str, card: str) -> None:
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a user annotation's range on the device track (the optimizer's
+    # "Optimizer.step#Adam.step") spans kernels counted on their own: not
+    # device time of its own
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in events)
     print(f"[trace] {tag}: {steps} steps in {wall_us / 1e3:.3f} ms wall "
           f"({wall_us / steps / 1e3:.3f} ms/step); device kernel time "
@@ -220,6 +233,77 @@ def profile_3dident(cli, card: str) -> None:
     trace(step, cli.steps, tag, card)
 
 
+def profile_kitti(cli, card: str) -> None:
+    """main_kitti's default step, from the solver's parts."""
+    root = cli.fixture or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "runs", "profile_kitti")
+    if not os.path.exists(os.path.join(root, kitti.FNAME)):
+        make_synthetic_kitti.main(["--output-dir", root, "--n-sequences", "150",
+                                   "--frames", "30", "--seed", "0"])
+    args = main_kitti.build_parser().parse_args(
+        ["--dset-dir", root] + (["--augment"] if cli.augment else []))
+    args.num_channel = 1
+    ds = kitti.return_data(args)[0]
+    sampler = kitti.KittiDeviceSampler(ds, "cuda")
+    lane = kitti_solver.KittiLane(args, 0, "cuda", int(args.max_iter))
+    pairs = args.batch_size // 2
+    tag = (f"KITTI ConvEncoder64 B={args.batch_size} ({pairs} pairs) "
+           f"z={args.z_dim} p={args.p}{', --augment' if cli.augment else ''}")
+
+    def step():
+        lane.step(pairs, ds.use_augmentation, sampler)
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    names = ("sample", "encoder fwd", "loss fwd", "backward", "adam")
+    out = {k: [] for k in names}
+    clock = {"t": 0.0}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out[name].append((t1 - clock["t"]) * 1e3)
+        clock["t"] = t1
+
+    # KittiLane.step's train_step, cut by marks at its own parts
+    reset_launch_counts()
+    for _ in range(cli.steps):
+        torch.cuda.synchronize()
+        clock["t"] = time.perf_counter()
+        x1, x2 = kitti_solver.sample_inputs(sampler, lane.generator, pairs,
+                                            ds.use_augmentation)
+        mark("sample")
+        z1, z2 = kitti_solver.encode_pairs(lane.net, x1, x2)
+        mark("encoder fwd")
+        total = kitti_solver.contrast(lane.loss, z1, z2)
+        torch.linalg.norm(z1.detach(), dim=1).mean()  # the step's mean ‖z1‖
+        mark("loss fwd")
+        lane.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        mark("backward")
+        lane.optimizer.step()
+        if lane.scheduler is not None:
+            lane.scheduler.step()
+        mark("adam")
+    times = {k: statistics.median(v) for k, v in out.items()}
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cli.steps):
+        step()
+    torch.cuda.synchronize()
+    whole = (time.perf_counter() - t0) * 1e3 / cli.steps
+    print(f"[phases] {tag}, ms per step (median of {cli.steps}, each phase "
+          f"synchronised), {card}: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; sum {sum(times.values()):.3f}; the solver's step unsynchronised "
+          f"{whole:.3f} ({pairs / whole * 1e3:.0f} pairs/s); launches over "
+          f"{cli.steps} steps {counts}")
+    trace(step, cli.steps, tag, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--box", action="store_true")
@@ -230,10 +314,15 @@ def main() -> int:
     ap.add_argument("--fused-stem", action="store_true")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--tf32", action="store_true")
+    ap.add_argument("--kitti", action="store_true",
+                    help="main_kitti's step instead of main_mlp's")
+    ap.add_argument("--augment", action="store_true",
+                    help="with --kitti: the step's fast paired augmentation")
     ap.add_argument("--fixture", default=None,
-                    help="an existing 3DIdent fixture folder (224x224)")
+                    help="an existing 3DIdent fixture folder (224x224), or "
+                         "with --kitti a KITTI corpus folder")
     ap.add_argument("--steps", type=int, default=None,
-                    help="default 30, or 10 with --3dident")
+                    help="default 30, 10 with --3dident, 100 with --kitti")
     cli = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs a CUDA device")
@@ -246,6 +335,10 @@ def main() -> int:
     if cli.threedident:
         cli.steps = cli.steps or 10
         profile_3dident(cli, card)
+        return 0
+    if cli.kitti:
+        cli.steps = cli.steps or 100
+        profile_kitti(cli, card)
         return 0
     cli.steps = cli.steps or 30
     if cli.box and cli.p == 0:
