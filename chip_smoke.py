@@ -73,8 +73,21 @@ use) and no network, and it exits non-zero on any failure. Phases:
              first losses. 8b and 8c bit for bit under
              cudnn.deterministic. Then the step's pairs/s and device ms,
              and the three Lp kernels' times at its shape
+  9 capture  the training step captured as a CUDA graph and replayed
+             (train/capture.py), as the drivers run it on the card: for
+             main_mlp p=2 and p=0 (B=6144), main_kitti default and
+             --augment, and main_3dident --scan --fused-stem (ResNet18,
+             B=512), a lane's eager steps against another lane's warm-up,
+             capture and replays from the same seed, losses and
+             parameters bit for bit (KITTI and 3DIdent under
+             cudnn.deterministic); the replays under
+             torch.cuda.set_sync_debug_mode("error"); the samplers'
+             fallback count 0; the launch counters equal to replays x
+             each kernel's launches in one step; then pairs/s and device
+             ms a step, eager against captured in turns. Phases 4d, 6d
+             (--scan), 8b and 8c already run the captured step
 
-``--only a,b`` runs a subset of {mlp, stem, 3dident, times, kitti} (the build
+``--only a,b`` runs a subset of {mlp, stem, 3dident, times, kitti, capture} (the build
 always runs) for a short look at one part. Such a run is no pass: it
 prints {"ok": false, "partial": [...]} and exits 1; the kernels line and
 the ok line are printed by the full run only.
@@ -88,6 +101,8 @@ from __future__ import annotations
 import argparse
 import copy
 import csv
+import functools
+import gc
 import json
 import math
 import os
@@ -106,12 +121,15 @@ from cl_ica_tpu_torch.cli import kitti_solver, main_3dident, main_kitti, main_ml
 from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, kitti
 from cl_ica_tpu_torch.models import ConvEncoder64, construct_invertible_mlp, get_mlp
 from cl_ica_tpu_torch.ops import build, infonce, infonce_dot, stem
+from cl_ica_tpu_torch.spaces.utils import fallback_count, reset_fallback_counts
 from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti
 from cl_ica_tpu_torch.train import (
+    CapturedStep,
     checkpoint,
     make_optimizer,
     make_synthetic_train_step,
 )
+from cl_ica_tpu_torch.train.capture import WARMUP_STEPS
 
 N_FEAT = 10
 BATCH = 6144
@@ -1122,11 +1140,13 @@ def phase_3dident() -> dict:
         raise AssertionError("6c: non-finite scores")
 
     # 6d: stopped at the step-3 checkpoint and resumed, against the
-    # uninterrupted run. cuDNN's default convolution gradients may use
-    # atomics, so this check (and only it) asks for its deterministic
-    # algorithms; the port's own kernels have no atomics.
+    # uninterrupted run, both with the step captured (--scan). cuDNN's
+    # default convolution gradients may use atomics, so this check (and
+    # only it) asks for its deterministic algorithms; the port's own
+    # kernels have no atomics.
     def resume_argv(name):
-        return unsup + ["--fused-stem", "--iterations", "6", "--save-every", "3",
+        return unsup + ["--fused-stem", "--scan", "--iterations", "6",
+                        "--save-every", "3",
                         "--save-model", os.path.join(run_dir, f"6d_{name}.pt")]
 
     was = torch.backends.cudnn.deterministic
@@ -1650,12 +1670,174 @@ def phase_kitti(smi: str, worst: dict) -> tuple[dict, dict]:
     return grew, times
 
 
+# ---------------------------------------------------------------------------
+# the captured step
+# ---------------------------------------------------------------------------
+
+
+def _mlp_capture_lane(config: str):
+    """A main_mlp lane at seed 0 in its unsupervised phase: (its
+    CapturedStep, its parameters)."""
+    args = main_mlp.parse_args(CONFIGS[config])
+    dev = torch.device("cuda")
+    lane = main_mlp.Lane(args, 0, dev, main_mlp.build_latent_space(args, dev),
+                         main_mlp.make_loss(args))
+    lane.start_phase(False, args.n_steps)
+    return lane.step, lambda: list(lane.f.parameters())
+
+
+def _kitti_capture_lane(*extra):
+    args = _kitti_args("9_capture", *extra)
+    solver = kitti_solver.Solver(args, kitti.return_data(args)[0], "cuda")
+    return solver.steps[0], lambda: list(solver.net.parameters())
+
+
+def _3dident_capture_lane(sampler):
+    """main_3dident --scan --fused-stem's step on its own model, loss,
+    optimizer and generator at seed 0, as the driver builds them."""
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised", "--scan",
+                                             "--fused-stem"])
+    _, n_non_ang, n_ang = main_3dident.setup_latent_space(args)
+    model = main_3dident.build_encoder(
+        args, n_non_ang + n_ang, n_non_ang,
+        torch.Generator().manual_seed(0)).cuda().train()
+    loss = main_3dident.build_split_loss(args, n_non_ang)
+    opt, sched = make_optimizer(model.parameters(), args.lr)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = CapturedStep(
+        lambda: main_3dident.train_step(model, loss, opt, sched, sampler, gen),
+        [gen], "cuda")
+    return step, lambda: list(model.parameters()) + list(model.buffers())
+
+
+def _eager(step: CapturedStep) -> torch.Tensor:
+    """One eager call of a captured step's body, stacked as a replay is."""
+    return torch.stack([t.float() for t in step.body()])
+
+
+def _hold_capture(tag: str, make, path: tuple, replays: int) -> None:
+    """Two lanes from one seed: WARMUP_STEPS + replays eager steps on one,
+    the warm-up, the capture and ``replays`` replays on the other, held bit
+    for bit (every loss output and every parameter and buffer). The
+    replays after the capture run under sync debug mode "error"; the
+    samplers' fallbacks are counted over both lanes' steps."""
+    reset_fallback_counts()
+    eager_step, eager_params = make()
+    cap_step, cap_params = make()
+    n = WARMUP_STEPS + replays
+    want = torch.stack([_eager(eager_step) for _ in range(n)])
+    got = [cap_step() for _ in range(WARMUP_STEPS + 1)]  # the capture is in the last
+    infonce.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got += [cap_step() for _ in range(replays - 1)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    grew = infonce.launch_counts()
+    got = torch.stack(got)
+    fallbacks = int(fallback_count("cuda"))
+    same_out = torch.equal(got, want)
+    pairs = list(zip(cap_params(), eager_params()))
+    same_params = sum(torch.equal(a, b) for a, b in pairs)
+    worst = max(float((a.detach().double() - b.detach().double()).abs().max())
+                for a, b in pairs)
+    per_step = {k: 1 if k in path else 0 for k in grew}
+    print(f"[9 capture] {tag}: {n} steps, eager vs warm-up + capture + "
+          f"{replays} replays: outputs {'bit-equal' if same_out else 'DIFFER'} "
+          f"(max |diff| {float((got - want).abs().max()):.3e}); "
+          f"{same_params} of {len(pairs)} parameter and buffer tensors "
+          f"bit-equal (max |diff| {worst:.3e}); launches a replay "
+          f"{cap_step.per_replay}; over {replays - 1} replays under sync debug "
+          f"mode 'error' {grew}; sampler fallbacks {fallbacks}")
+    if not cap_step.captured or cap_step.per_replay != per_step:
+        raise AssertionError(f"9 {tag}: launches a replay {cap_step.per_replay}, "
+                             f"expected {per_step}")
+    if grew != {k: (replays - 1) * v for k, v in per_step.items()}:
+        raise AssertionError(f"9 {tag}: launches {grew} over {replays - 1} replays")
+    if fallbacks:
+        raise AssertionError(f"9 {tag}: {fallbacks} sampler fallbacks")
+    if not same_out or same_params != len(pairs):
+        raise AssertionError(f"9 {tag}: the captured steps differ from the eager ones")
+
+
+def _capture_rate(tag: str, make, pairs: int, steps: int, smi: str) -> None:
+    """pairs/s (device-synchronised wall time) and device ms a step between
+    two CUDA events, eager and captured in turns (eager, captured,
+    captured, eager), on two fresh lanes warmed up (and captured) under the
+    drivers' own cuDNN settings, each going on from where it stood."""
+    eager_step, cap_step = make(), make()
+    eager_step, cap_step = eager_step[0], cap_step[0]
+    for _ in range(WARMUP_STEPS + 1):
+        _eager(eager_step)
+        cap_step()
+    runs = {"eager": [], "captured": []}
+    torch.cuda.reset_peak_memory_stats()
+    for kind in ("eager", "captured", "captured", "eager"):
+        fn = (lambda: _eager(eager_step)) if kind == "eager" else cap_step
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[kind].append((steps * pairs / wall, start.elapsed_time(end) / steps))
+    _say_time(f"[9 times] {tag}, turns of {steps} steps (eager, captured, "
+              f"captured, eager): "
+              + "; ".join(f"{k} pairs/s " + ", ".join(f"{r[0]:.0f}" for r in v)
+                          + " device ms a step " + ", ".join(f"{r[1]:.4f}" for r in v)
+                          for k, v in runs.items())
+              + f"; peak memory of both lanes "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {smi}")
+
+
+def phase_capture(smi: str) -> None:
+    """Phase 9: the captured step of each driver against its eager step,
+    then their speeds."""
+    t0 = time.perf_counter()
+    cases = [(f"main_mlp {config} p={main_mlp.parse_args(CONFIGS[config]).p} "
+              f"B={BATCH}", functools.partial(_mlp_capture_lane, config), path,
+              20, BATCH, 50) for config, path in (("sphere", LP), ("simclr", DOT))]
+    if not os.path.exists(os.path.join(KITTI_CORPUS, kitti.FNAME)):
+        phase_kitti_corpus()
+    cases += [(f"main_kitti {' '.join(extra) or 'default'} B=64",
+               functools.partial(_kitti_capture_lane, *extra), LP, 20,
+               KITTI_PAIRS, 200) for extra in ((), ("--augment",))]
+    if not os.path.exists(os.path.join(FIXTURE, "raw_latents.npy")):
+        phase_fixture()
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    sampler = ThreeDIdentBatchSampler(
+        FIXTURE, main_3dident.setup_latent_space(args)[0], 512, device="cuda")
+    cases.append(("main_3dident --scan --fused-stem ResNet18 B=512",
+                  functools.partial(_3dident_capture_lane, sampler),
+                  tuple(KERNELS), 6, 512, 10))
+    was = torch.backends.cudnn.deterministic
+    for tag, make, path, replays, pairs, steps in cases:
+        # bit for bit needs cuDNN's deterministic algorithms (KITTI,
+        # 3DIdent); the speeds are taken with the drivers' own setting
+        torch.backends.cudnn.deterministic = True
+        try:
+            _hold_capture(tag, make, path, replays)
+        finally:
+            torch.backends.cudnn.deterministic = was
+        gc.collect()
+        torch.cuda.empty_cache()
+        _capture_rate(tag, make, pairs, steps, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sampler
+    print(f"[9 capture] {time.perf_counter() - t0:.1f} s")
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of mlp,stem,3dident,times,kitti")
+                    help="comma-separated subset of mlp,stem,3dident,times,kitti,"
+                         "capture")
     only = set(filter(None, ap.parse_args().only.split(",")))
-    unknown = only - {"mlp", "stem", "3dident", "times", "kitti"}
+    unknown = only - {"mlp", "stem", "3dident", "times", "kitti", "capture"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown --only parts {sorted(unknown)}")
     run = lambda part: not only or part in only
@@ -1686,6 +1868,8 @@ def main() -> int:
         grew, times_kitti = phase_kitti(smi, worst)
         for k, v in grew.items():
             launches[k] += v
+    if run("capture"):
+        phase_capture(smi)
     if only:
         print(json.dumps({"ok": False, "partial": sorted(only)}))
         return 1

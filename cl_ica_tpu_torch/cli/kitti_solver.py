@@ -12,12 +12,12 @@ The whole mask corpus lives on the device (data.kitti.KittiDeviceSampler):
 a step samples its pairs there, augments them under --augment (the fast
 variant), encodes both frames in one forward of 2B images and takes the
 loss and the update, with no host sync. The JAX package scans log_step
-such steps per device call; here a Python loop of steps takes the scan's
-place, and the losses and norms stay on the device until a log or
-checkpoint boundary, where they reach the host in one transfer, are
-checked for non-finite values and written. Every step samples on the
-device: with no scanned chunk there is no ragged tail for the host to
-feed.
+such steps per device call; here each lane's step is captured once as a
+CUDA graph and replayed (train/capture.py), and the losses and norms stay
+on the device until a log or checkpoint boundary, where they reach the
+host in one transfer, are checked for non-finite values and written.
+Every step samples on the device: with no scanned chunk there is no
+ragged tail for the host to feed.
 
 One seed's run is a ``KittiLane``: its encoder, optimizer, scheduler and
 generators (data and augmentation on the device; the encoder's
@@ -29,6 +29,7 @@ repeats a serial run with seed i exactly, not only up to reassociation.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List
 
@@ -39,7 +40,7 @@ from . import fused_arg
 from ..data.kitti import KittiDeviceSampler, KittiMasks, augment_mask_pairs_fast
 from ..losses import LpSimCLRLoss
 from ..models import ConvEncoder64
-from ..train import make_optimizer
+from ..train import CapturedStep, make_optimizer
 
 NUMBERED_EVERY = 50000  # a numbered checkpoint every this many steps
 
@@ -97,7 +98,8 @@ class KittiLane:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def step(self, batch_pairs: int, augment: bool, sampler: KittiDeviceSampler):
-        """Sample and augment on the device, and take one train_step."""
+        """Sample and augment on the device, and take one train_step: the
+        body that ``EnsembleSolver`` captures."""
         x1, x2 = sample_inputs(sampler, self.generator, batch_pairs, augment)
         return train_step(self.net, self.loss, self.optimizer, self.scheduler, x1, x2)
 
@@ -146,6 +148,9 @@ class EnsembleSolver:
         self.augment = dataset.use_augmentation
         self.lanes = [KittiLane(args, s, self.device, self.max_iter) for s in self.seeds]
         self.sampler = KittiDeviceSampler(dataset, self.device)
+        self.steps = [CapturedStep(
+            functools.partial(lane.step, self.batch_pairs, self.augment, self.sampler),
+            [lane.generator], self.device) for lane in self.lanes]
         if args.resume:
             self.load_checkpoint(args.ckpt_name)
 
@@ -174,8 +179,9 @@ class EnsembleSolver:
                 f"--resume: lane checkpoints disagree on iter {iters}; the "
                 "lanes train in lockstep: finish the stragglers serially or "
                 "delete the checkpoints")
-        for lane, ckpt in zip(self.lanes, ckpts):
+        for lane, ckpt, step in zip(self.lanes, ckpts, self.steps):
             lane.restore(ckpt)
+            step.reset()  # the optimizer's state tensors were replaced
         self.global_iter = iters[0]
         print(f"=> loaded checkpoint '{filename}' of {len(paths)} lane(s) "
               f"(iter {self.global_iter})")
@@ -215,8 +221,8 @@ class EnsembleSolver:
         pending: List[torch.Tensor] = []
         logged = self.global_iter  # the last step whose values reached the host
         while self.global_iter < self.max_iter:
-            for lane in self.lanes:
-                pending.extend(lane.step(self.batch_pairs, self.augment, self.sampler))
+            for step in self.steps:
+                pending.append(step())  # (loss, norm)
             self.global_iter += 1
             if not self._boundary(self.global_iter):
                 continue

@@ -13,9 +13,12 @@ Everything of a training step runs on the device: pair sampling, the
 k-NN match against the rendered-latent table, the gather from the packed
 uint8 store, the normalisation, both views in one forward of 2B images,
 the loss, and Adam/SGD. ``--fused-stem`` takes the stem tail through the
-``ops.stem`` kernels. ``--save-every``/``--resume`` checkpoint the whole
-state (model, optimizer, scheduler, generators, step, loss history), so a
-resumed run repeats the uninterrupted one step for step.
+``ops.stem`` kernels. ``--scan`` captures the unsupervised step once as a
+CUDA graph and replays it between the log and save boundaries, where the
+JAX package scans the steps of each segment (train/capture.py).
+``--save-every``/``--resume`` checkpoint the whole state (model,
+optimizer, scheduler, generators, step, loss history), so a resumed run
+repeats the uninterrupted one step for step.
 
 The run is on CUDA: ``main(argv, device=None)`` resolves to "cuda" and
 raises when there is none; the CPU is used only when a caller passes
@@ -50,8 +53,18 @@ from ..models import construct_invertible_mlp, get_mlp
 from ..models.layers import RescaleLayer, SoftclipLayer
 from ..models.resnet import ResNet18, ResNet50, ResNet101, ResNet152, lecun_normal_
 from ..spaces import LatentSpace, NBoxSpace, NSphereSpace, ProductLatentSpace
-from ..train import MetricsLogger, Throughput, checkpoint, make_optimizer
+from ..train import (
+    CapturedStep,
+    MetricsLogger,
+    Throughput,
+    checkpoint,
+    make_optimizer,
+)
 from .main_mlp import resolve_device
+
+# The JAX package's debug switch (cl_ica_tpu/utils/debug.py): "1" turns on
+# per-step NaN guards, which --scan refuses there and here.
+DEBUG_ENV = "CL_ICA_TPU_DEBUG"
 
 
 def parse_args(argv=None):
@@ -133,9 +146,10 @@ def parse_args(argv=None):
                              "and one module here; 'minres8' (float8 "
                              "residuals) is not ported: ROADMAP A14.")
     parser.add_argument("--scan", action="store_true",
-                        help="Fuse training steps between log boundaries "
-                             "into one device program (not ported yet: "
-                             "ROADMAP A12b).")
+                        help="Capture the unsupervised training step once "
+                             "as a CUDA graph and replay it between log/save "
+                             "boundaries: one launch from the host per step "
+                             "and no host wait inside a segment.")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="Profiler trace directory (not ported yet: "
                              "ROADMAP A14).")
@@ -195,6 +209,14 @@ def parse_args(argv=None):
             raise SystemExit("--scan: the --mesh path has its own "
                              "sharded per-step program; scanned mesh "
                              "segments are not implemented — drop one")
+        if os.environ.get(DEBUG_ENV, "0") == "1":
+            raise SystemExit(f"--scan: debug mode's NaN guards check every "
+                             f"step on the host, which a captured step "
+                             f"cannot; unset {DEBUG_ENV} or drop --scan")
+        if args.optimizer == "sgd" and args.lr_cosine:
+            raise SystemExit("--scan: SGD reads a scheduled learning rate "
+                             "on the host at every step, which a captured "
+                             "step cannot; drop --lr-cosine or --scan")
     if args.fused_stem and args.norm_kind == "batch":
         raise SystemExit(
             "--fused-stem forces the FastBatchNorm module naming, so it "
@@ -219,8 +241,6 @@ def refuse_unported(args) -> None:
         ((args.mesh and args.mesh > 1) or (args.mesh_model and args.mesh_model > 1),
          "--mesh/--mesh-model (multi-GPU data parallelism)", "A13"),
         (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
-        (args.scan, "--scan (training steps captured as one device program)",
-         "A12b"),
         (args.norm_kind == "minres8",
          "--norm-kind minres8 (float8 norm residuals)", "A14"),
     ]
@@ -616,6 +636,11 @@ def _run(args, device):
             try:
                 sampler.require_device_store()
             except StoreOverBudget as err:
+                if args.scan:
+                    raise SystemExit(
+                        "--scan: the image store exceeds the on-device budget, "
+                        "so batches would come from the host, which a captured "
+                        f"step cannot drive. Drop --scan or raise the budget: {err}")
                 raise SystemExit(str(err))
             if sampler.device_store is None:
                 raise SystemExit(
@@ -716,13 +741,13 @@ def _run(args, device):
 
     throughput = Throughput()
     losses = []        # floats, one per finished step
-    pending = []       # this window's (loss, sigma) device tensors
+    pending = []       # this window's (loss, sigma) device tensors, (2,) each
 
     def flush():
         """Bring the window's losses to the host: the one device
         synchronisation of a window of steps."""
         if pending:
-            values = torch.stack([torch.stack(p) for p in pending]).tolist()
+            values = torch.stack(pending).tolist()
             losses.extend(v[0] for v in values)
             last["sigma"] = values[-1][1]
             pending.clear()
@@ -766,6 +791,12 @@ def _run(args, device):
 
     model.train()
     now = lambda: datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
+    # --scan: the step captured after the restore above, replayed once a
+    # step; the host reads its window at the log and save boundaries only
+    captured = CapturedStep(
+        lambda: train_step(model, split_loss, optimizer, scheduler, sampler,
+                           train_gen, g),
+        [train_gen], device) if args.scan else None
     if args.mode == "unsupervised":
         for step in range(start_step, args.iterations):
             if args.identity_mixing_and_solution:
@@ -774,10 +805,12 @@ def _run(args, device):
                     total = split_loss(
                         z1 * identity_scale, z2 * identity_scale,
                         torch.roll(z1 * identity_scale, 1, dims=0))[0]
-                pending.append((total, torch.zeros_like(total)))
+                pending.append(torch.stack((total, torch.zeros_like(total))))
+            elif captured is not None:
+                pending.append(captured())
             else:
-                pending.append(train_step(model, split_loss, optimizer,
-                                          scheduler, sampler, train_gen, g))
+                pending.append(torch.stack(train_step(
+                    model, split_loss, optimizer, scheduler, sampler, train_gen, g)))
             if step % args.n_log_steps == 0 or step == args.iterations:
                 flush()
                 throughput.update(args.batch_size * min(args.n_log_steps, step + 1))
@@ -833,7 +866,7 @@ def _run(args, device):
                 total = sup_step(x1, z1)
             else:  # --identity-solution: nothing to train
                 total = torch.full((), float("inf"), device=device)
-            pending.append((total, torch.zeros_like(total)))
+            pending.append(torch.stack((total, torch.zeros_like(total))))
             if args.save_every is not None and (step + 1) % args.save_every == 0:
                 save_model(args.save_model + f".iteration_{step + 1}")
                 save_train_state(step + 1)

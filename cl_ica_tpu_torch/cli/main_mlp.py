@@ -9,12 +9,16 @@ n_log_steps on 4096 fresh marginal samples, then take the mean/std of a
 final num-eval-batches evaluation.
 
 One seed's run is a ``Lane``: its three generators, its frozen mixing,
-its encoder and optimizer, and its loss and score histories. A serial
-run drives one lane; ``--seeds N`` drives N lanes in lockstep, where the
-JAX package vmaps them, so lane i reproduces a serial run with
-``--seed base+i``. ``--save-every``/``--resume`` checkpoint a lane's
-whole state (train/checkpoint.py), so a resumed run repeats the
-uninterrupted one step for step.
+its encoder and optimizer, its training step, and its loss and score
+histories. On CUDA the step is captured once per lane and phase as a
+CUDA graph and replayed (train/capture.py), where the JAX package scans
+n_log_steps steps per device call; the evaluations and checkpoints run
+eagerly between windows. A serial run drives one lane; ``--seeds N``
+drives N lanes in lockstep, where the JAX package vmaps them, so lane i
+reproduces a serial run with ``--seed base+i``.
+``--save-every``/``--resume`` checkpoint a lane's whole state
+(train/checkpoint.py), so a resumed run repeats the uninterrupted one
+step for step.
 
 The run is on CUDA: ``main(argv, device=None)`` resolves to "cuda" and
 raises when there is none; the CPU is used only when a caller passes
@@ -40,6 +44,7 @@ from ..losses import LpSimCLRLoss, SimCLRLoss
 from ..models import construct_invertible_mlp, encoder_params_to_flax, get_mlp
 from ..spaces import LatentSpace, NBoxSpace, NRealSpace, NSphereSpace
 from ..train import (
+    CapturedStep,
     MetricsLogger,
     Throughput,
     checkpoint,
@@ -333,8 +338,11 @@ class Lane:
         return evaluate_scores(self.latent_space, self.g, self.eval_gen)
 
     def start_phase(self, supervised: bool, n_steps: int) -> None:
-        """A fresh encoder (from the init stream), optimizer and step."""
+        """A fresh encoder (from the init stream), optimizer and step. The
+        step is captured at its first calls after the warm-up
+        (CapturedStep), so after any ``load_state_dict``."""
         args = self.args
+        self.step = None  # the last phase's graph and its memory go
         self.f = get_mlp(
             n_in=args.n,
             n_out=args.n,
@@ -347,10 +355,12 @@ class Lane:
         self.optimizer, self.scheduler = make_optimizer(
             self.f.parameters(), args.lr, args.weight_decay,
             cosine_steps=n_steps if args.lr_cosine else None)
-        self.step = make_synthetic_train_step(
+        body = make_synthetic_train_step(
             self.latent_space.sample_pair, self.g, self.f, self.loss,
             self.optimizer, args.batch_size, supervised=supervised,
             scheduler=self.scheduler)
+        self.step = CapturedStep(lambda: tuple(body(self.train_gen).values()),
+                                 [self.train_gen], self.device)
 
     def clear_histories(self) -> None:
         self.losses, self.linear_scores, self.perm_scores = [], [], []
@@ -394,6 +404,7 @@ class Lane:
             self.optimizer.load_state_dict(state["optimizer"])
             if self.scheduler is not None:
                 self.scheduler.load_state_dict(state["scheduler"])
+            self.step.reset()  # the optimizer's state tensors were replaced
         self.train_gen.set_state(state["generators"]["train"])
         self.eval_gen.set_state(state["generators"]["eval"])
         self.init_gen.set_state(state["generators"]["init"])
@@ -408,9 +419,9 @@ def train_steps(lanes, n: int) -> None:
     window = [[] for _ in lanes]
     for _ in range(n):
         for lane, out in zip(lanes, window):
-            out.append(lane.step(lane.train_gen)["loss"])
+            out.append(lane.step())  # (loss, loss_pos, loss_neg)
     for lane, out in zip(lanes, window):
-        lane.losses.extend(torch.stack(out).tolist())
+        lane.losses.extend(torch.stack(out)[:, 0].tolist())
 
 
 def run_ensemble(args, device):

@@ -22,6 +22,7 @@ bytes in the same order as the JAX package's NHWC batch.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Optional, Sequence, Tuple
@@ -45,11 +46,18 @@ class StoreOverBudget(RuntimeError):
     """The packed image store does not fit the device budget."""
 
 
+@functools.lru_cache(maxsize=8)
+def _mean_std(device: str):
+    """The normalisation's constants on ``device``, copied there once: a
+    captured step may not copy from the host."""
+    return (torch.as_tensor(THREEDIDENT_MEAN, device=device),
+            torch.as_tensor(THREEDIDENT_STD, device=device))
+
+
 def normalize_3dident(x_u8: torch.Tensor) -> torch.Tensor:
     """uint8 (B, H, W, 3) -> normalised float32, logical (B, 3, H, W) in
     channels_last memory, on x's device."""
-    mean = torch.as_tensor(THREEDIDENT_MEAN, device=x_u8.device)
-    std = torch.as_tensor(THREEDIDENT_STD, device=x_u8.device)
+    mean, std = _mean_std(str(x_u8.device))
     x = x_u8.to(torch.float32) / 255.0
     return ((x - mean) / std).permute(0, 3, 1, 2)
 

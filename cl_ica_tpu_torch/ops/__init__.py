@@ -7,10 +7,12 @@ ops/knn.py         ← cl_ica_tpu/ops/knn.py (l2_topk; no kernel)
 
 The CUDA sources are in ops/csrc and are built at first use by
 ops/build.py, one library per .cu file. ``launch_counts`` returns the
-launches of all nine kernels.
+launches of all nine kernels; a replayed CUDA graph adds its launches
+with ``add_launch_counts``.
 """
 
 from .infonce import (
+    add_launch_counts,
     fused_neg_lse,
     launch_counts,
     neg_lse_reference,
@@ -27,6 +29,7 @@ from .stem import (
 )
 
 __all__ = [
+    "add_launch_counts",
     "bn_relu_pool_reference",
     "bn_relu_pool_train",
     "dot_lse_reference",

@@ -36,7 +36,10 @@ MIN_CHUNK = 64  # the fewest rows of the other operand a tiled gradient block ta
 # Launches of each kernel since the last reset; each wrapper adds one
 # where it launches its kernel, and nowhere else. fwd/dz1/dz3 are
 # fused_neg_lse's kernels (this module), dot_* are fused_dot_lse's
-# (ops/infonce_dot.py), stem_* the stem tail's (ops/stem.py).
+# (ops/infonce_dot.py), stem_* the stem tail's (ops/stem.py). Under a
+# CUDA graph's capture a wrapper counts the launch it records; the
+# captured step takes that back and counts each replay's launches instead
+# (train/capture.py).
 _launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0,
                              "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0,
                              "stem_fwd": 0, "stem_bwd": 0, "stem_dx": 0}
@@ -49,6 +52,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add launches made outside the wrappers' Python: a CUDA graph's
+    replay launches the kernels its capture recorded (train/capture.py)."""
+    for k, v in counts.items():
+        _launches[k] += v
 
 
 def neg_lse_reference(z1: torch.Tensor, z3: torch.Tensor, p: float,

@@ -8,6 +8,7 @@ generator's device. Spaces are frozen dataclasses of Python scalars.
 from __future__ import annotations
 
 import dataclasses
+import math
 from abc import ABC, abstractmethod
 
 import torch
@@ -144,8 +145,10 @@ class NBoxSpace(Space):
     """Box {x : min_ <= x_i <= max_} ⊂ R^N.
 
     Conditionals are truncated by elementwise rejection resampling
-    (utils.truncated_rejection_resampling). ``rej_mult`` is ``--rej-mult``:
-    candidates drawn per rejection iteration = rej_mult × size.
+    (utils.truncated_rejection_resampling), whose rounds are sized from
+    the least acceptance rate of the noise (utils.box_acceptance).
+    ``rej_mult`` is ``--rej-mult``: candidates per rejection round =
+    rej_mult × size.
     """
 
     n: int
@@ -162,10 +165,14 @@ class NBoxSpace(Space):
                        device=generator.device)
         return u * (self.max_ - self.min_) + self.min_
 
-    def _truncated(self, generator, sampler, size: int):
+    def _truncated(self, generator, sampler, size: int, p: float, lbd: float):
+        """Truncate noise of density ∝ exp(-(|x|/lbd)^p) around a mean in
+        the box."""
+        acceptance = sut.box_acceptance(float(p), float(lbd),
+                                        self.max_ - self.min_)
         return sut.truncated_rejection_resampling(
             sampler, generator, self.min_, self.max_, size, self.n,
-            buffer_size_factor=self.rej_mult,
+            acceptance, buffer_size_factor=self.rej_mult,
         )
 
     def normal(self, generator, mean, std, size: int):
@@ -175,7 +182,7 @@ class NBoxSpace(Space):
             noise = torch.randn((s, self.n), generator=g, device=g.device)
             return noise * std + _tile_rows(mean, s)
 
-        return self._truncated(generator, sampler, size)
+        return self._truncated(generator, sampler, size, 2.0, std * math.sqrt(2.0))
 
     def laplace(self, generator, mean, lbd, size: int):
         mean = _broadcast_mean(mean, self.n, generator.device)
@@ -183,7 +190,7 @@ class NBoxSpace(Space):
         def sampler(g, s):
             return sut.sample_laplace(g, (s, self.n)) * lbd + _tile_rows(mean, s)
 
-        return self._truncated(generator, sampler, size)
+        return self._truncated(generator, sampler, size, 1.0, lbd)
 
     def generalized_normal(self, generator, mean, lbd, p, size: int):
         mean = _broadcast_mean(mean, self.n, generator.device)
@@ -192,4 +199,4 @@ class NBoxSpace(Space):
             return sut.sample_generalized_normal(
                 g, _tile_rows(mean, s), lbd, p, (s, self.n))
 
-        return self._truncated(generator, sampler, size)
+        return self._truncated(generator, sampler, size, p, lbd)

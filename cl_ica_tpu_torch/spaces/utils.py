@@ -5,17 +5,35 @@ Port of cl_ica_tpu/spaces/utils.py. Every sampler draws from an explicit
 nothing reads the global RNG. ``torch.distributions.Gamma``/``Beta``
 take no generator, so Gamma variates come from Marsaglia–Tsang here.
 
-Rejection loops are bounded like the JAX ``lax.while_loop``s they
-replace; each iteration ends with one host check of "all accepted",
-which is the loop's only device synchronisation.
+Rejection samplers draw a fixed number of rounds at once, as one
+(rounds, ...) tensor, and keep each element's first accepted proposal:
+the first accepted of i.i.d. proposals has the law of the JAX
+``lax.while_loop``s they replace, and nothing waits on the host, so a
+step that samples can be captured in a CUDA graph. The rounds are sized
+from each sampler's acceptance rate (``rounds_for``) so that an element
+falls back (to the value the JAX loop keeps after ``max_iters``) with a
+chance below FALLBACK_BUDGET over a RUN_STEPS-step run. Each device keeps
+a count of the elements that fell back (``fallback_count``); nothing on
+the training path reads it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable
+from typing import Callable, Dict
 
+import numpy as np
 import torch
+
+# An element of one draw site falls back with a chance below
+# FALLBACK_BUDGET over a run of RUN_STEPS steps that each draw it once.
+FALLBACK_BUDGET = 1e-7
+RUN_STEPS = 300_000
+
+# Elements that fell back since the last reset, one int64 counter per
+# device, added to on the device.
+_fallbacks: Dict[str, torch.Tensor] = {}
 
 
 def spherical_to_cartesian(r, phi):
@@ -83,34 +101,79 @@ def sample_laplace(generator: torch.Generator, shape) -> torch.Tensor:
     return rademacher(generator, shape) * -torch.log1p(-u)
 
 
-def sample_gamma(generator: torch.Generator, alpha: float, shape,
-                 max_iters: int = 64) -> torch.Tensor:
+def rounds_for(acceptance: float, elements: int) -> int:
+    """The fewest rounds R with elements·RUN_STEPS·(1 - acceptance)^R below
+    FALLBACK_BUDGET: the rounds of a draw of ``elements`` elements whose
+    proposals are each accepted with at least ``acceptance``."""
+    if acceptance >= 1.0:
+        return 1
+    need = math.log(FALLBACK_BUDGET / (elements * RUN_STEPS))
+    return max(1, math.ceil(need / math.log1p(-acceptance)))
+
+
+def fallback_count(device) -> torch.Tensor:
+    """The device's int64 count of elements that fell back since the
+    last ``reset_fallback_counts``. Reading its value waits for the device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = str(device)
+    if key not in _fallbacks:
+        _fallbacks[key] = torch.zeros((), dtype=torch.int64, device=device)
+    return _fallbacks[key]
+
+
+def reset_fallback_counts() -> None:
+    """Zero every device's count in place (a captured step keeps adding
+    to the same tensor)."""
+    for count in _fallbacks.values():
+        count.zero_()
+
+
+def first_accepted(ok: torch.Tensor, proposals: torch.Tensor, fallback):
+    """Each element's first proposal along dim 0 with ``ok`` set, or
+    ``fallback`` where no round accepted it (counted in fallback_count)."""
+    idx = ok.to(torch.uint8).argmax(0, keepdim=True)  # the first maximum
+    got = ok.any(0)
+    fallback_count(ok.device).add_((~got).sum())
+    return torch.where(got, proposals.gather(0, idx).squeeze(0), fallback)
+
+
+@functools.cache
+def gamma_acceptance(a: float) -> float:
+    """Marsaglia–Tsang's acceptance rate at shape a >= 1: E over x ~ N(0, 1)
+    of exp(min(0, x²/2 + d - d·v + d·log v)) where v = (1 + c·x)³ > 0,
+    by the midpoint rule on x in (-1/c, 12)."""
+    d = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    lo, hi, k = -1.0 / c, 12.0, 200_000
+    x = lo + (np.arange(k) + 0.5) * (hi - lo) / k
+    v = (1.0 + c * x) ** 3
+    log_ratio = np.minimum(0.5 * x * x + d - d * v + d * np.log(v), 0.0)
+    pdf = np.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+    return float(np.sum(pdf * np.exp(log_ratio)) * (hi - lo) / k)
+
+
+def sample_gamma(generator: torch.Generator, alpha: float, shape) -> torch.Tensor:
     """Gamma(alpha, 1) by Marsaglia–Tsang, drawn from ``generator``.
 
     For alpha < 1 it samples Gamma(alpha + 1) and multiplies by
-    U^(1/alpha). The acceptance rate is above 0.95 for the boosted
-    shape, so the bound of ``max_iters`` rounds is never reached in
-    practice; an element still unaccepted then keeps d (the mode).
+    U^(1/alpha). All rounds (``rounds_for`` of the boosted shape's
+    acceptance rate, above 0.95) are drawn at once; an element no round
+    accepted keeps d (the mode).
     """
     device = generator.device
+    shape = tuple(shape)
     a = alpha + 1.0 if alpha < 1.0 else alpha
     d = a - 1.0 / 3.0
     c = 1.0 / math.sqrt(9.0 * d)
-    out = torch.full(shape, d, dtype=torch.float32, device=device)
-    done = torch.zeros(shape, dtype=torch.bool, device=device)
-    for _ in range(max_iters):
-        x = torch.randn(shape, generator=generator, device=device)
-        u = torch.rand(shape, generator=generator, device=device)
-        v = (1.0 + c * x) ** 3
-        ok = (v > 0) & (
-            torch.log(u)
-            < 0.5 * x * x + d - d * v + d * torch.log(v.clamp_min(1e-30))
-        )
-        take = ok & ~done
-        out = torch.where(take, d * v, out)
-        done |= take
-        if bool(done.all()):
-            break
+    rounds = rounds_for(gamma_acceptance(a), math.prod(shape))
+    x = torch.randn((rounds,) + shape, generator=generator, device=device)
+    u = torch.rand((rounds,) + shape, generator=generator, device=device)
+    v = (1.0 + c * x) ** 3
+    ok = (v > 0) & (
+        torch.log(u) < 0.5 * x * x + d - d * v + d * torch.log(v.clamp_min(1e-30)))
+    out = first_accepted(ok, d * v, d)
     if alpha < 1.0:
         u = torch.rand(shape, generator=generator, device=device)
         out = out * u ** (1.0 / alpha)
@@ -138,6 +201,21 @@ def sample_generalized_normal(generator: torch.Generator, mean, lbd: float,
     return mean + lbd * sampled
 
 
+@functools.cache
+def box_acceptance(p: float, lbd: float, width: float) -> float:
+    """The least chance that mean + noise lands in a box interval of
+    ``width`` for a mean inside it, with noise of density ∝
+    exp(-(|x|/lbd)^p): the mean on a wall, half the mass of |x| <= width,
+    0.5·∫_0^T exp(-t^p) dt / Γ(1 + 1/p) with T = width/lbd, by the
+    midpoint rule (Laplace: p = 1, lbd its scale; Normal: p = 2,
+    lbd = σ·√2)."""
+    top = min(width / lbd, 60.0 ** (1.0 / p))  # exp(-60): the tail is nothing
+    k = 200_000
+    t = (np.arange(k) + 0.5) * top / k
+    mass = np.sum(np.exp(-t ** p)) * top / k / math.gamma(1.0 + 1.0 / p)
+    return 0.5 * min(float(mass), 1.0)
+
+
 def truncated_rejection_resampling(
     sampler_fn: Callable,
     generator: torch.Generator,
@@ -145,28 +223,22 @@ def truncated_rejection_resampling(
     max_: float,
     size: int,
     n: int,
-    max_iters: int = 128,
+    acceptance: float,
     buffer_size_factor: int = 1,
 ):
     """Elementwise rejection resampling onto the box [min_, max_]^n.
 
-    ``sampler_fn(generator, size) -> (size, n)`` draws untruncated
-    proposals. Each *element* is kept once it lands inside the box.
-    ``buffer_size_factor`` (``--rej-mult``) draws factor×size candidates
-    per iteration and folds them in order. After ``max_iters`` rounds any
-    element still unaccepted is clipped into the box.
+    ``sampler_fn(generator, s) -> (s, n)`` draws untruncated proposals.
+    Each *element* keeps its first proposal inside the box.
+    ``acceptance`` is the least chance that a proposal of an element lands
+    inside; ``rounds_for`` of it, rounded up to whole rounds of
+    ``buffer_size_factor`` (``--rej-mult``) candidates, are drawn at once
+    in the order the JAX loop folds them. An element no proposal accepted
+    is 0 clipped into the box, as the JAX loop leaves it after
+    ``max_iters``.
     """
-    device = generator.device
-    result = torch.zeros((size, n), dtype=torch.float32, device=device)
-    done = torch.zeros((size, n), dtype=torch.bool, device=device)
-    for _ in range(max_iters):
-        buf = sampler_fn(generator, size * buffer_size_factor)
-        buf = buf.reshape(buffer_size_factor, size, n)
-        ok = (buf >= min_) & (buf <= max_)
-        for i in range(buffer_size_factor):
-            take = ok[i] & ~done
-            result = torch.where(take, buf[i], result)
-            done |= take
-        if bool(done.all()):
-            break
-    return torch.clamp(result, min_, max_) if max_iters else result
+    k = rounds_for(acceptance, size * n)
+    k = -(-k // buffer_size_factor) * buffer_size_factor
+    buf = sampler_fn(generator, size * k).reshape(k, size, n)
+    ok = (buf >= min_) & (buf <= max_)
+    return torch.clamp(first_accepted(ok, buf, 0.0), min_, max_)

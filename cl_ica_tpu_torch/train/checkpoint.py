@@ -12,6 +12,12 @@ complete artifact: during the save the previous pair is intact; between
 save and pointer update the pointer still names the previous artifact,
 which is not pruned yet; during the prune the pointer already names the
 new one.
+
+A restore copies into the tensors a captured step reads
+(train/capture.py): ``Module.load_state_dict`` copies parameters and
+buffers in place, ``CosineLR.load_state_dict`` its count and learning
+rate; ``Optimizer.load_state_dict`` replaces the optimizer's state
+tensors, so the drivers restore before a step is captured, or reset it.
 """
 
 from __future__ import annotations

@@ -3,9 +3,12 @@
 Port of cl_ica_tpu/train/trainer.py:153-178 and :309-330. One step:
 sample a latent pair, z3 = roll(z1, 1), h = f∘g, z3_rec = roll(z1_rec, 1),
 the InfoNCE loss (or the supervised MSE), then an Adam/AdamW step. The
-JAX package scans n_log_steps such steps per device call; here a Python
-loop of steps takes the scan's place, and the step returns its metrics
-as device tensors so the loop synchronises once per window, not per step.
+JAX package scans n_log_steps such steps per device call; here the step
+is captured once as a CUDA graph and replayed (train/capture.py), and it
+returns its metrics as device tensors so the driver synchronises once per
+window, not per step. Nothing in the step reads a device value on the
+host: on CUDA the optimizer is ``capturable`` and the cosine schedule
+keeps its step count and learning rate on the device (``CosineLR``).
 """
 
 from __future__ import annotations
@@ -17,20 +20,65 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 
+class CosineLR:
+    """optax.cosine_decay_schedule's closed form, base·0.5·(1 + cos(π·min(t,
+    T)/T)), with the update count t and the learning rate as tensors on
+    the parameters' device, so that a captured step updates both. Set on
+    construction (t = 0) and after each ``step()``, as LambdaLR; the
+    optimizer reads its group's lr tensor."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, t_max: int):
+        self.optimizer, self.t_max = optimizer, max(int(t_max), 1)
+        group = optimizer.param_groups[0]
+        device = group["params"][0].device
+        self.base = [float(g["lr"]) for g in optimizer.param_groups]
+        self.t = torch.zeros((), dtype=torch.float64, device=device)
+        self.lrs = [torch.tensor(b, dtype=torch.float32, device=device)
+                    for b in self.base]
+        self._bind()
+
+    def _bind(self) -> None:
+        for g, lr in zip(self.optimizer.param_groups, self.lrs):
+            g["lr"] = lr
+        decay = 0.5 * (1.0 + torch.cos(
+            math.pi * torch.clamp(self.t, max=self.t_max) / self.t_max))
+        for lr, base in zip(self.lrs, self.base):
+            lr.copy_(base * decay)
+
+    def step(self) -> None:
+        self.t += 1
+        self._bind()
+
+    def state_dict(self) -> dict:
+        """LambdaLR's key for the update count; reading it waits for the
+        device."""
+        return {"last_epoch": int(self.t)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore the count into the same tensor, and give the optimizer
+        back this schedule's lr tensors (its own ``load_state_dict`` puts
+        the saved values in their place)."""
+        self.t.fill_(int(state["last_epoch"]))
+        self._bind()
+
+
 def make_optimizer(params, lr: float, weight_decay: float = 0.0,
                    cosine_steps: Optional[int] = None, kind: str = "adam",
                    betas: Tuple[float, float] = (0.9, 0.999)
-                   ) -> Tuple[torch.optim.Optimizer,
-                              Optional[torch.optim.lr_scheduler.LambdaLR]]:
+                   ) -> Tuple[torch.optim.Optimizer, Optional[CosineLR]]:
     """optax.adam(lr, b1, b2) -> Adam, optax.adamw(lr, b1, b2,
     weight_decay) -> AdamW (``betas`` = (b1, b2), eps 1e-8 in both
     packages). ``cosine_steps`` T adds optax.cosine_decay_schedule's closed form
-    0.5·(1 + cos(π·min(t, T)/T)) as a LambdaLR, stepped once per update.
+    0.5·(1 + cos(π·min(t, T)/T)) as a CosineLR, stepped once per update.
     ``kind='sgd'``: optax.sgd(lr) -> SGD, and with weight decay
     optax.chain(add_decayed_weights, sgd) -> SGD(weight_decay), which adds
-    weight_decay·p to the gradient as that chain does.
+    weight_decay·p to the gradient as that chain does. Adam and AdamW on
+    CUDA parameters are ``capturable``: their step count and bias
+    corrections stay on the device.
     """
-    kw = dict(lr=lr, betas=tuple(betas), eps=1e-8)
+    params = list(params)
+    capturable = bool(params) and params[0].is_cuda
+    kw = dict(lr=lr, betas=tuple(betas), eps=1e-8, capturable=capturable)
     if kind == "sgd":
         opt = torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
     elif kind != "adam":
@@ -41,10 +89,7 @@ def make_optimizer(params, lr: float, weight_decay: float = 0.0,
         opt = torch.optim.Adam(params, **kw)
     if cosine_steps is None:
         return opt, None
-    t_max = max(int(cosine_steps), 1)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda t: 0.5 * (1.0 + math.cos(math.pi * min(t, t_max) / t_max)))
-    return opt, sched
+    return opt, CosineLR(opt, cosine_steps)
 
 
 def make_synthetic_train_step(
@@ -55,7 +100,7 @@ def make_synthetic_train_step(
     optimizer: torch.optim.Optimizer,
     batch_size: int,
     supervised: bool = False,
-    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+    scheduler: Optional[CosineLR] = None,
 ):
     """Returns step(generator) -> {'loss', 'loss_pos', 'loss_neg'}, 0-d
     tensors on the device, after one optimizer update of ``encoder``.

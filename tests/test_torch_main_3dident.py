@@ -181,12 +181,90 @@ def test_conditionals_sample_at_the_requested_width(conditional):
     (["--mesh", "2"], "A13"),
     (["--mesh", "2", "--mesh-model", "2"], "A13"),
     (["--profile-dir", "p"], "A14"),
-    (["--mode", "unsupervised", "--scan"], "A12b"),
     (["--norm-kind", "minres8"], "A14"),
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(argv, item, fixtures, capsys):
     with pytest.raises(SystemExit, match=f"ROADMAP.md item {item}"):
         main_3dident.main(_argv(fixtures[True], *argv), device="cpu")
+
+
+def test_scan_matches_eager_and_resumes_exactly(fixtures, tmp_path, monkeypatch,
+                                                capsys):
+    """--scan (the step captured once and replayed; on the CPU the same
+    body runs eagerly) trains the same model as the eager loop, loss for
+    loss, between the same log and save boundaries; a --scan run stopped
+    at its step-2 checkpoint and resumed repeats it."""
+    argv = _argv(fixtures[True], "--mode", "unsupervised", "--fused-stem",
+                 "--iterations", "5", "--save-every", "2")
+    runs = {}
+    for name, extra in (("eager", []), ("scan", ["--scan"])):
+        path = str(tmp_path / f"{name}.pt")
+        runs[name] = (main_3dident.main(argv + extra + ["--save-model", path],
+                                        device="cpu"),
+                      torch.load(path, weights_only=True))
+    (eager, a), (scan, b) = runs["eager"], runs["scan"]
+    assert len(scan["losses"]) == 5 and scan["losses"] == eager["losses"]
+    assert (scan["mcc"], scan["lin"]) == (eager["mcc"], eager["lin"])
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    save = checkpoint.save_resume_state
+
+    def save_then_stop(*args):
+        save(*args)
+        raise _Outage
+
+    cut = argv + ["--scan", "--save-model", str(tmp_path / "cut.pt")]
+    monkeypatch.setattr(checkpoint, "save_resume_state", save_then_stop)
+    with pytest.raises(_Outage):
+        main_3dident.main(cut, device="cpu")
+    monkeypatch.setattr(checkpoint, "save_resume_state", save)
+    resumed = main_3dident.main(cut + ["--resume"], device="cpu")
+    assert "Resumed full train state at step 2" in capsys.readouterr().out
+    assert resumed["losses"] == scan["losses"]
+
+
+@pytest.mark.parametrize("argv, env, says", [
+    (["--scan"], {}, "--mode unsupervised"),
+    (["--scan", "--mode", "unsupervised", "--identity-mixing-and-solution"], {},
+     "--identity-mixing-and-solution"),
+    (["--scan", "--mode", "unsupervised", "--mesh", "2"], {}, "--mesh"),
+    (["--scan", "--mode", "unsupervised"], {"CL_ICA_TPU_DEBUG": "1"},
+     "CL_ICA_TPU_DEBUG"),
+])
+def test_scan_exits_where_the_jax_driver_does(argv, env, says, monkeypatch, capsys):
+    """The JAX driver's --scan exits (cl_ica_tpu/cli/main_3dident.py:216-235),
+    in parse_args in both packages; with CL_ICA_TPU_DEBUG=0 debug is off."""
+    argv = ["--offline-dataset", "x"] + argv
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match="scan"):
+        jax_main.parse_args(argv)
+    with pytest.raises(SystemExit, match="--scan") as err:
+        main_3dident.parse_args(argv)
+    assert says in str(err.value)
+    monkeypatch.setenv("CL_ICA_TPU_DEBUG", "0")
+    main_3dident.parse_args(["--offline-dataset", "x", "--scan", "--mode",
+                             "unsupervised"])
+
+
+def test_scan_refuses_sgd_under_a_schedule(capsys):
+    """SGD takes a tensor learning rate only through a host read, which a
+    captured step cannot make: --scan exits instead of failing to capture."""
+    with pytest.raises(SystemExit, match="--scan: SGD"):
+        main_3dident.parse_args(["--offline-dataset", "x", "--scan", "--mode",
+                                 "unsupervised", "--optimizer", "sgd",
+                                 "--lr-cosine"])
+    main_3dident.parse_args(["--offline-dataset", "x", "--scan", "--mode",
+                             "unsupervised", "--optimizer", "sgd"])
+
+
+def test_scan_with_a_store_over_the_device_budget_exits(fixtures, monkeypatch, capsys):
+    """As the JAX driver's host-prefetch guard: a store left on the host
+    cannot feed a captured step."""
+    monkeypatch.setenv(data.BUDGET_ENV, "1000")
+    with pytest.raises(SystemExit, match="--scan: the image store exceeds") as err:
+        main_3dident.main(_argv(fixtures[True], "--mode", "unsupervised", "--scan"),
+                          device="cpu")
+    assert data.BUDGET_ENV in str(err.value)
 
 
 def test_store_over_the_device_budget_exits_naming_item_and_variable(

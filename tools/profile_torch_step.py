@@ -30,6 +30,12 @@ sample (and, with --augment, the fast augmentation), encoder forward of
 the 64 images, the loss forward (the fused Lp kernel and the positive
 term), backward (encoder, dz1 and dz3), Adam.
 
+Each first times the step captured as a CUDA graph and replayed, as
+the drivers run it on the card (train/capture.py, main_3dident under
+--scan): wall ms a step (device-synchronised at the end of --steps
+replays), device ms a step between two CUDA events, the kernels a replay
+launches, and a trace of the replays (device time by kernel, busy share).
+
 Usage: python3 tools/profile_torch_step.py [--box | --p 0] [--steps N]
        python3 tools/profile_torch_step.py --3dident [--fused-stem] [--bf16]
        python3 tools/profile_torch_step.py --kitti [--augment] [--fixture DIR]
@@ -39,6 +45,7 @@ Prints the card's name and power limit beside every number.
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import statistics
 import subprocess
@@ -55,7 +62,12 @@ from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, kitti, normalize_3did
 from cl_ica_tpu_torch.models import construct_invertible_mlp, get_mlp  # noqa: E402
 from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: E402
 from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti  # noqa: E402
-from cl_ica_tpu_torch.train import make_optimizer, make_synthetic_train_step  # noqa: E402
+from cl_ica_tpu_torch.train import (  # noqa: E402
+    CapturedStep,
+    make_optimizer,
+    make_synthetic_train_step,
+)
+from cl_ica_tpu_torch.train.capture import WARMUP_STEPS  # noqa: E402
 
 SPHERE = "--space-type sphere --c-p 0 --c-param 20 --p 2 --n 10 --batch-size 6144"
 BOX = "--space-type box --c-p 1 --p 1 --box-norm --n 10 --batch-size 6144"
@@ -126,10 +138,11 @@ def trace(step, steps: int, tag: str, card: str) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in events)
+    kernels = sum(e.count for e in events) / steps
     print(f"[trace] {tag}: {steps} steps in {wall_us / 1e3:.3f} ms wall "
           f"({wall_us / steps / 1e3:.3f} ms/step); device kernel time "
           f"{device_us / 1e3:.3f} ms, busy share {device_us / wall_us:.3f}, "
-          f"{card}")
+          f"{kernels:.1f} device ops a step, {card}")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     # the 15 longest, and every kernel of the port's own wherever it ranks
     own = ("neg_lse_", "dot_lse_", "grad_reduce_", "lse_reduce_", "stem_")
@@ -140,6 +153,38 @@ def trace(step, steps: int, tag: str, card: str) -> None:
     cpu = sorted(prof.key_averages(), key=lambda e: e.count, reverse=True)[:8]
     print("[trace] most frequent host ops per step: " + "; ".join(
         f"{e.key} {e.count // steps}" for e in cpu))
+
+
+def captured(body, generators, steps: int, tag: str, card: str) -> None:
+    """The step body captured once and replayed: wall and device ms a step,
+    the launches of the port's kernels a replay adds, and a trace. It runs
+    on the fresh model, before the eager phases, as the drivers capture
+    before any eager step: after the eager phases and their torch.profiler
+    window, capturing the convolutional steps failed on the card (their
+    backward touched the legacy stream)."""
+    torch.cuda.reset_peak_memory_stats()
+    step = CapturedStep(body, generators, "cuda")
+    for _ in range(WARMUP_STEPS + 2):
+        step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    own = {k: v for k, v in step.per_replay.items() if v}
+    print(f"[captured] {tag}: {wall:.3f} ms/step wall over {steps} replays, "
+          f"{start.elapsed_time(end) / steps:.3f} ms/step between CUDA events, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"the port's kernels a replay {own}; {card}")
+    trace(step, steps, tag + ", captured", card)
+    del step  # the graph and its memory pool
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_3dident(cli, card: str) -> None:
@@ -171,8 +216,9 @@ def profile_3dident(cli, card: str) -> None:
            f"{', TF32' if cli.tf32 else ''}")
 
     def step():
-        main_3dident.train_step(model, loss, opt, None, sampler, gen)
+        return main_3dident.train_step(model, loss, opt, None, sampler, gen)
 
+    captured(step, [gen], cli.steps, tag, card)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -252,8 +298,9 @@ def profile_kitti(cli, card: str) -> None:
            f"z={args.z_dim} p={args.p}{', --augment' if cli.augment else ''}")
 
     def step():
-        lane.step(pairs, ds.use_augmentation, sampler)
+        return lane.step(pairs, ds.use_augmentation, sampler)
 
+    captured(step, [lane.generator], cli.steps, tag, card)
     for _ in range(5):
         step()
     torch.cuda.synchronize()
@@ -350,6 +397,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = make_synthetic_train_step(latent.sample_pair, g, f, loss, opt,
                                      args.batch_size)
+    captured(lambda: tuple(step(gen).values()), [gen], cli.steps,
+             f"{tag} B={args.batch_size}", card)
     for _ in range(5):
         step(gen)
     torch.cuda.synchronize()
