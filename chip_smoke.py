@@ -7,7 +7,7 @@ use) and no network, and it exits non-zero on any failure. Phases:
 
   0 device   the card's name and power limit; TF32 off for the references
   1 build    build (one nvcc per source, started together) and load the
-             three libraries of hand-written kernels, with build seconds
+             four libraries of hand-written kernels, with build seconds
              and ptxas reports
   2 kernels  fused_neg_lse's and fused_dot_lse's three kernels each against
              their plain PyTorch version: values and both grads under a
@@ -27,7 +27,16 @@ use) and no network, and it exits non-zero on any failure. Phases:
              inputs, bit for bit. The stem's three kernels (stem_fwd,
              stem_bwd, stem_dx) against theirs, float32 and bfloat16:
              small ragged shapes, tied inputs, C of 256 vectors, and the
-             full (1024, 112, 112, 64); two backward calls, bit for bit
+             full (1024, 112, 112, 64); two backward calls, bit for bit.
+             The minres norm's four kernels (bn_stats, bn_apply, bn_bwd,
+             bn_dx; the "bn" part) at every norm shape of ResNet18 at 1024
+             images and two ragged ones, float32 and bfloat16, for each of
+             bn_relu, bn_add_relu and bn_only: the statistics against
+             float64 sums, apply (y), the backward sums and dx (with g)
+             against their plain versions given the plain version's a, b
+             and sums, two calls bit for bit; then the three functions
+             whole (forward and backward through the kernels) against
+             float64 at (16, 28, 28, 64)
   3 parity   loss and every encoder grad of one training step at full
              width (n=10, 100-500-500-500-500-100, B=6144), fused vs not,
              for three configurations
@@ -43,18 +52,22 @@ use) and no network, and it exits non-zero on any failure. Phases:
   6 3dident  a synthetic 3DIdent fixture (4096 renders at 224x224, written
              under runs/chip_smoke/), then cli.main_3dident at full width
              (ResNet18, batch 512, both views in one forward of 1024
-             images): 6a unsupervised with --fused-stem, where all nine
-             kernels are launched once per step; 6b the same seed without
-             --fused-stem against 6a's first losses; 6c --mode test on
+             images): 6a unsupervised with --fused-stem, where the six loss
+             and three stem kernels are launched once per step and no bn
+             kernel; 6b the same seed on the default path (--norm-kind
+             minres: each bn kernel 20 times a step, no stem kernel)
+             against 6a's first losses; 6c --mode test on
              6a's saved model; 6d 6a stopped at a checkpoint and resumed,
              loss for loss; 6e 6a's seed with --no-fused-loss against
              6a's first losses, the six loss counters at 0
   7 times    the stem's kernels, the whole backward (stem_bwd and stem_dx),
              the three tensor passes stem_dx replaced, the whole fused
              function and PyTorch's own calls at (1024, 112, 112, 64),
-             float32 and bfloat16, with each kernel's bound; the 3DIdent
-             step's pairs/s and peak GiB with and without --fused-stem,
-             float32 and --bf16
+             float32 and bfloat16, with each kernel's bound; the four bn
+             kernels there in bn_relu's mode against their plain versions
+             and PyTorch's SyncBatchNorm calls; the 3DIdent step's pairs/s
+             and peak GiB on the default path (minres), with --norm-kind
+             fast and with --fused-stem, in turns, float32 and --bf16
   8 kitti    a synthetic KITTI Masks corpus (150 sequences x 30 frames,
              seed 0, written under runs/chip_smoke/kitti) on the card; the
              three Lp kernels at main_kitti's shape (M = N = 32, n = 10,
@@ -76,18 +89,21 @@ use) and no network, and it exits non-zero on any failure. Phases:
   9 capture  the training step captured as a CUDA graph and replayed
              (train/capture.py), as the drivers run it on the card: for
              main_mlp p=2 and p=0 (B=6144), main_kitti default and
-             --augment, and main_3dident --scan --fused-stem (ResNet18,
-             B=512), a lane's eager steps against another lane's warm-up,
+             --augment, and main_3dident --scan --fused-stem and --scan on
+             the default path (ResNet18, B=512), a lane's eager steps
+             against another lane's warm-up,
              capture and replays from the same seed, losses and
              parameters bit for bit (KITTI and 3DIdent under
              cudnn.deterministic); the replays under
              torch.cuda.set_sync_debug_mode("error"); the samplers'
              fallback count 0; the launch counters equal to replays x
              each kernel's launches in one step; then pairs/s and device
-             ms a step, eager against captured in turns. Phases 4d, 6d
+             ms a step, eager against captured in turns (the default
+             3DIdent lane's eager rate is phase 7's). Phases 4d, 6d
              (--scan), 8b and 8c already run the captured step
 
-``--only a,b`` runs a subset of {mlp, stem, 3dident, times, kitti, capture} (the build
+``--only a,b`` runs a subset of {mlp, stem, bn, 3dident, times, kitti,
+capture} (the build
 always runs) for a short look at one part. Such a run is no pass: it
 prints {"ok": false, "partial": [...]} and exits 1; the kernels line and
 the ok line are printed by the full run only.
@@ -120,7 +136,7 @@ import torch.nn.functional as F
 from cl_ica_tpu_torch.cli import kitti_solver, main_3dident, main_kitti, main_mlp
 from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, kitti
 from cl_ica_tpu_torch.models import ConvEncoder64, construct_invertible_mlp, get_mlp
-from cl_ica_tpu_torch.ops import build, infonce, infonce_dot, stem
+from cl_ica_tpu_torch.ops import bn_minres, build, infonce, infonce_dot, stem
 from cl_ica_tpu_torch.spaces.utils import fallback_count, reset_fallback_counts
 from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti
 from cl_ica_tpu_torch.train import (
@@ -152,6 +168,7 @@ PEAK_BYTES_PER_S = 3.35e12
 LP = ("fwd", "dz1", "dz3")               # fused_neg_lse's launch counters
 DOT = ("dot_fwd", "dot_dz1", "dot_dz3")  # fused_dot_lse's
 STEM = ("stem_fwd", "stem_bwd", "stem_dx")  # the stem tail's
+BN = ("bn_stats", "bn_apply", "bn_bwd", "bn_dx")  # the blocks' minres norm's
 STEM_FULL = (1024, 112, 112, 64)         # conv7's output for 1024 images of 224x224
 # float32: the kernel and the plain version round x*a and +b separately and
 # add at most four g's in one order, so pooled and dy should be equal; the
@@ -159,6 +176,19 @@ STEM_FULL = (1024, 112, 112, 64)         # conv7's output for 1024 images of 224
 # another order than torch.sum's.
 STEM_MAP_BAR = 1e-6
 STEM_SUM_BAR = 1e-5
+# The minres norm (ops/bn_minres.py) at every norm shape of ResNet18 at 1024
+# images (the stem's, then stages 1-4), its three functions and their modes
+RN18_NORMS = (STEM_FULL, (1024, 56, 56, 64), (1024, 28, 28, 128),
+              (1024, 14, 14, 256), (1024, 7, 7, 512))
+BN_FUNCTIONS = (("bn_relu", False, True), ("bn_add_relu", True, True),
+                ("bn_only", False, False))  # (name, residual add, relu)
+BN_NORMS_A_STEP = 20  # ResNet18's norms, each one launch of each bn kernel
+# The statistics against float64 sums (the kernel adds in double, so its
+# error is a float32 rounding or two); the channel sums against torch.sum's
+# float32 sums; y, g and dx as the stem's maps.
+BN_STATS_BAR = 1e-6
+BN_SUM_BAR = 1e-5
+EPS = 1e-5
 BF16_ULP = 2.0 ** -7  # bfloat16: one unit in the last place, relative
 KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
     "fwd": ("neg_lse_fwd_tiled<PM, NF> + lse_reduce_kernel",
@@ -184,6 +214,20 @@ KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
                  "cl_ica_tpu/ops/stem_pallas.py:235"),
     "stem_dx": ("stem_dx_kernel", "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
                 "cl_ica_tpu/ops/stem_pallas.py:429 (XLA pass, not a pallas_call)"),
+    "bn_stats": ("bn_stats_kernel<T> + bn_reduce_kernel",
+                 "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
+                 "cl_ica_tpu/ops/bn_minres.py:56 (_channel_stats; XLA passes, "
+                 "not a pallas_call)"),
+    "bn_apply": ("bn_apply_kernel<T, M>", "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
+                 "cl_ica_tpu/ops/bn_minres.py:128 (the forwards' affine and "
+                 "relu; XLA pass, not a pallas_call)"),
+    "bn_bwd": ("bn_bwd_kernel<T, M> + bn_reduce_kernel",
+               "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
+               "cl_ica_tpu/ops/bn_minres.py:96 (_bn_bwd_core's sums and "
+               "_mask_grad; XLA pass, not a pallas_call)"),
+    "bn_dx": ("bn_dx_kernel<T, M>", "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
+              "cl_ica_tpu/ops/bn_minres.py:106 (_bn_bwd_core's dx; XLA pass, "
+              "not a pallas_call)"),
 }
 _RUN = ("--n 10 --batch-size 6144 --only-unsupervised --n-steps 100 "
         "--n-log-steps 50 --num-eval-batches 2 --seed 0").split()
@@ -224,12 +268,11 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    libraries = (infonce.LIBRARY, infonce_dot.LIBRARY, stem.LIBRARY)
+    libraries = build.LIBRARIES
     t0 = time.perf_counter()
     build.build_libraries(libraries)
-    infonce.load_kernels()
-    infonce_dot.load_kernels()
-    stem.load_kernels()
+    for module in (infonce, infonce_dot, stem, bn_minres):
+        module.load_kernels()
     secs = time.perf_counter() - t0
     print(f"[1 build] {', '.join(build.library_path(n).name for n in libraries)} "
           f"ready in {secs:.1f} s (one nvcc per source, in parallel)")
@@ -1042,6 +1085,175 @@ def phase_stem_kernels(worst: dict) -> None:
     print("[2 kernels] stem wrappers raise on a strided, odd, CPU or float64 x")
 
 
+# ---------------------------------------------------------------------------
+# the minres norm's kernels
+# ---------------------------------------------------------------------------
+
+
+def _bn_inputs(shape, dtype, gen):
+    """x like a convolution's output (per-channel scale and offset), a
+    residual, a cotangent, and the norm's scale and bias, on the card."""
+    c = shape[-1]
+    dev = "cuda"
+    x = torch.randn(shape, device=dev, generator=gen)
+    x = (x * (0.5 + torch.rand(c, device=dev, generator=gen))
+         + 0.3 * torch.randn(c, device=dev, generator=gen)).to(dtype)
+    res = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    scale = 1.0 + 0.5 * torch.randn(c, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+    return x, res, dy, scale, bias
+
+
+def _stats64(x, eps=EPS):
+    """(mean, var, rstd) as the kernel defines them (the square in x's
+    dtype), summed in float64."""
+    dims = tuple(range(x.ndim - 1))
+    mean = x.double().mean(dim=dims)
+    var = (x.square().double().mean(dim=dims) - mean * mean).clamp(min=0)
+    return mean, var, torch.rsqrt(var + eps)
+
+
+def _same_map(got, want, dtype) -> tuple[float, float]:
+    """(max abs error, error over the bar) of y or g: float32 bit-equal (over
+    the bar is 0 or inf), bfloat16 within one ulp of the plain version."""
+    if dtype == torch.bfloat16:
+        return _map_err(got, want, dtype)
+    err = float((got - want).abs().max())
+    return err, 0.0 if torch.equal(got, want) else math.inf
+
+
+def _hold_bn(shape, dtype, gen, worst: dict) -> None:
+    """The four kernels at one shape against their plain versions: the
+    statistics (and two calls bit for bit) against float64 sums; then, for
+    each function, apply, the backward sums (two calls bit for bit) and dx
+    (with g) given the plain version's a, b, sums and (bn_add_relu's mask)
+    output y, so that no relu mask can flip between the routes."""
+    x, res, dy, scale, bias = _bn_inputs(shape, dtype, gen)
+    stats = bn_minres.launch_stats(x, EPS)
+    again = bn_minres.launch_stats(x, EPS)
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(p, q) for p, q in zip(stats, again))
+    plain = bn_minres.channel_stats(x, EPS)
+    exact = _stats64(x)
+    e_stats = max(rel_err(k.double(), e) for k, e in zip(stats, exact))
+    e_plain = max(rel_err(p.double(), e) for p, e in zip(plain, exact))
+    worst["bn_stats"] = max(worst.get("bn_stats", 0.0), max(
+        float((k - p).abs().max()) for k, p in zip(stats, plain)))
+    worst["bn_stats_rel64"] = max(worst.get("bn_stats_rel64", 0.0), e_stats)
+    mean, _, rstd = plain
+    a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
+    count = x.numel() // shape[-1]
+    name = str(dtype).removeprefix("torch.")
+    fails = [] if e_stats <= BN_STATS_BAR and repeats else ["stats"]
+    parts = []
+    for fn, with_res, relu in BN_FUNCTIONS:
+        r = res if with_res else None
+        y_p = bn_minres.bn_apply_reference(x, a, b, r, relu)
+        e_y, o_y = _same_map(bn_minres.launch_apply(x, a, b, r, relu), y_p, dtype)
+        y = y_p if with_res else None  # bn_add_relu's backward reads its output
+        del y_p
+        sums = bn_minres.launch_bwd(x, dy, a, b, y, relu)
+        sums2 = bn_minres.launch_bwd(x, dy, a, b, y, relu)
+        torch.cuda.synchronize()
+        repeats_sums = all(torch.equal(p, q) for p, q in zip(sums, sums2))
+        sums_p = bn_minres.bn_bwd_reference(x, dy, a, b, y, relu)
+        e_sums = max(rel_err(k, p) for k, p in zip(sums, sums_p))
+        _, _, k = bn_minres.dx_factors(scale, mean, rstd, *sums_p, count, dtype)
+        dx, g = bn_minres.launch_dx(x, dy, k, a, b, y, relu)
+        dx_p, g_p = bn_minres.bn_dx_reference(x, dy, k, a, b, y, relu)
+        e_dx, o_dx = _map_err(dx, dx_p, dtype)
+        e_g, o_g = _same_map(g, g_p, dtype) if with_res else (0.0, 0.0)
+        del dx, g, dx_p, g_p, y
+        worst["bn_apply"] = max(worst.get("bn_apply", 0.0), e_y)
+        worst["bn_bwd"] = max(worst.get("bn_bwd", 0.0), max(
+            float((p - q).abs().max()) for p, q in zip(sums, sums_p)))
+        worst["bn_sums_rel"] = max(worst.get("bn_sums_rel", 0.0), e_sums)
+        worst["bn_dx"] = max(worst.get("bn_dx", 0.0), e_dx, e_g)
+        parts.append(f"{fn}: y {e_y:.2e} (over bar {o_y:.2f}) sums rel "
+                     f"{e_sums:.2e} dx {e_dx:.2e} ({o_dx:.2f})"
+                     + (f" g {e_g:.2e} ({o_g:.2f})" if with_res else "")
+                     + f" sums twice {'bit-equal' if repeats_sums else 'DIFFER'}")
+        if (o_y > 1.0 or e_sums > BN_SUM_BAR or o_dx > 1.0 or o_g > 1.0
+                or not repeats_sums):
+            fails.append(fn)
+    print(f"[2 kernels] bn {tuple(shape)} {name}: stats rel err vs float64 "
+          f"{e_stats:.2e} (plain float32 {e_plain:.2e}), two calls "
+          f"{'bit-equal' if repeats else 'DIFFER'}; " + "; ".join(parts))
+    if fails:
+        raise AssertionError(f"bn kernels vs plain, {shape} {name}: {fails}")
+
+
+def _minres64(x, res, scale, bias, relu):
+    """The function in float64 through autograd of the plain composition
+    (the gradient through the statistics included)."""
+    dims = tuple(range(x.ndim - 1))
+    mean = x.mean(dim=dims)
+    var = (x.square().mean(dim=dims) - mean * mean).clamp(min=0)
+    a = scale * torch.rsqrt(var + EPS)
+    z = x * a + (bias - mean * a)
+    z = z if res is None else z + res
+    return torch.relu(z) if relu else z
+
+
+def _hold_bn_functions(gen, worst: dict) -> None:
+    """The three Functions whole on CUDA tensors (the kernels, forward and
+    backward) against float64 at (16, 28, 28, 64), where a relu mask that
+    float32 rounding flips is improbable: y, dx, dres, dscale, dbias."""
+    x, res, dy, scale, bias = _bn_inputs((16, 28, 28, 64), torch.float32, gen)
+    for fn, with_res, relu in BN_FUNCTIONS:
+        got, want = [], []
+        for route in ("kernels", "float64"):
+            leaves = [t.clone().double() if route == "float64" else t.clone()
+                      for t in ([x, res] if with_res else [x]) + [scale, bias]]
+            for t in leaves:
+                t.requires_grad_()
+            if route == "kernels":
+                y, _, _ = getattr(bn_minres, fn)(*leaves, EPS)
+            else:
+                r = leaves[1] if with_res else None
+                y = _minres64(leaves[0], r, leaves[-2], leaves[-1], relu)
+            (y * dy.to(y.dtype)).sum().backward()
+            (got if route == "kernels" else want).extend(
+                [y.detach()] + [t.grad for t in leaves])
+        errs = [rel_err(p.double(), q) for p, q in zip(got, want)]
+        worst["bn_fn_rel64"] = max(worst.get("bn_fn_rel64", 0.0), *errs)
+        print(f"[2 kernels] bn {fn} whole, kernels vs float64 at (16, 28, 28, "
+              f"64): rel err y {errs[0]:.2e}, grads "
+              + " ".join(f"{e:.2e}" for e in errs[1:]))
+        if errs[0] > VALUE_BAR or max(errs[1:]) > GRAD_BAR:
+            raise AssertionError(f"bn {fn} whole function vs float64: {errs}")
+
+
+def phase_bn_kernels(worst: dict) -> None:
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        # every norm shape of ResNet18 at 1024 images, and two that cut C
+        # into slices (more than 256 vectors) or end a block's pass early
+        for shape in RN18_NORMS + ((3, 5, 7, 2064), (2, 3, 5, 24)):
+            _hold_bn(shape, dtype, gen, worst)
+            torch.cuda.empty_cache()
+    _hold_bn_functions(gen, worst)
+    # what the wrappers refuse
+    x = torch.zeros((2, 8, 8, 16), device="cuda")
+    v = torch.ones(16, device="cuda")
+    for bad, exc in ((x.permute(0, 2, 1, 3), ValueError),   # not dense
+                     (torch.zeros((2, 8, 8, 6), device="cuda"),
+                      ValueError),                          # C not of vectors
+                     (x.cpu(), ValueError),                 # not on the card
+                     (x.double(), TypeError)):
+        for launch in (lambda: bn_minres.launch_stats(bad, EPS),
+                       lambda: bn_minres.launch_apply(bad, v, v)):
+            try:
+                launch()
+            except exc:
+                continue
+            raise AssertionError(f"a bn wrapper took {bad.shape} {bad.dtype}")
+    print(f"[2 kernels] bn wrappers raise on a strided, ragged-C, CPU or "
+          f"float64 x; bn part {time.perf_counter() - t0:.1f} s")
+
+
 FIXTURE = os.path.join(OUT_DIR, "fixture_3dident")
 _RUN3D = ["--offline-dataset", FIXTURE, "--batch-size", "512", "--encoder",
           "rn18", "--seed", "0"]
@@ -1085,7 +1297,9 @@ def phase_3dident() -> dict:
     unsup = ["--mode", "unsupervised", "--n-log-steps", "20"]
 
     # 6a: the split loss is LpSimCLR(p=2) on the 3 position columns plus
-    # SimCLR on the 8 angular ones, so a step launches all eight kernels
+    # SimCLR on the 8 angular ones, and --fused-stem forces the plain 'fast'
+    # norm elsewhere: a step launches the six loss and three stem kernels
+    # once and no bn kernel
     out_a, grew_a, _ = _run_3dident(
         "6a unsupervised --fused-stem",
         unsup + ["--fused-stem", "--iterations", str(steps), "--save-model",
@@ -1094,22 +1308,29 @@ def phase_3dident() -> dict:
     print(f"[6 3dident] 6a: mean loss steps 1-10 {first:.5f} -> last 10 "
           f"{lastw:.5f}; MCC {out_a['mcc']:.4f} linear R2 {out_a['lin']:.4f} "
           f"mean |hz| {out_a['mean_znorm']:.4f} (evaluation at step 21)")
-    if grew_a != {k: steps for k in KERNELS}:
-        raise AssertionError(f"6a: launches {grew_a}, expected {steps} of each")
+    if grew_a != {k: 0 if k in BN else steps for k in KERNELS}:
+        raise AssertionError(f"6a: launches {grew_a}, expected {steps} of each "
+                             "loss and stem kernel, no bn kernel")
     if not lastw < first:
         raise AssertionError(f"6a: loss did not fall ({first} -> {lastw})")
     if not (math.isfinite(out_a["mcc"]) and math.isfinite(out_a["lin"])):
         raise AssertionError("6a: non-finite scores")
 
-    # 6b: the unfused stem is the same mathematics; from the same seed the
-    # first loss differs by the order of float32 sums only, and Adam then
-    # amplifies that difference step by step
+    # 6b: the default path, --norm-kind minres: every one of the twenty
+    # norms through the four bn kernels, no stem kernel. The same
+    # mathematics; from the same seed the first loss differs by the order
+    # of float32 sums only, and Adam then amplifies that difference step by
+    # step
+    bn_minres.reset_dy_copies()
     out_b, grew_b, _ = _run_3dident(
-        "6b unsupervised, unfused stem", unsup + ["--iterations", "10"])
+        "6b unsupervised, default (minres norms)", unsup + ["--iterations", "10"])
     rel = [abs(b - a) / abs(a) for a, b in zip(out_a["losses"], out_b["losses"])]
     print("[6 3dident] 6b: |loss - 6a's| / |6a's| per step: "
-          + " ".join(f"{r:.1e}" for r in rel))
-    if any(grew_b[k] for k in STEM) or any(grew_b[k] != 10 for k in LP + DOT):
+          + " ".join(f"{r:.1e}" for r in rel)
+          + f"; upstream gradients made dense by a copy: "
+            f"{bn_minres.dy_copies()} over 10 steps")
+    if (any(grew_b[k] for k in STEM) or any(grew_b[k] != 10 for k in LP + DOT)
+            or any(grew_b[k] != 10 * BN_NORMS_A_STEP for k in BN)):
         raise AssertionError(f"6b: launches {grew_b}")
     if rel[0] > 1e-5 or max(rel[:3]) > 1e-3:
         raise AssertionError(f"6b: first losses differ from 6a's: {rel[:3]}")
@@ -1123,7 +1344,8 @@ def phase_3dident() -> dict:
     rel = [abs(e - a) / abs(a) for a, e in zip(out_a["losses"], out_e["losses"])]
     print("[6 3dident] 6e: |loss - 6a's| / |6a's| per step: "
           + " ".join(f"{r:.1e}" for r in rel))
-    if any(grew_e[k] for k in LP + DOT) or any(grew_e[k] != 10 for k in STEM):
+    if (any(grew_e[k] for k in LP + DOT + BN)
+            or any(grew_e[k] != 10 for k in STEM)):
         raise AssertionError(f"6e: launches {grew_e}")
     if rel[0] > 1e-5 or max(rel[:3]) > 1e-3:
         raise AssertionError(f"6e: first losses differ from 6a's: {rel[:3]}")
@@ -1176,7 +1398,7 @@ def phase_3dident() -> dict:
           f"uninterrupted run's after the resume from step 3")
     if len(whole["losses"]) != 6 or resumed["losses"] != whole["losses"]:
         raise AssertionError(f"6d: resumed {resumed['losses']} vs {whole['losses']}")
-    return grew_a
+    return {k: grew_a[k] + grew_b[k] for k in KERNELS}
 
 
 def _stem_bounds(shape, dtype) -> dict:
@@ -1324,13 +1546,123 @@ def _time_stem(dtype, smi: str) -> dict:
     return out
 
 
-def _step3d_pairs_per_sec(sampler, fused_stem: bool, bf16: bool
+def _bn_bounds(shape, dtype) -> dict:
+    """The least ms for the bn kernels at this shape in bn_relu's mode (the
+    stem's norm): bytes over the memory rate (stats: x read; apply: x read,
+    y written; bwd: x and dy read; dx: x and dy read, dx written) against
+    operations over the float32 rate (stats 3, apply 3, bwd 5, dx 6 per
+    element)."""
+    elems = math.prod(shape)
+    size = 2 if dtype == torch.bfloat16 else 4
+    out = {}
+    for k, passes, ops in (("bn_stats", 1, 3), ("bn_apply", 2, 3),
+                           ("bn_bwd", 2, 5), ("bn_dx", 3, 6)):
+        t_bytes = elems * size * passes / PEAK_BYTES_PER_S
+        t_ops = elems * ops / PEAK_FP32_FLOPS
+        out[k] = (1e3 * max(t_bytes, t_ops),
+                  "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+BN_TIMED = ("stats", "apply", "bwd", "dx")
+
+
+def _time_bn(dtype, smi: str) -> dict:
+    """ms of the four bn kernels at STEM_FULL in bn_relu's mode against
+    their plain versions and PyTorch's own calls (SyncBatchNorm's:
+    torch.batch_norm_stats, batch_norm_elemt, batch_norm_backward_reduce
+    and batch_norm_backward_elemt on channels_last views), in turns. The
+    library calls have no relu: each is held first to the plain version of
+    bn_only, the same function, at a loose bar (a thousandth of the largest
+    value in float32, four bfloat16 ulps of it: the plain version rounds a
+    and b to bfloat16 first), and used nowhere in the port."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x, _, dy, scale, bias = _bn_inputs(STEM_FULL, dtype, gen)
+    mean, _, rstd = bn_minres.channel_stats(x, EPS)
+    a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
+    count = x.numel() // x.shape[-1]
+    _, _, k = bn_minres.dx_factors(
+        scale, mean, rstd, *bn_minres.bn_bwd_reference(x, dy, a, b), count, dtype)
+    # bn_only's sums and dx: what the library's backward calls compute
+    s_dy, s_dyx = bn_minres.bn_bwd_reference(x, dy, a, b, relu=False)
+    _, _, k_only = bn_minres.dx_factors(scale, mean, rstd, s_dy, s_dyx, count, dtype)
+    x4, dy4 = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    s_dyxmu = s_dyx - mean * s_dy  # Σdy·(x − mean)
+    count_t = torch.tensor([count], device="cuda", dtype=torch.int32)
+    library = {
+        "stats": lambda: torch.batch_norm_stats(x4, EPS),
+        "apply": lambda: torch.batch_norm_elemt(x4, scale, bias, mean, rstd, EPS),
+        "bwd": lambda: torch.batch_norm_backward_reduce(dy4, x4, mean, rstd, scale,
+                                                        True, True, True),
+        "dx": lambda: torch.batch_norm_backward_elemt(dy4, x4, mean, rstd, scale,
+                                                      s_dy, s_dyxmu, count_t),
+    }
+    wants = {
+        "stats": lambda out: ((out[0], mean), (out[1], rstd)),
+        "apply": lambda out: ((out.permute(0, 2, 3, 1),
+                               bn_minres.bn_apply_reference(x, a, b, relu=False)),),
+        "bwd": lambda out: ((out[0], s_dy), (out[1], s_dyxmu)),
+        "dx": lambda out: ((out.permute(0, 2, 3, 1), bn_minres.bn_dx_reference(
+            x, dy, k_only, a, b, relu=False)[0]),),
+    }
+    loose = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-3
+    held = {}
+    for key in BN_TIMED:
+        pairs = wants[key](library[key]())
+        held[key] = max(float((p.float() - q.float()).abs().max())
+                        / float(q.float().abs().max()) for p, q in pairs)
+        if not held[key] <= loose:
+            raise AssertionError(f"7 times: the library's {key} is {held[key]} "
+                                 f"from bn_only's plain version: not the same "
+                                 "function")
+        del pairs
+    cases = {
+        "kernel": {
+            "stats": lambda: bn_minres.launch_stats(x, EPS),
+            "apply": lambda: bn_minres.launch_apply(x, a, b),
+            "bwd": lambda: bn_minres.launch_bwd(x, dy, a, b),
+            "dx": lambda: bn_minres.launch_dx(x, dy, k, a, b)},
+        "plain": {
+            "stats": lambda: bn_minres.channel_stats(x, EPS),
+            "apply": lambda: bn_minres.bn_apply_reference(x, a, b),
+            "bwd": lambda: bn_minres.bn_bwd_reference(x, dy, a, b),
+            "dx": lambda: bn_minres.bn_dx_reference(x, dy, k, a, b)},
+        "library": library,
+    }
+    order = ("plain", "library", "kernel")
+    out = {}
+    for who in order + order[::-1]:
+        t = {key: _median_ms(f, reps=9, warmup=2) for key, f in cases[who].items()}
+        out[who] = {key: min(v, out.get(who, {}).get(key, v)) for key, v in t.items()}
+    for who in order:
+        out[who] = {key: out[who].get(key) for key in BN_TIMED}
+    name = str(dtype).removeprefix("torch.")
+    ms = lambda v: "-" if v is None else f"{v:.3f}"
+    _say_time(f"[7 times] bn kernels {STEM_FULL} {name}, bn_relu's mode, ms "
+              f"(kernel / plain / library), median of 9 after warm-up, better "
+              f"of two turns, on {smi}: "
+              + "; ".join(f"{key} {ms(out['kernel'][key])} / {ms(out['plain'][key])}"
+                          f" / {ms(out['library'][key])}" for key in BN_TIMED)
+              + "; the library's calls (no relu) from bn_only's plain version: "
+              + ", ".join(f"{key} {v:.2e}" for key, v in held.items()))
+    for key, (t, by) in _bn_bounds(STEM_FULL, dtype).items():
+        _say_time(f"[7 times] bound {key} {name}: {t:.3f} ms, set by {by} "
+                  f"(3.35 TB/s, 67 TFLOP/s fp32)")
+    return out
+
+
+# main_3dident's norm paths timed in phase 7: the default (minres norms),
+# the plain norm under autograd, and the fused stem with the plain norm
+NORM_PATHS = {"minres": (), "fast": ("--norm-kind", "fast"),
+              "fused": ("--fused-stem",)}
+
+
+def _step3d_pairs_per_sec(sampler, flags: tuple, bf16: bool
                           ) -> tuple[float, float]:
     """(pairs/s, peak GiB) of steady unsupervised steps of main_3dident's
-    default configuration (ResNet18, B = 512, everything on the card):
-    main_3dident's own ``train_step`` on its own model and loss."""
-    argv = _RUN3D + ["--mode", "unsupervised"] + (["--fused-stem"] if fused_stem
-                                                   else []) + (["--bf16"] if bf16 else [])
+    default configuration (ResNet18, B = 512, everything on the card) with
+    ``flags``: main_3dident's own ``train_step`` on its own model and loss."""
+    argv = _RUN3D + ["--mode", "unsupervised", *flags] + (["--bf16"] if bf16 else [])
     args = main_3dident.parse_args(argv)
     _, n_non_ang, n_ang = main_3dident.setup_latent_space(args)
     model = main_3dident.build_encoder(
@@ -1359,33 +1691,35 @@ def _step3d_pairs_per_sec(sampler, fused_stem: bool, bf16: bool
     return pps, peak
 
 
-def phase_times_3dident(smi: str) -> dict:
+def phase_times_3dident(smi: str) -> tuple[dict, dict]:
     times = {dtype: _time_stem(dtype, smi)
              for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    times_bn = {dtype: _time_bn(dtype, smi)
+                for dtype in (torch.float32, torch.bfloat16)}
     torch.cuda.empty_cache()
     args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
     latent_space, _, _ = main_3dident.setup_latent_space(args)
     sampler = ThreeDIdentBatchSampler(FIXTURE, latent_space, 512, device="cuda")
+    turns = ("minres", "fast", "fused", "fused", "fast", "minres")
     for bf16 in (False, True):
-        # unfused, fused, fused, unfused
-        runs = [_step3d_pairs_per_sec(sampler, fused, bf16)
-                for fused in (False, True, True, False)]
+        runs = [_step3d_pairs_per_sec(sampler, NORM_PATHS[k], bf16) for k in turns]
         _say_time(f"[7 times] 3DIdent step, ResNet18 B=512 (1024 images of "
                   f"224x224) {'--bf16' if bf16 else 'float32, TF32 off'}, 10 "
-                  f"steady steps, pairs/s (peak GiB) in turns unfused, fused, "
-                  f"fused, unfused: "
-                  + ", ".join(f"{p:.0f} ({m:.1f})" for p, m in runs) + f" on {smi}")
+                  f"steady steps, pairs/s (peak GiB) in turns "
+                  + ", ".join(f"{k} {p:.1f} ({m:.3f})" for k, (p, m) in zip(turns, runs))
+                  + f" on {smi}")
     # what 6d's determinism costs: the fused float32 step once more with
     # cuDNN held to its deterministic algorithms
     was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        pps, _ = _step3d_pairs_per_sec(sampler, True, False)
+        pps, _ = _step3d_pairs_per_sec(sampler, NORM_PATHS["fused"], False)
     finally:
         torch.backends.cudnn.deterministic = was
     _say_time(f"[7 times] the same fused float32 step with "
               f"cudnn.deterministic: {pps:.0f} pairs/s on {smi}")
-    return times
+    return times, times_bn
 
 
 # ---------------------------------------------------------------------------
@@ -1692,11 +2026,11 @@ def _kitti_capture_lane(*extra):
     return solver.steps[0], lambda: list(solver.net.parameters())
 
 
-def _3dident_capture_lane(sampler):
-    """main_3dident --scan --fused-stem's step on its own model, loss,
-    optimizer and generator at seed 0, as the driver builds them."""
+def _3dident_capture_lane(sampler, *extra):
+    """main_3dident --scan's step (with ``extra`` flags) on its own model,
+    loss, optimizer and generator at seed 0, as the driver builds them."""
     args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised", "--scan",
-                                             "--fused-stem"])
+                                             *extra])
     _, n_non_ang, n_ang = main_3dident.setup_latent_space(args)
     model = main_3dident.build_encoder(
         args, n_non_ang + n_ang, n_non_ang,
@@ -1715,12 +2049,13 @@ def _eager(step: CapturedStep) -> torch.Tensor:
     return torch.stack([t.float() for t in step.body()])
 
 
-def _hold_capture(tag: str, make, path: tuple, replays: int) -> None:
+def _hold_capture(tag: str, make, per_step: dict, replays: int) -> None:
     """Two lanes from one seed: WARMUP_STEPS + replays eager steps on one,
     the warm-up, the capture and ``replays`` replays on the other, held bit
     for bit (every loss output and every parameter and buffer). The
     replays after the capture run under sync debug mode "error"; the
-    samplers' fallbacks are counted over both lanes' steps."""
+    samplers' fallbacks are counted over both lanes' steps; ``per_step``
+    is each counter's launches in one step (others 0)."""
     reset_fallback_counts()
     eager_step, eager_params = make()
     cap_step, cap_params = make()
@@ -1741,7 +2076,7 @@ def _hold_capture(tag: str, make, path: tuple, replays: int) -> None:
     same_params = sum(torch.equal(a, b) for a, b in pairs)
     worst = max(float((a.detach().double() - b.detach().double()).abs().max())
                 for a, b in pairs)
-    per_step = {k: 1 if k in path else 0 for k in grew}
+    per_step = {k: per_step.get(k, 0) for k in grew}
     print(f"[9 capture] {tag}: {n} steps, eager vs warm-up + capture + "
           f"{replays} replays: outputs {'bit-equal' if same_out else 'DIFFER'} "
           f"(max |diff| {float((got - want).abs().max()):.3e}); "
@@ -1799,32 +2134,41 @@ def phase_capture(smi: str) -> None:
     then their speeds."""
     t0 = time.perf_counter()
     cases = [(f"main_mlp {config} p={main_mlp.parse_args(CONFIGS[config]).p} "
-              f"B={BATCH}", functools.partial(_mlp_capture_lane, config), path,
-              20, BATCH, 50) for config, path in (("sphere", LP), ("simclr", DOT))]
+              f"B={BATCH}", functools.partial(_mlp_capture_lane, config),
+              dict.fromkeys(path, 1), 20, BATCH, 50)
+             for config, path in (("sphere", LP), ("simclr", DOT))]
     if not os.path.exists(os.path.join(KITTI_CORPUS, kitti.FNAME)):
         phase_kitti_corpus()
     cases += [(f"main_kitti {' '.join(extra) or 'default'} B=64",
-               functools.partial(_kitti_capture_lane, *extra), LP, 20,
-               KITTI_PAIRS, 200) for extra in ((), ("--augment",))]
+               functools.partial(_kitti_capture_lane, *extra),
+               dict.fromkeys(LP, 1), 20, KITTI_PAIRS, 200)
+              for extra in ((), ("--augment",))]
     if not os.path.exists(os.path.join(FIXTURE, "raw_latents.npy")):
         phase_fixture()
     args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
     sampler = ThreeDIdentBatchSampler(
         FIXTURE, main_3dident.setup_latent_space(args)[0], 512, device="cuda")
     cases.append(("main_3dident --scan --fused-stem ResNet18 B=512",
+                  functools.partial(_3dident_capture_lane, sampler, "--fused-stem"),
+                  dict.fromkeys(LP + DOT + STEM, 1), 6, 512, 10))
+    # the default path (minres norms): each bn kernel once a norm
+    cases.append(("main_3dident --scan ResNet18 B=512 (default, minres norms)",
                   functools.partial(_3dident_capture_lane, sampler),
-                  tuple(KERNELS), 6, 512, 10))
+                  {**dict.fromkeys(LP + DOT, 1),
+                   **dict.fromkeys(BN, BN_NORMS_A_STEP)}, 6, 512, None))
     was = torch.backends.cudnn.deterministic
-    for tag, make, path, replays, pairs, steps in cases:
+    for tag, make, per_step, replays, pairs, steps in cases:
         # bit for bit needs cuDNN's deterministic algorithms (KITTI,
         # 3DIdent); the speeds are taken with the drivers' own setting
         torch.backends.cudnn.deterministic = True
         try:
-            _hold_capture(tag, make, path, replays)
+            _hold_capture(tag, make, per_step, replays)
         finally:
             torch.backends.cudnn.deterministic = was
         gc.collect()
         torch.cuda.empty_cache()
+        if steps is None:  # phase 7 times this step's path eager
+            continue
         _capture_rate(tag, make, pairs, steps, smi)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1834,20 +2178,22 @@ def phase_capture(smi: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of mlp,stem,3dident,times,kitti,"
-                         "capture")
+                    help="comma-separated subset of mlp,stem,bn,3dident,times,"
+                         "kitti,capture")
     only = set(filter(None, ap.parse_args().only.split(",")))
-    unknown = only - {"mlp", "stem", "3dident", "times", "kitti", "capture"}
+    unknown = only - {"mlp", "stem", "bn", "3dident", "times", "kitti", "capture"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown --only parts {sorted(unknown)}")
     run = lambda part: not only or part in only
     name, smi = phase_device()
     phase_build()
-    worst, launches, times, times3d = {}, {k: 0 for k in KERNELS}, None, None
+    worst, launches = {}, {k: 0 for k in KERNELS}
     if run("mlp"):
         worst.update(phase_kernels())
     if run("stem"):
         phase_stem_kernels(worst)
+    if run("bn"):
+        phase_bn_kernels(worst)
     if run("mlp"):
         phase_step_parity()
         for tag, argv, path in (("4a_sphere_vmf_p2", HEADLINE, LP),
@@ -1863,7 +2209,7 @@ def main() -> int:
         for k, v in phase_3dident().items():
             launches[k] += v
     if run("times"):
-        times3d = phase_times_3dident(smi)
+        times3d, times_bn = phase_times_3dident(smi)
     if run("kitti"):
         grew, times_kitti = phase_kitti(smi, worst)
         for k, v in grew.items():
@@ -1877,12 +2223,31 @@ def main() -> int:
     bounds = _bounds(BATCH, BATCH, N_FEAT)
     stem_bounds = _stem_bounds(STEM_FULL, torch.float32)
     stem_bounds16 = _stem_bounds(STEM_FULL, torch.bfloat16)
+    bn_bounds = _bn_bounds(STEM_FULL, torch.float32)
+    bn_bounds16 = _bn_bounds(STEM_FULL, torch.bfloat16)
     kernels = []
     for key, (kname, source, replaces) in KERNELS.items():
         entry = {"name": kname, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[key],
                  "max_abs_err": worst[key]}
-        if key in STEM:
+        if key in BN:
+            k = key.removeprefix("bn_")
+            t32, t16 = times_bn[torch.float32], times_bn[torch.bfloat16]
+            entry.update({
+                "ms": t32["kernel"][k], "plain_ms": t32["plain"][k],
+                "bound_ms": bn_bounds[key][0], "bound_by": bn_bounds[key][1],
+                "library_ms": t32["library"][k], "shape": list(STEM_FULL),
+                "mode": "bn_relu", "ms_bf16": t16["kernel"][k],
+                "plain_ms_bf16": t16["plain"][k],
+                "bound_ms_bf16": bn_bounds16[key][0],
+                "library_ms_bf16": t16["library"][k]})
+            if key == "bn_stats":
+                entry["max_rel_err_vs_float64"] = worst["bn_stats_rel64"]
+            if key == "bn_bwd":
+                entry["sums_max_rel_err"] = worst["bn_sums_rel"]
+            if key == "bn_dx":
+                entry["functions_max_rel_err_vs_float64"] = worst["bn_fn_rel64"]
+        elif key in STEM:
             k = key.removeprefix("stem_")
             t32, t16 = times3d[torch.float32], times3d[torch.bfloat16]
             entry.update({

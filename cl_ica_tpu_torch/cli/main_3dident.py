@@ -12,8 +12,11 @@ per-dimension MSE and the linear fit's MSE.
 Everything of a training step runs on the device: pair sampling, the
 k-NN match against the rendered-latent table, the gather from the packed
 uint8 store, the normalisation, both views in one forward of 2B images,
-the loss, and Adam/SGD. ``--fused-stem`` takes the stem tail through the
-``ops.stem`` kernels. ``--scan`` captures the unsupervised step once as a
+the loss, and Adam/SGD. The default ``--norm-kind minres`` runs every
+norm of the ResNet through the ``ops.bn_minres`` kernels;
+``--fused-stem`` takes the stem tail through the ``ops.stem`` kernels
+instead and the other norms through the plain 'fast' norm, as the JAX
+driver forces. ``--scan`` captures the unsupervised step once as a
 CUDA graph and replays it between the log and save boundaries, where the
 JAX package scans the steps of each segment (train/capture.py).
 ``--save-every``/``--resume`` checkpoint the whole state (model,
@@ -141,10 +144,16 @@ def parse_args(argv=None):
                              "(parameters stay float32)")
     parser.add_argument("--norm-kind", default="minres",
                         choices=("minres", "minres8", "fast", "batch"),
-                        help="Encoder BatchNorm flavor of the JAX package. "
-                             "'minres', 'fast' and 'batch' are one mathematics "
-                             "and one module here; 'minres8' (float8 "
-                             "residuals) is not ported: ROADMAP A14.")
+                        help="Encoder BatchNorm flavor of the JAX package, "
+                             "one mathematics: 'minres' (default) fuses each "
+                             "norm with its relu (and a block's residual "
+                             "add) in functions that keep only their input "
+                             "(and a block's output) for the backward "
+                             "(ops/bn_minres, four CUDA "
+                             "kernels); 'fast' and 'batch' are the plain "
+                             "norm under autograd. --fused-stem forces "
+                             "'fast'. 'minres8' (float8 residuals) is not "
+                             "ported: ROADMAP A14.")
     parser.add_argument("--scan", action="store_true",
                         help="Capture the unsupervised training step once "
                              "as a CUDA graph and replay it between log/save "

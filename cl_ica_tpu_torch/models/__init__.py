@@ -1,5 +1,6 @@
 from .layers import (
     FastBatchNorm2d,
+    MinResBN2d,
     RescaleLayer,
     SoftclipLayer,
     StemBNReLUPool,
@@ -43,6 +44,7 @@ __all__ = [
     "encoder_params_from_flax",
     "encoder_params_to_flax",
     "FastBatchNorm2d",
+    "MinResBN2d",
     "StemBNReLUPool",
     "BasicBlock",
     "Bottleneck",

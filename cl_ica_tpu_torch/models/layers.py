@@ -1,7 +1,8 @@
 """Constraint heads, activations, and the ResNet's batch norm.
 
 Port of cl_ica_tpu/models/layers.py:14-60 (heads), :96-152
-(``FastBatchNorm``) and :283-335 (``StemBNReLUPool``). Parameter names and
+(``FastBatchNorm``), :155-232 (``MinResBN``) and :283-335
+(``StemBNReLUPool``). Parameter names and
 shapes follow the Flax modules so that models/convert.py maps them by
 name: ``RescaleLayer.r`` is (1,), ``SoftclipLayer.max_abs_bound`` is (n,),
 a norm's ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` are
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_minres import bn_add_relu, bn_only, bn_relu
 from ..ops.stem import bn_relu_pool_train
 
 
@@ -74,8 +76,8 @@ class FastBatchNorm2d(nn.Module):
     correction n/(n−1); ``momentum`` is torch's (0.1 is Flax's 0.9); the
     per-channel affine a = rstd·weight, b = bias − mean·a is applied in
     the input's dtype. The gradient runs through the statistics (autograd).
-    ``norm_kind`` 'fast', 'minres' and 'batch' of the JAX package are this
-    one mathematics."""
+    ``norm_kind`` 'fast' and 'batch' of the JAX package are this one
+    mathematics; 'minres' is too, with another backward (``MinResBN2d``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, zero_init: bool = False):
@@ -109,6 +111,57 @@ class FastBatchNorm2d(nn.Module):
         a = inv.to(x.dtype)
         b = (self.bias - mean * inv).to(x.dtype)
         return x * a[None, :, None, None] + b[None, :, None, None]
+
+
+class MinResBN2d(FastBatchNorm2d):
+    """Batch norm (+ residual add) (+ relu) with the minimal-residual
+    backward: the JAX package's ``MinResBN``.
+
+    Same parameters and buffers as ``FastBatchNorm2d`` (checkpoints
+    interchange) and the same training mathematics, but in training mode
+    the norm, the relu (``act='relu'``; ``'none'`` for a projection
+    shortcut) and, with ``forward(x, res=...)``, the residual add before
+    the relu are one function of ``ops.bn_minres`` (the Hopper kernels on
+    CUDA tensors) that saves only x (and, with the add, its output) for its
+    backward and takes the relu mask from them there; the running buffers
+    are updated from the batch mean and biased variance it returns, which
+    carry no gradient. Eval mode is the plain composition on the running
+    statistics.
+
+    The input is logical (N, C, H, W); the kernels take dense (N, H, W, C)
+    memory, which is what a ``channels_last`` tensor is. The layout is
+    made explicit here (a no-op when it already is) and the output comes
+    back as a channels_last view, as ``StemBNReLUPool``'s does."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, zero_init: bool = False,
+                 act: str = "relu"):
+        super().__init__(num_features, eps, momentum, zero_init)
+        if act not in ("relu", "none"):
+            raise ValueError(f"act must be 'relu' or 'none', got {act!r}")
+        self.act = act
+
+    def forward(self, x, res=None):
+        if res is not None and self.act != "relu":
+            raise ValueError("the residual add is followed by the relu: "
+                             "act='relu'")
+        if not self.training:
+            y = super().forward(x)
+            if res is not None:
+                y = y + res
+            return F.relu(y) if self.act == "relu" else y
+        x = x.contiguous(memory_format=torch.channels_last)
+        nhwc = x.permute(0, 2, 3, 1)
+        if res is not None:
+            res = res.contiguous(memory_format=torch.channels_last)
+            y, mean, var = bn_add_relu(nhwc, res.permute(0, 2, 3, 1),
+                                       self.weight, self.bias, self.eps)
+        elif self.act == "relu":
+            y, mean, var = bn_relu(nhwc, self.weight, self.bias, self.eps)
+        else:
+            y, mean, var = bn_only(nhwc, self.weight, self.bias, self.eps)
+        self.update_running(mean, var, x.numel() // x.shape[1])
+        return y.permute(0, 3, 1, 2)
 
 
 class StemBNReLUPool(FastBatchNorm2d):

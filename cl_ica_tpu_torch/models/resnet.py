@@ -14,11 +14,17 @@ the Flax names onto: ``conv_init``, ``bn_init``, ``blocks.i`` ←
 ``conv_proj``, ``norm_proj``, and ``fc`` ← ``Dense_0``.
 
 ``norm_kind`` 'batch', 'fast' and 'minres' are the same mathematics in
-the JAX package (three ways to spend less device memory on a TPU) and
-are one module here, ``FastBatchNorm2d``. What the JAX package tried
-against its TPU's byte floor and kept opt-in waits (ROADMAP A14) and
-raises: ``norm_kind='minres8'``, ``stem_pool='argmax'``, the ``s2d`` and
-``s2d_exact`` stems, ``remat``.
+the JAX package (three ways to spend less device memory on a TPU).
+'batch' and 'fast' are one module here, ``FastBatchNorm2d``, under
+autograd. 'minres' (the drivers' default) is ``MinResBN2d``, as the JAX
+package's ``fused_bn`` blocks run it: the stem's norm and each block's
+first norms fuse the relu, the projection's norm has none, and a block's
+last norm takes the shortcut and fuses the add and the relu, each one
+function whose backward keeps only x (and, for a block's last norm, the
+block's output) (ops/bn_minres.py).
+What the JAX package tried against its TPU's byte floor and kept opt-in
+waits (ROADMAP A14) and raises: ``norm_kind='minres8'``,
+``stem_pool='argmax'``, the ``s2d`` and ``s2d_exact`` stems, ``remat``.
 
 ``dtype=torch.bfloat16`` computes the backbone in bfloat16 the way the
 MLP encoder does: parameters stay float32 and are cast at use, the
@@ -35,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import FastBatchNorm2d, StemBNReLUPool
+from .layers import FastBatchNorm2d, MinResBN2d, StemBNReLUPool
 
 _NORM_KINDS = ("batch", "fast", "minres", "none")
 
@@ -74,9 +80,15 @@ class _Conv(nn.Conv2d):
         return F.conv2d(x, self.weight.to(x.dtype), None, self.stride, padding)
 
 
-def _norm(kind: str, width: int, zero_init: bool = False) -> nn.Module:
+def _norm(kind: str, width: int, zero_init: bool = False,
+          act: str = "relu") -> nn.Module:
+    """The norm of ``kind``; ``act`` is the activation a 'minres' norm
+    fuses (the other kinds leave it to the caller)."""
     if kind == "none":
         return nn.Identity()
+    if kind == "minres":
+        return MinResBN2d(width, eps=1e-5, momentum=0.1, zero_init=zero_init,
+                          act=act)
     return FastBatchNorm2d(width, eps=1e-5, momentum=0.1, zero_init=zero_init)
 
 
@@ -92,9 +104,15 @@ class BasicBlock(nn.Module):
         self.conv_proj = self.norm_proj = None
         if c_in != filters or stride != 1:
             self.conv_proj = _Conv(c_in, filters, 1, stride)
-            self.norm_proj = _norm(norm_kind, filters)
+            self.norm_proj = _norm(norm_kind, filters, act="none")
+        self.minres = norm_kind == "minres"
 
     def forward(self, x):
+        if self.minres:  # the JAX package's fused_bn block
+            y = self.convs[1](self.norms[0](self.convs[0](x)))
+            if self.conv_proj is not None:
+                x = self.norm_proj(self.conv_proj(x))
+            return self.norms[1](y, res=x)
         y = F.relu(self.norms[0](self.convs[0](x)))
         y = self.norms[1](self.convs[1](y))
         if self.conv_proj is not None:
@@ -117,9 +135,16 @@ class Bottleneck(nn.Module):
         self.conv_proj = self.norm_proj = None
         if c_in != out or stride != 1:
             self.conv_proj = _Conv(c_in, out, 1, stride)
-            self.norm_proj = _norm(norm_kind, out)
+            self.norm_proj = _norm(norm_kind, out, act="none")
+        self.minres = norm_kind == "minres"
 
     def forward(self, x):
+        if self.minres:  # the JAX package's fused_bn block
+            y = self.convs[1](self.norms[0](self.convs[0](x)))
+            y = self.convs[2](self.norms[1](y))
+            if self.conv_proj is not None:
+                x = self.norm_proj(self.conv_proj(x))
+            return self.norms[2](y, res=x)
         y = F.relu(self.norms[0](self.convs[0](x)))
         y = F.relu(self.norms[1](self.convs[1](y)))
         y = self.norms[2](self.convs[2](y))
@@ -205,6 +230,8 @@ class ResNet(nn.Module):
         x = self.conv_init(x.contiguous(memory_format=torch.channels_last))
         if self.fused_stem_pool:
             x = self.bn_init(x)
+        elif isinstance(self.bn_init, MinResBN2d):  # norm and relu in one
+            x = F.max_pool2d(self.bn_init(x), kernel_size=3, stride=2, padding=1)
         else:
             x = F.max_pool2d(F.relu(self.bn_init(x)), kernel_size=3, stride=2,
                              padding=1)

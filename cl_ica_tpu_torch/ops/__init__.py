@@ -3,14 +3,17 @@
 ops/infonce.py     ← cl_ica_tpu/ops/infonce_pallas.py (fused_neg_lse)
 ops/infonce_dot.py ← cl_ica_tpu/ops/infonce_pallas.py (fused_dot_lse)
 ops/stem.py        ← cl_ica_tpu/ops/stem_pallas.py (bn_relu_pool_train)
+ops/bn_minres.py   ← cl_ica_tpu/ops/bn_minres.py (bn_relu, bn_add_relu,
+                     bn_only; XLA passes there, four kernels here)
 ops/knn.py         ← cl_ica_tpu/ops/knn.py (l2_topk; no kernel)
 
 The CUDA sources are in ops/csrc and are built at first use by
 ops/build.py, one library per .cu file. ``launch_counts`` returns the
-launches of all nine kernels; a replayed CUDA graph adds its launches
+launches of all thirteen kernels; a replayed CUDA graph adds its launches
 with ``add_launch_counts``.
 """
 
+from .bn_minres import bn_add_relu, bn_only, bn_relu
 from .infonce import (
     add_launch_counts,
     fused_neg_lse,
@@ -30,6 +33,9 @@ from .stem import (
 
 __all__ = [
     "add_launch_counts",
+    "bn_add_relu",
+    "bn_only",
+    "bn_relu",
     "bn_relu_pool_reference",
     "bn_relu_pool_train",
     "dot_lse_reference",

@@ -5,8 +5,11 @@ plain C interface and loaded with ctypes (no PyTorch headers, so a build
 takes seconds). The library lands in ``_build/`` next to this file, under
 a name keyed by a hash of the sources and flags; a file lock keeps
 concurrent processes from building the same library twice, and
-``build_libraries`` compiles several sources at once. The compiler's
-register/spill report (``-Xptxas -v``) is kept beside it as a ``.log``.
+``build_libraries`` compiles several sources at once: the first
+``load_library`` of one of the port's libraries (``LIBRARIES``) builds
+every one of them that is missing, one nvcc each, started together. The
+compiler's register/spill report (``-Xptxas -v``) is kept beside each as
+a ``.log``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# one library per source: the loss kernels (ops/infonce.py, infonce_dot.py),
+# the stem tail's (ops/stem.py) and the blocks' batch norm (ops/bn_minres.py)
+LIBRARIES = ("infonce_lp", "infonce_dot", "stem_pool", "bn_minres")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # No --use_fast_math: __expf/__powf would spend the 1e-4 gradient bar.
 NVCC_FLAGS = (
@@ -100,6 +106,7 @@ def build_libraries(names) -> None:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if no library for its current sources
-    exists, then load it."""
-    build_libraries([name])
+    exists (with it every other of ``LIBRARIES`` that is missing), then
+    load it."""
+    build_libraries(LIBRARIES if name in LIBRARIES else [name])
     return ctypes.CDLL(str(library_path(name)))

@@ -21,6 +21,7 @@ from cl_ica_tpu_torch.cli import main_3dident
 from cl_ica_tpu_torch.data import normalize_3dident
 from cl_ica_tpu_torch.data import threedident as data
 from cl_ica_tpu_torch.models import (
+    MinResBN2d,
     threedident_params_from_flax,
     threedident_params_to_flax,
 )
@@ -617,6 +618,7 @@ def test_resume_without_a_train_state_starts_fresh(fixtures, tmp_path, capsys):
     (["--identity-solution", "--dummy-mixing", "--position-only"], True),
     (["--identity-mixing-and-solution"], True),
     (["--bf16", "--fused-stem"], True),
+    (["--bf16"], True),
     (["--encoder", "rn50", "--non-periodic-rotation-and-color",
       "--non-periodical-conditional", "l1", "--unsupervised-loss", "l1",
       "--sigma", "0.2"], False),
@@ -629,6 +631,29 @@ def test_unsupervised_options_run_on_cpu(flags, periodic, fixtures, capsys):
               *flags), device="cpu")
     assert len(out["losses"]) == 3 and np.all(np.isfinite(out["losses"]))
     assert np.isfinite(out["lin"])
+
+
+@pytest.mark.parametrize("mode", ["unsupervised", "supervised"])
+def test_default_norm_kind_builds_minres_and_matches_fast(mode, fixtures, monkeypatch,
+                                                          capsys):
+    """The default --norm-kind minres puts MinResBN2d in all twenty norms of
+    the ResNet18 (the CPU runs their plain versions); --norm-kind fast and
+    --fused-stem put it nowhere. The same mathematics: the first loss as
+    --norm-kind fast's to 1e-5, the next two (after Adam steps on
+    gradients that differ by rounding) to 1e-3."""
+    built = []
+    build = main_3dident.build_encoder
+    monkeypatch.setattr(main_3dident, "build_encoder",
+                        lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+    argv = _argv(fixtures[True], "--mode", mode, "--iterations", "3")
+    runs = [main_3dident.main(argv + extra, device="cpu")
+            for extra in ([], ["--norm-kind", "fast"], ["--fused-stem"])]
+    minres = [sum(isinstance(m, MinResBN2d) for m in model.modules())
+              for model in built]
+    assert minres == [20, 0, 0]
+    losses, fast = runs[0]["losses"], runs[1]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, fast)]
+    assert len(rel) == 3 and rel[0] <= 1e-5 and max(rel) <= 1e-3
 
 
 def test_fused_loss_on_the_cpu_raises_instead_of_falling_back(fixtures, capsys):

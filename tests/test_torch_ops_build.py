@@ -16,7 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from cl_ica_tpu_torch.ops import build, fused_neg_lse, infonce, infonce_dot, stem
+from cl_ica_tpu_torch.ops import (
+    bn_minres,
+    build,
+    fused_neg_lse,
+    infonce,
+    infonce_dot,
+    stem,
+)
 
 torch.set_num_threads(1)
 
@@ -55,6 +62,27 @@ def test_library_name_is_keyed_by_sources_and_flags(tmp_path, monkeypatch):
     assert second != first
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("k") not in (first, second)
+
+
+def test_first_load_builds_every_registered_library(tmp_path, monkeypatch):
+    # one nvcc per missing library of the port, all started together, at
+    # the first load of any of them; a later load builds nothing
+    monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "csrc").mkdir()
+    for name in build.LIBRARIES:
+        (tmp_path / "csrc" / f"{name}.cu").write_text(f"// {name}\n")
+    log = tmp_path / "nvcc.log"
+    nvcc = _executable(tmp_path / "bin" / "nvcc",
+                       f'echo "$@" >> {log}; while [ $# -gt 0 ]; do '
+                       'if [ "$1" = "-o" ]; then touch "$2"; fi; shift; done')
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    assert build.load_library("bn_minres") == str(build.library_path("bn_minres"))
+    assert all(build.library_path(n).exists() for n in build.LIBRARIES)
+    assert len(log.read_text().splitlines()) == len(build.LIBRARIES)
+    build.load_library("stem_pool")
+    assert len(log.read_text().splitlines()) == len(build.LIBRARIES)
 
 
 def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
@@ -389,7 +417,7 @@ class _Declared:
 
 
 _LIBRARIES = {"infonce_lp.cu": infonce.declare, "infonce_dot.cu": infonce_dot.declare,
-              "stem_pool.cu": stem.declare}
+              "stem_pool.cu": stem.declare, "bn_minres.cu": bn_minres.declare}
 
 
 @pytest.mark.parametrize("source, name", [

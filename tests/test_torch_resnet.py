@@ -1,5 +1,11 @@
 """models/resnet.py and the ResNet converters against cl_ica_tpu/models/resnet.py.
 
+Each ResNet18 check runs three variants (``VARIANTS``): the unfused stem
+and the fused one (``fused_stem_pool``) with norm_kind='fast', and
+norm_kind='minres' (the drivers' default: ``MinResBN2d`` in every norm,
+the JAX package's ``fused_bn`` blocks) against the Flax model of the same
+kind, with the same values converted to its variable names.
+
 Flax variables (the tree and shapes of ``init``, the values from numpy:
 see ``_init``; the Flax calls run under jit) are converted with
 models/convert.py and the same numpy images go through both networks,
@@ -127,10 +133,19 @@ BARS = {  # (outputs atol, rtol), statistics atol = rtol, (grads atol, rtol)
 }
 
 
+# the fast norm with the unfused stem (False) or the fused one (True), and
+# the minres norm with the unfused stem, as the drivers build them
+VARIANTS = [False, True, "minres"]
+
+
+def _norm_name(variant) -> str:
+    return "MinResBN" if variant == "minres" else "FastBatchNorm"
+
+
 @pytest.fixture(scope="module", params=["init", "perturbed"])
 def rn18(request):
-    """{fused: (flax model, numpy variables)} with one set of parameters,
-    and the bars that go with them."""
+    """{variant: (flax model, numpy variables)} with one set of parameters
+    (under the variant's norm names), and the bars that go with them."""
     out = {"bars": BARS[request.param]}
     variables = None
     for fused in (False, True):
@@ -138,28 +153,33 @@ def rn18(request):
         if variables is None:
             variables = _init(model, 0, like_init=request.param == "init")
         out[fused] = (model, variables)
+    out["minres"] = (JaxResNet18(num_classes=5, norm_kind="minres"),
+                     resnet_params_to_flax(resnet_params_from_flax(variables),
+                                           "MinResBN"))
     return out
 
 
-def _port(variables, fused, cls=ResNet18, **kw):
-    model = cls(num_classes=5, norm_kind="fast", fused_stem_pool=fused, **kw)
+def _port(variables, variant, cls=ResNet18, **kw):
+    model = cls(num_classes=5, norm_kind="minres" if variant == "minres" else "fast",
+                fused_stem_pool=variant is True, **kw)
     missing = model.load_state_dict(resnet_params_from_flax(variables))
     assert not missing.missing_keys and not missing.unexpected_keys
     return model
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_resnet18_training_forward_and_running_statistics_match_flax(rn18, fused):
-    jmodel, variables = rn18[fused]
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_resnet18_training_forward_and_running_statistics_match_flax(rn18, variant):
+    jmodel, variables = rn18[variant]
     x = _images(1)
     want, want_stats = _apply(jmodel, variables, x, train=True)
-    model = _port(variables, fused).train()
+    model = _port(variables, variant).train()
     got = model(_nchw(x))
     assert got.dtype == torch.float32 and got.shape == (4, 5)
     (atol, rtol), stat_tol, _ = rn18["bars"]
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=atol, rtol=rtol)
-    got_stats = _flat(resnet_params_to_flax(model.state_dict())["batch_stats"])
+    got_stats = _flat(resnet_params_to_flax(model.state_dict(),
+                                            _norm_name(variant))["batch_stats"])
     want_stats = _flat(want_stats)
     assert got_stats.keys() == want_stats.keys() and len(want_stats) == 40
     for k, w in want_stats.items():
@@ -167,20 +187,20 @@ def test_resnet18_training_forward_and_running_statistics_match_flax(rn18, fused
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_resnet18_eval_forward_matches_flax(rn18, fused):
-    jmodel, variables = rn18[fused]
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_resnet18_eval_forward_matches_flax(rn18, variant):
+    jmodel, variables = rn18[variant]
     x = _images(2)
     want, _ = _apply(jmodel, variables, x, train=False)
-    got = _port(variables, fused).eval()(_nchw(x))
+    got = _port(variables, variant).eval()(_nchw(x))
     (atol, rtol), _, _ = rn18["bars"]
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_resnet18_parameter_gradients_match_flax(rn18, fused):
-    jmodel, variables = rn18[fused]
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_resnet18_parameter_gradients_match_flax(rn18, variant):
+    jmodel, variables = rn18[variant]
     x = _images(3)
 
     key = (repr(jmodel), "grad")
@@ -193,10 +213,10 @@ def test_resnet18_parameter_gradients_match_flax(rn18, fused):
         _JITTED[key] = jax.jit(jax.grad(loss))
     want = _JITTED[key](variables["params"], variables["batch_stats"],
                         jnp.asarray(x))
-    model = _port(variables, fused).train()
+    model = _port(variables, variant).train()
     model(_nchw(x)).square().sum().backward()
     grads = {k: p.grad for k, p in model.named_parameters()}
-    got = resnet_params_to_flax(grads)["params"]
+    got = resnet_params_to_flax(grads, _norm_name(variant))["params"]
     got, want = _flat(got), _flat(want)
     assert got.keys() == want.keys() and len(want) == 62
     _, _, (atol, rtol) = rn18["bars"]
@@ -217,17 +237,20 @@ def test_fused_and_unfused_stems_share_one_state_dict(rn18):
                                b.train()(x).detach().numpy(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("mode", ["train-init", "eval-perturbed"])
+@pytest.mark.parametrize("mode", ["train-init", "eval-perturbed", "train-init-minres"])
 def test_resnet50_bottleneck_forward_matches_flax(mode):
     # Training statistics on the initial variables at the bar above. With
     # perturbed norms every residual branch counts, and fifty layers of
     # E[x²] − E[x]² on growing means amplify the two packages' float32
     # summation orders to 3e-4 of the output; so the perturbed variables
-    # go through the running statistics, where nothing cancels.
-    jmodel = JaxResNet50(num_classes=5, norm_kind="fast")
+    # go through the running statistics, where nothing cancels. The
+    # minres case is the minres Bottleneck (MinResBN2d) against Flax's.
+    kind = "minres" if mode.endswith("-minres") else "fast"
+    mode = mode.removesuffix("-minres")
+    jmodel = JaxResNet50(num_classes=5, norm_kind=kind)
     variables = _init(jmodel, 1, like_init=mode == "train-init")
     x = _images(6)
-    model = ResNet50(num_classes=5, norm_kind="fast")
+    model = ResNet50(num_classes=5, norm_kind=kind)
     if mode == "train-init":
         want, _ = _apply(jmodel, variables, x, train=True)
         model.train()
@@ -289,12 +312,21 @@ def test_unknown_leaf_raises():
 
 
 def test_bfloat16_backbone_matches_flax():
-    jmodel = JaxResNet18(num_classes=5, norm_kind="fast", dtype=jnp.bfloat16,
-                         fused_stem_pool=True)
+    _hold_bfloat16_backbone(True)
+
+
+def test_bfloat16_minres_backbone_matches_flax():
+    _hold_bfloat16_backbone("minres")
+
+
+def _hold_bfloat16_backbone(variant):
+    kind = "minres" if variant == "minres" else "fast"
+    jmodel = JaxResNet18(num_classes=5, norm_kind=kind, dtype=jnp.bfloat16,
+                         fused_stem_pool=variant is True)
     variables = _init(jmodel, 4)
     x = _images(10)
     want, _ = _apply(jmodel, variables, x, train=True)
-    model = _port(variables, True, dtype=torch.bfloat16).train()
+    model = _port(variables, variant, dtype=torch.bfloat16).train()
     got = model(_nchw(x))
     assert got.dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in model.parameters())
@@ -302,7 +334,7 @@ def test_bfloat16_backbone_matches_flax():
     # and a batch of 4 at 32×32 normalises the last stage over four values
     # a channel: each bfloat16 net is held against the float32 net, and the
     # port may stand no further from it than twice the JAX package's does
-    exact = JaxResNet18(num_classes=5, norm_kind="fast", fused_stem_pool=True)
+    exact = JaxResNet18(num_classes=5, norm_kind=kind, fused_stem_pool=variant is True)
     exact, _ = _apply(exact, variables, x, train=True)
     exact = np.asarray(exact)
     e_jax = float(np.abs(np.asarray(want) - exact).max())

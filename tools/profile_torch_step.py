@@ -18,9 +18,12 @@ images of 224x224, the image store on the device), on a synthetic fixture
 it writes under runs/profile_3dident/ (or the one given with --fixture).
 The phases there: sampling + matching, gather + normalise, the stem (conv7,
 norm, relu, pool), the rest of the encoder, the loss, backward, Adam.
---fused-stem takes the stem tail through the ops.stem kernels, --bf16
-computes the backbone in bfloat16, --tf32 lets float32 convolutions and
-products use TF32.
+--norm-kind minres (the default, every norm through the ops.bn_minres
+kernels) or fast (the plain norm under autograd) picks main_3dident's
+norm; --fused-stem takes the stem tail through the ops.stem kernels (and
+the other norms through 'fast', as main_3dident forces), --bf16 computes
+the backbone in bfloat16, --tf32 lets float32 convolutions and products
+use TF32.
 
 With --kitti it does the same for main_kitti's default step (ConvEncoder64,
 batch 64 = 32 pairs, z_dim 10, p = 1, the corpus on the device), on the
@@ -37,7 +40,8 @@ replays), device ms a step between two CUDA events, the kernels a replay
 launches, and a trace of the replays (device time by kernel, busy share).
 
 Usage: python3 tools/profile_torch_step.py [--box | --p 0] [--steps N]
-       python3 tools/profile_torch_step.py --3dident [--fused-stem] [--bf16]
+       python3 tools/profile_torch_step.py --3dident [--norm-kind {minres,fast}]
+               [--fused-stem] [--bf16]
        python3 tools/profile_torch_step.py --kitti [--augment] [--fixture DIR]
 Prints the card's name and power limit beside every number.
 """
@@ -145,7 +149,7 @@ def trace(step, steps: int, tag: str, card: str) -> None:
           f"{kernels:.1f} device ops a step, {card}")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     # the 15 longest, and every kernel of the port's own wherever it ranks
-    own = ("neg_lse_", "dot_lse_", "grad_reduce_", "lse_reduce_", "stem_")
+    own = ("neg_lse_", "dot_lse_", "grad_reduce_", "lse_reduce_", "stem_", "bn_")
     for rank, e in enumerate(events):
         if rank < 15 or any(k in e.key for k in own):
             print(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
@@ -198,8 +202,9 @@ def profile_3dident(cli, card: str) -> None:
                                      "2048", "--image-size", "224"])
         print(f"[fixture] 2048 renders at 224x224 in "
               f"{time.perf_counter() - t0:.1f} s under {root}")
-    argv = ["--offline-dataset", root, "--mode", "unsupervised"] + (
-        ["--fused-stem"] if cli.fused_stem else []) + (["--bf16"] if cli.bf16 else [])
+    argv = ["--offline-dataset", root, "--mode", "unsupervised", "--norm-kind",
+            cli.norm_kind] + (["--fused-stem"] if cli.fused_stem else []) + (
+        ["--bf16"] if cli.bf16 else [])
     args = main_3dident.parse_args(argv)
     latent_space, n_non_ang, n_ang = main_3dident.setup_latent_space(args)
     sampler = ThreeDIdentBatchSampler(root, latent_space, args.batch_size,
@@ -211,7 +216,7 @@ def profile_3dident(cli, card: str) -> None:
     opt, _ = make_optimizer(model.parameters(), args.lr)
     gen = torch.Generator(device="cuda").manual_seed(0)
     tag = (f"3DIdent ResNet18 B={args.batch_size} "
-           f"{'fused' if cli.fused_stem else 'unfused'} stem, "
+           f"{'fused stem, fast' if cli.fused_stem else cli.norm_kind} norms, "
            f"{'bfloat16' if cli.bf16 else 'float32'}"
            f"{', TF32' if cli.tf32 else ''}")
 
@@ -359,6 +364,8 @@ def main() -> int:
     ap.add_argument("--3dident", dest="threedident", action="store_true",
                     help="main_3dident's unsupervised step instead of main_mlp's")
     ap.add_argument("--fused-stem", action="store_true")
+    ap.add_argument("--norm-kind", choices=("minres", "fast"), default="minres",
+                    help="with --3dident: main_3dident's --norm-kind")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--tf32", action="store_true")
     ap.add_argument("--kitti", action="store_true",
