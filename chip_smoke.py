@@ -6,9 +6,10 @@ It needs one CUDA card, nvcc (the kernels are built from ops/csrc at first
 use) and no network, and it exits non-zero on any failure. Phases:
 
   0 device   the card's name and power limit; TF32 off for the references
-  1 build    build (one nvcc per source, started together) and load the
-             four libraries of hand-written kernels, with build seconds
-             and ptxas reports
+  1 build    build the native library (g++: the Hungarian solver and the
+             packed store's gather), then (one nvcc per source, started
+             together) load the four libraries of hand-written kernels,
+             with build seconds and ptxas reports
   2 kernels  fused_neg_lse's and fused_dot_lse's three kernels each against
              their plain PyTorch version: values and both grads under a
              non-constant cotangent; ragged, rectangular and full-size
@@ -89,8 +90,9 @@ use) and no network, and it exits non-zero on any failure. Phases:
   9 capture  the training step captured as a CUDA graph and replayed
              (train/capture.py), as the drivers run it on the card: for
              main_mlp p=2 and p=0 (B=6144), main_kitti default and
-             --augment, and main_3dident --scan --fused-stem and --scan on
-             the default path (ResNet18, B=512), a lane's eager steps
+             --augment, and main_3dident --scan --fused-stem, --scan on
+             the default path and --scan --optimizer sgd --lr-cosine on it
+             (ResNet18, B=512), a lane's eager steps
              against another lane's warm-up,
              capture and replays from the same seed, losses and
              parameters bit for bit (KITTI and 3DIdent under
@@ -101,9 +103,23 @@ use) and no network, and it exits non-zero on any failure. Phases:
              ms a step, eager against captured in turns (the default
              3DIdent lane's eager rate is phase 7's). Phases 4d, 6d
              (--scan), 8b and 8c already run the captured step
+ 10 prefetch main_3dident on phase 6's fixture kept on the host, as a store
+             beyond the device budget is: 10a the native gather of 1024
+             random rows against numpy's, bit for bit, and both rates;
+             10b PrefetchingPairLoader with one worker against the device
+             store's batches from the same seed, 20 batches, latents and
+             uint8 renders bit for bit; 10c cli.main_3dident at full width
+             on the default path with CL_ICA_TPU_DEVICE_IMAGE_BUDGET below
+             the fixture and --workers 1 against the device store's run of
+             the same seed, loss for loss and the evaluation under
+             cudnn.deterministic, with the loss and bn counters; 10d
+             --workers 4 and 0 (finite losses, the queue within its
+             slots), --mode supervised and --mode test over budget; 10e
+             pairs/s and peak GiB of the device store against the host path
+             at --workers 1, 4 and 0, in turns, float32 and --bf16
 
 ``--only a,b`` runs a subset of {mlp, stem, bn, 3dident, times, kitti,
-capture} (the build
+capture, prefetch} (the build
 always runs) for a short look at one part. Such a run is no pass: it
 prints {"ok": false, "partial": [...]} and exits 1; the kernels line and
 the ok line are printed by the full run only.
@@ -134,7 +150,14 @@ import torch
 import torch.nn.functional as F
 
 from cl_ica_tpu_torch.cli import kitti_solver, main_3dident, main_kitti, main_mlp
-from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, kitti
+from cl_ica_tpu_torch import native
+from cl_ica_tpu_torch.data import (
+    PrefetchingPairLoader,
+    ThreeDIdentBatchSampler,
+    kitti,
+    normalize_3dident,
+)
+from cl_ica_tpu_torch.data import threedident as data3d
 from cl_ica_tpu_torch.models import ConvEncoder64, construct_invertible_mlp, get_mlp
 from cl_ica_tpu_torch.ops import bn_minres, build, infonce, infonce_dot, stem
 from cl_ica_tpu_torch.spaces.utils import fallback_count, reset_fallback_counts
@@ -268,6 +291,11 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    t0 = time.perf_counter()
+    lib = native.build_library()
+    print(f"[1 build] the native library (g++: the Hungarian solver and the "
+          f"packed store's gather) {lib.name} ready in "
+          f"{time.perf_counter() - t0:.1f} s")
     libraries = build.LIBRARIES
     t0 = time.perf_counter()
     build.build_libraries(libraries)
@@ -2036,7 +2064,10 @@ def _3dident_capture_lane(sampler, *extra):
         args, n_non_ang + n_ang, n_non_ang,
         torch.Generator().manual_seed(0)).cuda().train()
     loss = main_3dident.build_split_loss(args, n_non_ang)
-    opt, sched = make_optimizer(model.parameters(), args.lr)
+    opt, sched = make_optimizer(
+        model.parameters(), args.lr, args.weight_decay,
+        cosine_steps=args.iterations if args.lr_cosine else None,
+        kind=args.optimizer)
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = CapturedStep(
         lambda: main_3dident.train_step(model, loss, opt, sched, sampler, gen),
@@ -2152,10 +2183,18 @@ def phase_capture(smi: str) -> None:
                   functools.partial(_3dident_capture_lane, sampler, "--fused-stem"),
                   dict.fromkeys(LP + DOT + STEM, 1), 6, 512, 10))
     # the default path (minres norms): each bn kernel once a norm
+    default_path = {**dict.fromkeys(LP + DOT, 1),
+                    **dict.fromkeys(BN, BN_NORMS_A_STEP)}
     cases.append(("main_3dident --scan ResNet18 B=512 (default, minres norms)",
                   functools.partial(_3dident_capture_lane, sampler),
-                  {**dict.fromkeys(LP + DOT, 1),
-                   **dict.fromkeys(BN, BN_NORMS_A_STEP)}, 6, 512, None))
+                  default_path, 6, 512, None))
+    # SGD under the cosine schedule: the fused update reads the schedule's
+    # lr tensor on the device
+    cases.append(("main_3dident --scan --optimizer sgd --lr-cosine ResNet18 "
+                  "B=512 (default path)",
+                  functools.partial(_3dident_capture_lane, sampler, "--optimizer",
+                                    "sgd", "--lr-cosine"),
+                  default_path, 6, 512, None))
     was = torch.backends.cudnn.deterministic
     for tag, make, per_step, replays, pairs, steps in cases:
         # bit for bit needs cuDNN's deterministic algorithms (KITTI,
@@ -2175,13 +2214,235 @@ def phase_capture(smi: str) -> None:
     del sampler
     print(f"[9 capture] {time.perf_counter() - t0:.1f} s")
 
+# ---------------------------------------------------------------------------
+# the host-prefetch image path
+# ---------------------------------------------------------------------------
+
+# below the 588 MiB fixture: the store stays on the host, as a user's would
+PREFETCH_BUDGET = str(256 << 20)
+
+
+def _hold_gather(packed) -> None:
+    """10a: the native gather of 1024 random rows against numpy's fancy
+    index of the memmap, bit for bit, and the rate of both."""
+    rows = np.random.default_rng(0).integers(0, len(packed), 1024)
+    gather = native.PackedGather(packed.filename, packed.shape[1:], len(packed))
+    try:
+        got = gather.gather(rows)
+        want = packed[rows]
+        if not np.array_equal(got, want):
+            raise AssertionError("10a: the native gather differs from numpy's")
+        rates = {}
+        for name, fn in (("native", lambda: gather.gather(rows, out=got)),
+                         ("numpy", lambda: packed[rows])):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            rates[name] = 5 * got.nbytes / (time.perf_counter() - t0) / 1e9
+    finally:
+        gather.close()
+    _say_time(f"[10 times] 10a gather of 1024 random rows of 224x224x3 "
+              f"({got.nbytes / 1e6:.1f} MB), bit-equal to numpy's: native "
+              f"{rates['native']:.2f} GB/s ({os.cpu_count()} threads), numpy "
+              f"{rates['numpy']:.2f} GB/s; host of {os.cpu_count()} cores")
+
+
+def _hold_loader(host, device) -> None:
+    """10b: one worker from seed s against the device store's own batches
+    from a generator of seed s, 20 batches: latents and uint8 renders bit
+    for bit (the pinned slots are reused six times over), and the
+    normalised views against ``sample_with_images``."""
+    loader = PrefetchingPairLoader(
+        host, torch.Generator(device="cuda").manual_seed(7), num_workers=1)
+    ref = torch.Generator(device="cuda").manual_seed(7)
+    ref_views = torch.Generator(device="cuda").manual_seed(7)
+    busy = torch.randn(4096, 4096, device="cuda")
+    try:
+        for i in range(20):
+            (z, zt), (x, xt) = next(loader)
+            busy = busy @ busy / 64  # the training stream is busy meanwhile
+            idx_z, idx_zt, wz, wzt = device.sample_latent_batch(ref)
+            (_, _), (vx, vxt) = device.sample_with_images(ref_views)
+            same = (torch.equal(z, wz) and torch.equal(zt, wzt)
+                    and torch.equal(x, device.device_store[idx_z])
+                    and torch.equal(xt, device.device_store[idx_zt])
+                    and torch.equal(normalize_3dident(x), vx)
+                    and torch.equal(normalize_3dident(xt), vxt))
+            if not same:
+                raise AssertionError(f"10b: batch {i} of the loader differs from "
+                                     "the device store's")
+    finally:
+        loader.close()
+    print(f"[10 prefetch] 10b: 20 batches of one worker (seed 7, {loader.slots} "
+          f"pinned slots) bit-equal to the device store's (latents, uint8 "
+          f"renders, normalised views)")
+
+
+def _run_prefetch(tag: str, argv: list[str], budget: str | None
+                  ) -> tuple[dict, dict, float]:
+    """One main_3dident run under the device budget ``budget`` (None: the
+    default), the launch counts set to 0 just before it."""
+    was = os.environ.get(data3d.BUDGET_ENV)
+    if budget is None:
+        os.environ.pop(data3d.BUDGET_ENV, None)
+    else:
+        os.environ[data3d.BUDGET_ENV] = budget
+    try:
+        out, grew, secs = _run_3dident(tag, argv)
+    finally:
+        if was is None:
+            os.environ.pop(data3d.BUDGET_ENV, None)
+        else:
+            os.environ[data3d.BUDGET_ENV] = was
+    print(f"[10 prefetch] {tag}: data path {out['data_path']}, loader "
+          f"{out['loader']}")
+    return out, grew, secs
+
+
+def _prefetch_pairs_per_sec(host, workers: int | None, bf16: bool
+                            ) -> tuple[float, float, float]:
+    """(pairs/s, peak GiB, GiB held before the steps) of steady default-path
+    steps (ResNet18, B = 512) of main_3dident's own ``train_step``: from
+    the store uploaded for this turn alone (workers None) or from a loader
+    of ``workers`` threads over the host store ``host``."""
+    argv = _RUN3D + ["--mode", "unsupervised"] + (["--bf16"] if bf16 else [])
+    args = main_3dident.parse_args(argv)
+    _, n_non_ang, n_ang = main_3dident.setup_latent_space(args)
+    model = main_3dident.build_encoder(
+        args, n_non_ang + n_ang, n_non_ang,
+        torch.Generator().manual_seed(0)).cuda().train()
+    loss = main_3dident.build_split_loss(args, n_non_ang)
+    opt, _ = make_optimizer(model.parameters(), args.lr)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = (ThreeDIdentBatchSampler(FIXTURE, host.latent_space, 512, device="cuda")
+               if workers is None else
+               PrefetchingPairLoader(host, gen, num_workers=workers or os.cpu_count()))
+    try:
+        step = lambda: main_3dident.train_step(model, loss, opt, None, batches, gen)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        n = 8 if not bf16 else 20
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        pps = n * args.batch_size / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        if workers is not None:
+            batches.close()
+    del model, opt, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pps, peak, held
+
+
+def phase_prefetch(smi: str) -> dict:
+    """Phase 10: main_3dident on a store beyond the device budget."""
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(FIXTURE, "raw_latents.npy")):
+        phase_fixture()
+    run_dir = os.path.join(OUT_DIR, "10_prefetch")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    space = main_3dident.setup_latent_space(args)[0]
+    host = ThreeDIdentBatchSampler(FIXTURE, space, 512, device_images=False,
+                                   device="cuda")
+    device = ThreeDIdentBatchSampler(FIXTURE, space, 512, device="cuda")
+    _hold_gather(host.images._packed)
+    _hold_loader(host, device)
+    del device
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10c: the driver at full width on the host store, one worker, against
+    # the device store's run of the same seed, bit for bit
+    steps = 6
+    model = os.path.join(run_dir, "10c_model.pt")
+    unsup = ["--mode", "unsupervised", "--n-log-steps", "100", "--iterations"]
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        on_device, grew_d, _ = _run_prefetch("10c device store",
+                                             unsup + [str(steps)], None)
+        on_host, grew_h, _ = _run_prefetch(
+            "10c host store, --workers 1",
+            unsup + [str(steps), "--workers", "1", "--save-model", model],
+            PREFETCH_BUDGET)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    if (on_device["data_path"], on_host["data_path"]) != ("device-store",
+                                                          "host-prefetch"):
+        raise AssertionError(f"10c: data paths {on_device['data_path']}, "
+                             f"{on_host['data_path']}")
+    want = {k: steps if k in LP + DOT else steps * BN_NORMS_A_STEP if k in BN
+            else 0 for k in KERNELS}
+    if grew_h != want or grew_d != want:
+        raise AssertionError(f"10c: launches {grew_h} (host), {grew_d} (device); "
+                             f"expected {want}")
+    same = sum(a == b for a, b in zip(on_host["losses"], on_device["losses"]))
+    print(f"[10 prefetch] 10c: {same} of {steps} losses of the host path equal "
+          f"the device store's; MCC {on_host['mcc']:.6f} / {on_device['mcc']:.6f}")
+    if len(on_host["losses"]) != steps or on_host["losses"] != on_device["losses"]:
+        raise AssertionError(f"10c: {on_host['losses']} vs {on_device['losses']}")
+    if on_host["mcc"] != on_device["mcc"] or on_host["lin"] != on_device["lin"]:
+        raise AssertionError("10c: the evaluations differ")
+
+    # 10d: more workers, and the other two modes, over budget
+    for workers in (4, 0):
+        out, _, _ = _run_prefetch(f"10d --workers {workers}",
+                                  unsup + ["4", "--workers", str(workers)],
+                                  PREFETCH_BUDGET)
+        loader = out["loader"]
+        if out["data_path"] != "host-prefetch" or not all(
+                math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"10d --workers {workers}: {out}")
+        if loader["workers"] != (workers or os.cpu_count()):
+            raise AssertionError(f"10d --workers {workers}: {loader}")
+        if not loader["peak_ready"] <= loader["slots"]:
+            raise AssertionError(f"10d: the queue grew past its slots: {loader}")
+    for mode, extra in (("supervised", ["--iterations", "3", "--n-eval-samples",
+                                        "1024"]),
+                        ("test", ["--load-model", model])):
+        out, _, _ = _run_prefetch(f"10d --mode {mode}", ["--mode", mode, *extra],
+                                  PREFETCH_BUDGET)
+        if out["data_path"] != "host-gather" or not (
+                math.isfinite(out["lin"]) and all(math.isfinite(x)
+                                                  for x in out["losses"])):
+            raise AssertionError(f"10d --mode {mode}: {out}")
+
+    # 10e: pairs/s and peak GiB, the device store (uploaded for its turn
+    # alone) against the host path at three worker counts, in turns
+    turns = (None, 1, 4, 0, 0, 4, 1, None)
+    name = lambda w: "device store" if w is None else f"host --workers {w}"
+    for bf16 in (False, True):
+        runs = [_prefetch_pairs_per_sec(host, w, bf16) for w in turns]
+        _say_time(f"[10 times] 10e 3DIdent default step, ResNet18 B=512 "
+                  f"{'--bf16' if bf16 else 'float32, TF32 off'}, pairs/s (peak "
+                  f"GiB; GiB held before the steps) in turns: "
+                  + ", ".join(f"{name(w)} {p:.1f} ({m:.3f}; {h:.3f})"
+                              for w, (p, m, h) in zip(turns, runs))
+                  + f"; --workers 0 = {os.cpu_count()}; on {smi}")
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[10 prefetch] {time.perf_counter() - t0:.1f} s")
+    return {k: grew_h[k] for k in KERNELS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma-separated subset of mlp,stem,bn,3dident,times,"
-                         "kitti,capture")
+                         "kitti,capture,prefetch")
     only = set(filter(None, ap.parse_args().only.split(",")))
-    unknown = only - {"mlp", "stem", "bn", "3dident", "times", "kitti", "capture"}
+    unknown = only - {"mlp", "stem", "bn", "3dident", "times", "kitti", "capture",
+                      "prefetch"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown --only parts {sorted(unknown)}")
     run = lambda part: not only or part in only
@@ -2216,6 +2477,9 @@ def main() -> int:
             launches[k] += v
     if run("capture"):
         phase_capture(smi)
+    if run("prefetch"):
+        for k, v in phase_prefetch(smi).items():
+            launches[k] += v
     if only:
         print(json.dumps({"ok": False, "partial": sorted(only)}))
         return 1

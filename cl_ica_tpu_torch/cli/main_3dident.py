@@ -12,8 +12,14 @@ per-dimension MSE and the linear fit's MSE.
 Everything of a training step runs on the device: pair sampling, the
 k-NN match against the rendered-latent table, the gather from the packed
 uint8 store, the normalisation, both views in one forward of 2B images,
-the loss, and Adam/SGD. The default ``--norm-kind minres`` runs every
-norm of the ResNet through the ``ops.bn_minres`` kernels;
+the loss, and Adam/SGD. A packed store beyond the device budget
+(``CL_ICA_TPU_DEVICE_IMAGE_BUDGET``, 4 GiB by default) stays on the host:
+--workers threads of ``PrefetchingPairLoader`` match and gather the
+training batches ahead of the step and copy them to the device while it
+runs, and the evaluation, --mode supervised and --mode test gather their
+rows on the host (the native gather) and copy them over. The default
+``--norm-kind minres`` runs every norm of the ResNet through the
+``ops.bn_minres`` kernels;
 ``--fused-stem`` takes the stem tail through the ``ops.stem`` kernels
 instead and the other norms through the plain 'fast' norm, as the JAX
 driver forces. ``--scan`` captures the unsupervised step once as a
@@ -34,6 +40,7 @@ Usage: python -m cl_ica_tpu_torch.cli.main_3dident --offline-dataset DIR [flags]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from datetime import datetime
@@ -45,8 +52,9 @@ from torch import nn
 
 from . import fused_arg
 from ..data import (
+    BUDGET_ENV,
+    PrefetchingPairLoader,
     SequentialThreeDIdent,
-    StoreOverBudget,
     ThreeDIdentBatchSampler,
     normalize_3dident,
 )
@@ -94,8 +102,12 @@ def parse_args(argv=None):
                         help="Restore the full train state (model + optimizer "
                              "+ scheduler + generators + step + loss history) "
                              "saved by --save-every at "
-                             "<save-model>.train_state and continue; the "
-                             "resumed run repeats the uninterrupted one.")
+                             "<save-model>.train_state and continue. On the "
+                             "device-store path the resumed run repeats the "
+                             "uninterrupted one step for step; on the "
+                             "host-prefetch path (a store beyond the device "
+                             "budget) batches are IID, so the continuation "
+                             "is statistically (not bitwise) identical.")
     parser.add_argument("--no-cuda", action="store_true")  # accepted, no-op
     parser.add_argument("--position-only", action="store_true")
     parser.add_argument("--rotation-and-color-only", action="store_true")
@@ -117,7 +129,9 @@ def parse_args(argv=None):
     parser.add_argument("--sphere-constraint", type=str, default=None,
                         choices=(None, "fix", "learnable"))
     parser.add_argument("--workers", default=0, type=int,
-                        help="Accepted, no-op: batches are made on the device")
+                        help="Host-prefetch worker threads (0=#cpus) for an "
+                             "image store beyond the device budget; a store "
+                             "on the device makes its batches there")
     parser.add_argument("--mode", default="supervised",
                         choices=("supervised", "unsupervised", "test"))
     parser.add_argument("--supervised-loss", default="mse", type=str,
@@ -222,10 +236,6 @@ def parse_args(argv=None):
             raise SystemExit(f"--scan: debug mode's NaN guards check every "
                              f"step on the host, which a captured step "
                              f"cannot; unset {DEBUG_ENV} or drop --scan")
-        if args.optimizer == "sgd" and args.lr_cosine:
-            raise SystemExit("--scan: SGD reads a scheduled learning rate "
-                             "on the host at every step, which a captured "
-                             "step cannot; drop --lr-cosine or --scan")
     if args.fused_stem and args.norm_kind == "batch":
         raise SystemExit(
             "--fused-stem forces the FastBatchNorm module naming, so it "
@@ -529,9 +539,14 @@ def unsupervised_objective(model, split_loss, x1, x2):
 @torch.no_grad()
 def draw_views(sampler, generator, mixing=None):
     """(z, x, z̃, x̃) of one training batch, all on the device: x is the
-    normalised renders from the device store, or ``mixing(z)`` where no
-    images are loaded (--dummy-mixing), or z itself."""
-    if sampler.device_store is not None:
+    normalised renders (from the loader's next batch where ``sampler`` is a
+    ``PrefetchingPairLoader``, which draws with its own generators), or
+    ``mixing(z)`` where no images are loaded (--dummy-mixing), or z
+    itself."""
+    if isinstance(sampler, PrefetchingPairLoader):
+        (z, zt), (x, xt) = next(sampler)
+        return z, normalize_3dident(x), zt, normalize_3dident(xt)
+    if sampler.images is not None:
         (z, zt), (x, xt) = sampler.sample_with_images(generator)
         return z, x, zt, xt
     _, _, z, zt = sampler.sample_latent_batch(generator)
@@ -585,7 +600,12 @@ def score(z, hz, eval_perm=True, identity_solution=False):
 
 def main(argv=None, device=None):
     """Runs the experiment; returns {'losses', 'mcc', 'lin', 'mean_znorm',
-    'pairs_per_sec'}: the loss history and the last evaluation.
+    'pairs_per_sec', 'data_path', 'loader'}: the loss history, the last
+    evaluation, where the images came from ('device-store', 'host-prefetch'
+    for training batches from ``PrefetchingPairLoader``, 'host-gather' for
+    rows gathered on the host as they are needed, None without images), and
+    the loader's workers, pinned slots and their bytes, and the most filled
+    slots seen waiting (None without the loader).
 
     float32 stays float32 for the run: cuDNN's float32 convolutions use
     TF32 unless told otherwise, which keeps three digits (--bf16 is the
@@ -602,6 +622,13 @@ def main(argv=None, device=None):
 
 
 def _run(args, device):
+    """The run, with what it opens that must be closed however it ends (the
+    prefetch loader's threads) on an exit stack."""
+    with contextlib.ExitStack() as closing:
+        return _experiment(args, device, closing)
+
+
+def _experiment(args, device, closing: contextlib.ExitStack):
     assert os.path.exists(args.offline_dataset)
     print("Using dataset:", args.offline_dataset)
     logger = MetricsLogger(log_dir=args.log_dir, print_to_stdout=False)
@@ -641,20 +668,18 @@ def _run(args, device):
             latent_dimensions_to_use=dims, load_images=load_images,
             device=device,
         )
-        if load_images:
-            try:
-                sampler.require_device_store()
-            except StoreOverBudget as err:
-                if args.scan:
-                    raise SystemExit(
-                        "--scan: the image store exceeds the on-device budget, "
-                        "so batches would come from the host, which a captured "
-                        f"step cannot drive. Drop --scan or raise the budget: {err}")
-                raise SystemExit(str(err))
-            if sampler.device_store is None:
-                raise SystemExit(
-                    f"no packed image store (images_packed_*.u8) and no "
-                    f"images/ directory to pack under {args.offline_dataset!r}")
+        if load_images and sampler.device_store is None and not sampler.host_store:
+            raise SystemExit(
+                f"no packed image store (images_packed_*.u8) and no "
+                f"images/ directory to pack under {args.offline_dataset!r}")
+        if load_images and sampler.host_store and args.scan:
+            nbytes = sampler.images._packed.nbytes
+            raise SystemExit(
+                f"--scan: the image store exceeds the on-device budget "
+                f"({nbytes} bytes; environment variable {BUDGET_ENV}), so batches come "
+                "from the host prefetch pipeline, which a captured step cannot "
+                "drive. Drop --scan (the eager loop takes the host path) or "
+                "raise the budget.")
     else:
         sampler = SequentialThreeDIdent(
             args.offline_dataset, latent_dimensions_to_use=dims,
@@ -695,7 +720,7 @@ def _run(args, device):
     def view_of(z, idx):
         """The encoder's input for matched latents z at table rows idx."""
         if load_images:
-            return normalize_3dident(sampler.device_store[idx])
+            return normalize_3dident(sampler.images_of(idx))
         return g(z) if args.dummy_mixing else z
 
     def eval_batch():
@@ -798,6 +823,25 @@ def _run(args, device):
             print("--resume: no train state found; starting fresh",
                   flush=True)
 
+    # Where the training batches come from. A store beyond the device budget
+    # is served by the prefetch loader, whose first worker draws from
+    # train_gen (after the restore above) and the others from their own
+    # generators: a resumed run goes on from the saved state of train_gen,
+    # which is ahead of the batches consumed by the ones prefetched.
+    data_path, loader, batches = None, None, sampler
+    if load_images:
+        data_path = "host-gather"
+        if args.mode != "test" and sampler.device_store is not None:
+            data_path = "device-store"
+        elif args.mode == "unsupervised":
+            data_path = "host-prefetch"
+            loader = closing.enter_context(contextlib.closing(PrefetchingPairLoader(
+                sampler, train_gen, num_workers=args.workers or (os.cpu_count() or 1))))
+            batches = loader
+            print(f"host-prefetch: {loader.num_workers} workers, {loader.slots} "
+                  f"pinned slots of {loader.pinned_bytes // loader.slots} bytes",
+                  flush=True)
+
     model.train()
     now = lambda: datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
     # --scan: the step captured after the restore above, replayed once a
@@ -819,7 +863,7 @@ def _run(args, device):
                 pending.append(captured())
             else:
                 pending.append(torch.stack(train_step(
-                    model, split_loss, optimizer, scheduler, sampler, train_gen, g)))
+                    model, split_loss, optimizer, scheduler, batches, train_gen, g)))
             if step % args.n_log_steps == 0 or step == args.iterations:
                 flush()
                 throughput.update(args.batch_size * min(args.n_log_steps, step + 1))
@@ -891,7 +935,11 @@ def _run(args, device):
         print(f"Saving final model at: {args.save_model}")
     return {"losses": losses, "mcc": last["mcc"], "lin": last["lin"],
             "mean_znorm": last["mean_znorm"],
-            "pairs_per_sec": throughput.pairs_per_sec}
+            "pairs_per_sec": throughput.pairs_per_sec, "data_path": data_path,
+            "loader": None if loader is None else {
+                "workers": loader.num_workers, "slots": loader.slots,
+                "pinned_bytes": loader.pinned_bytes,
+                "peak_ready": loader.peak_ready}}
 
 
 if __name__ == "__main__":

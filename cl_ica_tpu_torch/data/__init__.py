@@ -19,8 +19,8 @@ from .threedident import (
     THREEDIDENT_MEAN,
     THREEDIDENT_STD,
     PackedImageStore,
+    PrefetchingPairLoader,
     SequentialThreeDIdent,
-    StoreOverBudget,
     ThreeDIdentBatchSampler,
     normalize_3dident,
     pack_images,
@@ -37,8 +37,8 @@ __all__ = [
     "THREEDIDENT_MEAN",
     "THREEDIDENT_STD",
     "PackedImageStore",
+    "PrefetchingPairLoader",
     "SequentialThreeDIdent",
-    "StoreOverBudget",
     "ThreeDIdentBatchSampler",
     "normalize_3dident",
     "pack_images",

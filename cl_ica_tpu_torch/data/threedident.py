@@ -1,4 +1,4 @@
-"""3DIdent dataset pipeline, on the device.
+"""3DIdent dataset pipeline.
 
 Port of cl_ica_tpu/data/threedident.py. Semantics: sample (z, z̃) from the
 latent space, snap each to the nearest rendered grid point (k=1 for z;
@@ -8,12 +8,14 @@ match), return the matched latents and their renders.
 - latent sampling and nearest-neighbour matching run batched on the
   device (ops.knn.l2_topk: one float32 product + top-k);
 - images come from a packed uint8 memmap (a one-time pack of the PNG
-  directory). When the packed array fits the device budget it is uploaded
+  directory). When the packed array fits the device budget
+  (``CL_ICA_TPU_DEVICE_IMAGE_BUDGET``, 4 GiB by default) it is uploaded
   once, and the gather and the normalisation run on the device too;
-- a store beyond the budget would need the JAX package's host-prefetch
-  pipeline (``PrefetchingPairLoader`` and native/packed_loader.cpp), which
-  is not ported (ROADMAP A11b): the sampler raises ``StoreOverBudget``
-  instead of taking a slow path.
+- a store beyond the budget stays on the host, never uploaded: rows are
+  gathered by the native library's threaded gather (native/
+  packed_loader.cpp) into pinned buffers and copied to the device, and
+  for training ``PrefetchingPairLoader`` does so ahead of the step in
+  worker threads, the copy overlapping the step.
 
 Images are (B, H, W, 3) uint8 in the store and leave ``normalize_3dident``
 as float32 (B, 3, H, W) tensors in ``channels_last`` memory: the same
@@ -22,14 +24,19 @@ bytes in the same order as the JAX package's NHWC batch.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import os
+import queue
+import threading
 import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..native import PackedGather
 from ..ops.knn import l2_topk
 from ..spaces import LatentSpace
 
@@ -40,10 +47,6 @@ THREEDIDENT_STD = np.array([0.0778, 0.0776, 0.0771], dtype=np.float32)
 PACKED_NAME = "images_packed_{h}x{w}.u8"
 BUDGET_ENV = "CL_ICA_TPU_DEVICE_IMAGE_BUDGET"  # the JAX package's name
 DEFAULT_BUDGET_BYTES = 4 << 30
-
-
-class StoreOverBudget(RuntimeError):
-    """The packed image store does not fit the device budget."""
 
 
 @functools.lru_cache(maxsize=8)
@@ -179,30 +182,49 @@ def pack_images(
 
 
 class PackedImageStore:
-    """Batch image fetch from the packed uint8 memmap (or, without a pack,
-    per-path PNG decode)."""
+    """Batch image fetch from the packed uint8 memmap through the native
+    gather (or, without a pack, per-path PNG decode)."""
 
     def __init__(self, root: str, n: int, build_pack: bool = True):
         self.root = root
         self.paths = _image_paths(root, n)
         self._packed = None
+        self._native = None
+        self._open_lock = threading.Lock()
         candidates = sorted(
             os.path.join(root, f)
             for f in os.listdir(root)
             if f.startswith("images_packed_") and f.endswith(".u8")
         ) if os.path.isdir(root) else []
-        packed_path = None
+        self.packed_path = None
         if candidates:
-            packed_path = candidates[0]
+            self.packed_path = candidates[0]
         elif build_pack and os.path.isdir(os.path.join(root, "images")):
-            packed_path = pack_images(root)
-        if packed_path:
-            self._packed = np.lib.format.open_memmap(packed_path, mode="r")
+            self.packed_path = pack_images(root)
+        if self.packed_path:
+            self._packed = np.lib.format.open_memmap(self.packed_path, mode="r")
 
-    def gather(self, indices: np.ndarray) -> np.ndarray:
-        """(B,) indices -> (B, H, W, 3) uint8."""
+    @property
+    def row_shape(self) -> Tuple[int, ...]:
+        """(H, W, 3) of one render in the pack."""
+        return tuple(self._packed.shape[1:])
+
+    def _native_gather(self) -> PackedGather:
+        """The native gather over the pack, opened at first use (a build or
+        mapping that fails raises)."""
+        with self._open_lock:
+            if self._native is None:
+                self._native = PackedGather(self.packed_path, self.row_shape,
+                                            self._packed.shape[0])
+            return self._native
+
+    def gather(self, indices: np.ndarray, out=None, threads: int = 0) -> np.ndarray:
+        """(B,) indices -> (B, H, W, 3) uint8, from the pack through the
+        native gather: into ``out`` if given (a C-contiguous uint8 host
+        buffer, such as a pinned tensor), with ``threads`` threads (0: one
+        a core)."""
         if self._packed is not None:
-            return np.asarray(self._packed[np.asarray(indices)])
+            return self._native_gather().gather(indices, out=out, threads=threads)
         from PIL import Image
 
         out = []
@@ -224,9 +246,10 @@ class ThreeDIdentBatchSampler:
 
     ``sample_latent_batch(generator)`` draws B latent pairs on the device,
     matches them against the rendered-latent table with one batched top-1
-    and one top-2 search, and resolves collisions. With the image store
-    resident on the device (``device_store``), ``sample_with_images`` also
-    gathers and normalises both views there: no host data path.
+    and one top-2 search, and resolves collisions. ``sample_with_images``
+    also gathers and normalises both views: with the image store resident
+    on the device (``device_store``) there, with no host data path;
+    otherwise the rows are gathered on the host (``images_of``).
     """
 
     def __init__(
@@ -256,32 +279,23 @@ class ThreeDIdentBatchSampler:
         )
 
         # Device-resident image store: when the packed uint8 array fits
-        # the budget, upload it once.
+        # the budget, upload it once. A store beyond it stays on the host.
         self.device_store = None
-        self.over_budget = None
         if self.images is not None and self.images._packed is not None:
             packed = self.images._packed
             if device_images is None:
                 budget = int(os.environ.get(BUDGET_ENV, device_image_budget_bytes))
                 device_images = packed.nbytes <= budget
-                if not device_images:
-                    self.over_budget = (packed.nbytes, budget)
             if device_images:
                 # np.array copies the read-only memmap into host memory
                 self.device_store = torch.from_numpy(
                     np.array(packed)).to(self.device)
 
-    def require_device_store(self) -> None:
-        """Raise ``StoreOverBudget`` when the packed store was left on the
-        host because it exceeds the device budget."""
-        if self.over_budget is not None:
-            nbytes, budget = self.over_budget
-            raise StoreOverBudget(
-                f"the packed image store ({nbytes} bytes) exceeds the device "
-                f"image budget ({budget} bytes, environment variable "
-                f"{BUDGET_ENV}); the host-prefetch loader for such a store "
-                "is not ported to cl_ica_tpu_torch yet (ROADMAP.md item "
-                "A11b). Raise the budget if the device has the memory.")
+    @property
+    def host_store(self) -> bool:
+        """Whether the packed store is served from the host."""
+        return (self.device_store is None and self.images is not None
+                and self.images._packed is not None)
 
     def sample_latent_batch(self, generator: torch.Generator):
         """-> (idx_z, idx_zt, z_matched, z_tilde_matched), on the device."""
@@ -293,12 +307,27 @@ class ThreeDIdentBatchSampler:
         idx_zt = torch.where(collide, idx_zt2[:, 1], idx_zt2[:, 0])
         return idx_z, idx_zt, self.latents[idx_z], self.latents[idx_zt]
 
+    def images_of(self, idx: torch.Tensor) -> torch.Tensor:
+        """Renders of table rows ``idx`` (B,) as uint8 (B, H, W, 3) on the
+        device: a gather from the device store, or from the host store
+        through the native gather into a pinned buffer and a copy that
+        does not block the host (the caching host allocator keeps the
+        buffer until the copy is done)."""
+        if self.device_store is not None:
+            return self.device_store[idx]
+        rows = idx.cpu().numpy()
+        pinned = self.device.type == "cuda"
+        buf = torch.empty((len(rows),) + self.images.row_shape, dtype=torch.uint8,
+                          pin_memory=pinned)
+        self.images.gather(rows, out=buf)
+        return buf.to(self.device, non_blocking=pinned)
+
     def sample_with_images(self, generator: torch.Generator):
         """-> ((z, z̃), (x, x̃)), everything on the device, the images
-        normalised; needs the device store."""
+        normalised."""
         idx_z, idx_zt, z, zt = self.sample_latent_batch(generator)
-        x = normalize_3dident(self.device_store[idx_z])
-        xt = normalize_3dident(self.device_store[idx_zt])
+        x = normalize_3dident(self.images_of(idx_z))
+        xt = normalize_3dident(self.images_of(idx_zt))
         return (z, zt), (x, xt)
 
     def sample_batch(self, generator: torch.Generator):
@@ -332,3 +361,195 @@ class SequentialThreeDIdent:
         z = self.latents[indices]
         x = self.images.gather(indices) if self.images else None
         return z, x
+
+
+class _Slot:
+    """One pinned host buffer of a batch's 2B renders, and the event of
+    its last copy to the device (None before the first)."""
+
+    def __init__(self, host: torch.Tensor):
+        self.host = host
+        self.copied = None
+
+
+class _Failure:
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def _worker_seed(generator: torch.Generator, worker: int) -> int:
+    """An independent seed for worker ``worker`` >= 1, from the state of
+    worker 0's generator (a resumed run's workers draw new streams)."""
+    state = generator.get_state().tolist()
+    return int(np.random.SeedSequence(state + [worker]).generate_state(1, np.uint64)[0])
+
+
+class PrefetchingPairLoader:
+    """Training batches from a host store, made ahead of the step.
+
+    The counterpart of the JAX package's PrefetchingPairLoader
+    (cl_ica_tpu/data/threedident.py:345-408). ``num_workers`` threads each
+    loop: take a free pinned slot, draw and match a batch of latent pairs
+    with ``sampler.sample_latent_batch`` on the worker's own CUDA stream and
+    generator, bring the two index vectors to the host (which waits for
+    that stream alone), and gather both views' renders into the slot with
+    the native gather (the GIL released). ``next()`` copies a filled slot
+    to the device on a copy stream, without blocking the host, one batch
+    ahead of the one it returns; the caller's stream waits for the copy on
+    an event, and every tensor made on another stream is recorded on the
+    caller's. It returns ((z, z̃), (x, x̃)): latents and uint8 (B, H, W, 3)
+    renders on the sampler's device.
+
+    Memory: ``num_workers + depth`` pinned slots of 2B renders each (at
+    224² and B = 512, 154 MB a slot), so at most that many batches wait on
+    the host, and at most two (the one returned and the one ahead) sit on
+    the device. A slot is written again only after its copy has finished
+    (its worker waits on the copy's event).
+
+    Seeding: worker 0 draws from ``generator`` itself, so one worker gives
+    the batches of ``sample_with_images`` on a device store from the same
+    generator state, exactly; workers 1, 2, ... draw from generators seeded
+    from it independently. With several workers the order of batches
+    depends on the threads; batches are IID, so the semantics do not.
+
+    On the CPU (the tests) there is no pinning and no stream; ``next()``
+    hands out a copy of the slot. ``close()`` stops and joins the threads
+    and drops the buffers.
+    """
+
+    def __init__(self, sampler: ThreeDIdentBatchSampler, generator: torch.Generator,
+                 depth: int = 2, num_workers: int = 1):
+        if not sampler.host_store:
+            raise ValueError("PrefetchingPairLoader serves a packed image store "
+                             "kept on the host")
+        self.device = sampler.device
+        self._cuda = self.device.type == "cuda"
+        if self._cuda and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.num_workers = max(1, int(num_workers))
+        self._sampler = sampler
+        # the cores' gather threads are shared among the workers
+        self._gather_threads = max(1, (os.cpu_count() or 1) // self.num_workers)
+        shape = (2 * sampler.batch_size,) + sampler.images.row_shape
+        self.slots = self.num_workers + max(1, int(depth))
+        self.pinned_bytes = self.slots * int(np.prod(shape))
+        self._free: queue.Queue = queue.Queue()
+        for _ in range(self.slots):
+            self._free.put(_Slot(torch.empty(shape, dtype=torch.uint8,
+                                              pin_memory=self._cuda)))
+        self._ready: queue.Queue = queue.Queue()
+        self.peak_ready = 0  # the most filled slots seen waiting at once
+        self._peak_lock = threading.Lock()
+        self._ahead: collections.deque = collections.deque()
+        self._stop = threading.Event()
+        self._copy_stream = self._start = None
+        if self._cuda:
+            self._copy_stream = torch.cuda.Stream(self.device)
+            # the workers' streams start after what the caller enqueued
+            # (the latent table, the generator's seeding)
+            self._start = torch.cuda.Event()
+            self._start.record(torch.cuda.current_stream(self.device))
+        generators = [generator] + [
+            torch.Generator(device=self.device).manual_seed(_worker_seed(generator, k))
+            for k in range(1, self.num_workers)]
+        self._threads = [
+            threading.Thread(target=self._work, args=(g,), daemon=True,
+                             name=f"prefetch-{k}")
+            for k, g in enumerate(generators)]
+        for t in self._threads:
+            t.start()
+
+    def _take_free(self) -> Optional[_Slot]:
+        while not self._stop.is_set():
+            try:
+                return self._free.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return None
+
+    def _work(self, generator: torch.Generator) -> None:
+        try:
+            stream = None
+            if self._cuda:
+                torch.cuda.set_device(self.device)
+                stream = torch.cuda.Stream(self.device)
+                stream.wait_event(self._start)
+            while not self._stop.is_set():
+                slot = self._take_free()
+                if slot is None:
+                    return
+                if slot.copied is not None:
+                    slot.copied.synchronize()
+                with (torch.cuda.stream(stream) if self._cuda
+                      else contextlib.nullcontext()):
+                    idx_z, idx_zt, z, zt = self._sampler.sample_latent_batch(generator)
+                    rows = torch.cat([idx_z, idx_zt]).cpu().numpy()
+                self._sampler.images.gather(rows, out=slot.host,
+                                            threads=self._gather_threads)
+                self._ready.put((z, zt, slot))
+                with self._peak_lock:
+                    self.peak_ready = max(self.peak_ready, self._ready.qsize())
+        except BaseException as err:  # handed to the consumer, which raises it
+            self._ready.put(_Failure(err))
+
+    def _next_ready(self, block: bool):
+        while True:
+            try:
+                item = self._ready.get(timeout=0.1) if block else self._ready.get_nowait()
+            except queue.Empty:
+                if not block:
+                    return None
+                if self._stop.is_set():
+                    raise StopIteration
+                continue
+            if isinstance(item, _Failure):
+                raise RuntimeError("a prefetch worker failed") from item.error
+            return item
+
+    def _to_device(self, item):
+        z, zt, slot = item
+        if not self._cuda:
+            x = slot.host.clone()
+            self._free.put(slot)
+            return z, zt, x, None
+        with torch.cuda.stream(self._copy_stream):
+            x = slot.host.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        slot.copied = done
+        self._free.put(slot)
+        return z, zt, x, done
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._ahead:
+            self._ahead.append(self._to_device(self._next_ready(block=True)))
+        z, zt, x, done = self._ahead.popleft()
+        item = self._next_ready(block=False)
+        if item is not None:
+            self._ahead.append(self._to_device(item))
+        if done is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(done)
+            for t in (z, zt, x):
+                t.record_stream(current)
+        b = z.shape[0]
+        return (z, zt), (x[:b], x[b:])
+
+    def close(self) -> None:
+        """Stop the workers, join them, and drop every buffer."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60)
+        alive = [t.name for t in self._threads if t.is_alive()]
+        self._ahead.clear()
+        for q in (self._ready, self._free):
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+        if alive:
+            raise RuntimeError(f"prefetch workers did not stop: {alive}")

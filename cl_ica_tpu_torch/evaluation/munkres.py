@@ -1,13 +1,15 @@
 """Hungarian (Kuhn-Munkres) assignment solver.
 
 The port's own copy of cl_ica_tpu/evaluation/munkres.py: the classic
-6-step matrix algorithm (Munkres 1957) with numpy-vectorized steps. For
-MCC matrices (n ≈ 10) it runs host-side in microseconds. It is the only
-solver here: the JAX package's C++ route for n ≥ 20 is not copied, so
-every n takes this path and nothing falls back silently.
+6-step matrix algorithm (Munkres 1957) with numpy-vectorized steps, and for
+n >= 20 the C++ solver of the port's native library (native/hungarian.cpp),
+as the JAX package routes them. For MCC matrices (n ≈ 10) the Python
+solver runs host-side in microseconds. A native route that cannot build
+raises; it never falls back to the Python solver.
 
 Any optimal assignment yields the same total cost, so MCC scores do not
-depend on tie-breaking; steps scan rows/cols in ascending index order.
+depend on tie-breaking; the Python steps scan rows/cols in ascending index
+order, and the C++ solver is the JAX package's line for line.
 """
 
 from __future__ import annotations
@@ -16,18 +18,30 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from ..native import hungarian_solve_native
 
-def hungarian(cost: np.ndarray) -> List[Tuple[int, int]]:
+
+def hungarian(cost: np.ndarray, prefer_native: bool = None) -> List[Tuple[int, int]]:
     """Minimum-cost assignment of rows to columns.
 
     Returns [(row, col), ...] sorted by row, one entry per row of the
     (possibly rectangular) cost matrix after zero-padding to square.
+
+    prefer_native: route through the C++ solver. Default: only for n >= 20,
+    as in the JAX package — both solvers return an optimal matching, but
+    tie-breaking can differ, so small n stays on the Python solver.
     """
     cost = np.asarray(cost, dtype=np.float64)
     orig_rows, orig_cols = cost.shape
     n = max(orig_rows, orig_cols)
     c = np.zeros((n, n), dtype=np.float64)
     c[:orig_rows, :orig_cols] = cost
+
+    if prefer_native is None:
+        prefer_native = n >= 20
+    if prefer_native:
+        row_to_col = hungarian_solve_native(c)
+        return [(i, int(row_to_col[i])) for i in range(n)]
 
     starred = np.zeros((n, n), dtype=bool)
     primed = np.zeros((n, n), dtype=bool)

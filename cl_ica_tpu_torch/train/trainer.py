@@ -7,8 +7,9 @@ JAX package scans n_log_steps such steps per device call; here the step
 is captured once as a CUDA graph and replayed (train/capture.py), and it
 returns its metrics as device tensors so the driver synchronises once per
 window, not per step. Nothing in the step reads a device value on the
-host: on CUDA the optimizer is ``capturable`` and the cosine schedule
-keeps its step count and learning rate on the device (``CosineLR``).
+host: on CUDA Adam is ``capturable``, SGD is the fused update, and the
+cosine schedule keeps its step count and learning rate on the device
+(``CosineLR``).
 """
 
 from __future__ import annotations
@@ -74,13 +75,17 @@ def make_optimizer(params, lr: float, weight_decay: float = 0.0,
     optax.chain(add_decayed_weights, sgd) -> SGD(weight_decay), which adds
     weight_decay·p to the gradient as that chain does. Adam and AdamW on
     CUDA parameters are ``capturable``: their step count and bias
-    corrections stay on the device.
+    corrections stay on the device. SGD is the fused update on every
+    device, p ← p − lr·(g + weight_decay·p) in one kernel that takes the
+    learning rate as a tensor: on CUDA it reads a CosineLR's lr on the
+    device, so an SGD step under a schedule can be captured too (the
+    foreach update reads a tensor lr on the host).
     """
     params = list(params)
     capturable = bool(params) and params[0].is_cuda
     kw = dict(lr=lr, betas=tuple(betas), eps=1e-8, capturable=capturable)
     if kind == "sgd":
-        opt = torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
+        opt = torch.optim.SGD(params, lr=lr, weight_decay=weight_decay, fused=True)
     elif kind != "adam":
         raise ValueError(f"kind must be 'adam' or 'sgd', got {kind!r}")
     elif weight_decay > 0:

@@ -254,6 +254,7 @@ def store_root(tmp_path_factory):
 @pytest.mark.parametrize("flags", [
     ["--fused-stem"], [], ["--dummy-mixing", "--lr-cosine"],
     ["--non-periodic-rotation-and-color", "--non-periodical-conditional", "l3"],
+    ["--optimizer", "sgd", "--lr-cosine", "--weight-decay", "0.01"],
 ], ids=lambda f: " ".join(f) or "default")
 def test_3dident_step_body_reads_nothing_on_the_host(flags, store_root, capsys):
     """main_3dident's unsupervised step on the device-store fixture:
@@ -268,8 +269,9 @@ def test_3dident_step_body_reads_nothing_on_the_host(flags, store_root, capsys):
         load_images=not args.dummy_mixing, device="cpu")
     model = main_3dident.build_encoder(args, n_non_ang + n_ang, n_non_ang,
                                        torch.Generator().manual_seed(0))
-    opt, sched = make_optimizer(model.parameters(), args.lr,
-                                cosine_steps=10 if args.lr_cosine else None)
+    opt, sched = make_optimizer(model.parameters(), args.lr, args.weight_decay,
+                                cosine_steps=10 if args.lr_cosine else None,
+                                kind=args.optimizer)
     mixing = None
     if args.dummy_mixing:
         mixing = main_mlp.construct_invertible_mlp(

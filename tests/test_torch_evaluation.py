@@ -1,10 +1,9 @@
 """cl_ica_tpu_torch.evaluation against cl_ica_tpu.evaluation.
 
-The port keeps its own copy of the evaluation code (numpy + scipy), so on
-the same seeded inputs the two give equal results, exactly: every
-comparison here is ``==`` on floats or arrays. The one deliberate
-difference is the Hungarian solver: the port has the Python solver for
-every n and no native route.
+The port keeps its own copy of the evaluation code (numpy + scipy) and of
+the native Hungarian solver, so on the same seeded inputs the two give
+equal results, exactly: every comparison here is ``==`` on floats or
+arrays. Both route n >= 20 to the C++ solver (each package's own build).
 """
 
 import inspect
@@ -72,15 +71,29 @@ def test_hungarian_is_equal_below_the_native_threshold(shape):
             == jax_eval.Munkres().compute(cost))
 
 
-def test_hungarian_takes_the_python_solver_for_every_n():
-    # the JAX package routes n >= 20 to its C++ solver when that is built;
-    # the port has one solver and no such argument
-    assert "prefer_native" not in inspect.signature(port_eval.hungarian).parameters
-    cost = np.random.default_rng(5).normal(size=(24, 24))
+@pytest.mark.parametrize("shape", [(20, 20), (24, 24), (21, 30), (40, 25),
+                                   (64, 64)])
+def test_hungarian_takes_the_native_solver_from_20_as_jax(shape):
+    """n >= 20 goes to the C++ solver in both packages, assignment for
+    assignment (the JAX library is built: the router would otherwise fall
+    back to its Python solver); prefer_native forces either route."""
+    from cl_ica_tpu.native import native_available
+
+    assert native_available()
+    assert (inspect.signature(port_eval.hungarian).parameters["prefer_native"].default
+            is None)
+    cost = np.random.default_rng(sum(shape)).normal(size=shape)
     got = port_eval.hungarian(cost)
-    assert got == jax_eval.hungarian(cost, prefer_native=False)
-    want_cost = sum(cost[r, c] for r, c in jax_eval.hungarian(cost))
-    assert sum(cost[r, c] for r, c in got) == pytest.approx(want_cost, abs=1e-9)
+    assert got == jax_eval.hungarian(cost) == jax_eval.hungarian(cost, prefer_native=True)
+    assert (port_eval.hungarian(cost, prefer_native=False)
+            == jax_eval.hungarian(cost, prefer_native=False))
+    want_cost = sum(cost[r, c] for r, c in jax_eval.hungarian(cost, prefer_native=False)
+                    if r < shape[0] and c < shape[1])
+    got_cost = sum(cost[r, c] for r, c in got if r < shape[0] and c < shape[1])
+    assert got_cost == pytest.approx(want_cost, abs=1e-9)
+    small = cost[:10, :10]
+    assert (port_eval.hungarian(small, prefer_native=True)
+            == jax_eval.hungarian(small, prefer_native=True))
 
 
 def test_hungarian_with_tied_costs_is_equal():

@@ -247,15 +247,52 @@ def test_scan_exits_where_the_jax_driver_does(argv, env, says, monkeypatch, caps
                              "unsupervised"])
 
 
-def test_scan_refuses_sgd_under_a_schedule(capsys):
-    """SGD takes a tensor learning rate only through a host read, which a
-    captured step cannot make: --scan exits instead of failing to capture."""
-    with pytest.raises(SystemExit, match="--scan: SGD"):
-        main_3dident.parse_args(["--offline-dataset", "x", "--scan", "--mode",
-                                 "unsupervised", "--optimizer", "sgd",
-                                 "--lr-cosine"])
-    main_3dident.parse_args(["--offline-dataset", "x", "--scan", "--mode",
-                             "unsupervised", "--optimizer", "sgd"])
+def test_scan_runs_sgd_under_a_schedule_as_eager_steps(fixtures, tmp_path, capsys):
+    """--scan --optimizer sgd --lr-cosine, as the JAX driver runs it (C8):
+    the fused SGD update reads the schedule's lr tensor on the device, so
+    the step is captured; on the CPU the same body runs eagerly, loss for
+    loss and weight for weight with the eager loop."""
+    argv = _argv(fixtures[True], "--mode", "unsupervised", "--iterations", "5",
+                 "--optimizer", "sgd", "--lr-cosine", "--lr", "0.05",
+                 "--weight-decay", "0.01")
+    runs = {}
+    for name, extra in (("eager", []), ("scan", ["--scan"])):
+        path = str(tmp_path / f"{name}.pt")
+        runs[name] = (main_3dident.main(argv + extra + ["--save-model", path],
+                                        device="cpu"),
+                      torch.load(path, weights_only=True))
+    (eager, a), (scan, b) = runs["eager"], runs["scan"]
+    assert len(scan["losses"]) == 5 and scan["losses"] == eager["losses"]
+    assert len(set(eager["losses"])) > 1
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.05])
+def test_sgd_under_a_cosine_schedule_matches_optax(weight_decay):
+    """make_optimizer(kind='sgd', cosine_steps=T) against the JAX driver's
+    optax.sgd(cosine_decay_schedule(lr, T)), chained after
+    add_decayed_weights under --weight-decay (cl_ica_tpu/cli/
+    main_3dident.py:583-599), past T: float32 parameters to 1e-6 relative
+    (the two round lr·(g + wd·p) in another order)."""
+    rng = np.random.default_rng(1)
+    w0 = rng.normal(size=(5, 3)).astype(np.float32)
+    grads = rng.normal(size=(7, 5, 3)).astype(np.float32)
+    schedule = optax.cosine_decay_schedule(0.1, 5)
+    tx = optax.sgd(schedule) if not weight_decay else optax.chain(
+        optax.add_decayed_weights(weight_decay), optax.sgd(schedule))
+    params = jnp.asarray(w0)
+    state = tx.init(params)
+    w = torch.nn.Parameter(torch.tensor(w0))
+    opt, sched = make_optimizer([w], 0.1, weight_decay, cosine_steps=5, kind="sgd")
+    assert opt.param_groups[0]["fused"]
+    for g in grads:
+        updates, state = tx.update(jnp.asarray(g), state, params)
+        params = optax.apply_updates(params, updates)
+        w.grad = torch.tensor(g)
+        opt.step()
+        sched.step()
+        np.testing.assert_allclose(w.detach().numpy(), np.asarray(params),
+                                   rtol=1e-6, atol=1e-7)
 
 
 def test_scan_with_a_store_over_the_device_budget_exits(fixtures, monkeypatch, capsys):
@@ -268,13 +305,41 @@ def test_scan_with_a_store_over_the_device_budget_exits(fixtures, monkeypatch, c
     assert data.BUDGET_ENV in str(err.value)
 
 
-def test_store_over_the_device_budget_exits_naming_item_and_variable(
+def test_store_over_the_device_budget_trains_on_the_host_path(
         fixtures, monkeypatch, capsys):
+    """A store beyond the budget stays on the host and the prefetch loader
+    serves it: with one worker the run is the device store's of the same
+    seed, loss for loss and in its evaluation; with three it trains."""
+    argv = _argv(fixtures[True], "--mode", "unsupervised", "--iterations", "4")
+    on_device = main_3dident.main(argv, device="cpu")
     monkeypatch.setenv(data.BUDGET_ENV, "1000")
-    with pytest.raises(SystemExit, match="A11b") as err:
-        main_3dident.main(_argv(fixtures[True], "--mode", "unsupervised"),
-                          device="cpu")
-    assert data.BUDGET_ENV in str(err.value)
+    on_host = main_3dident.main(argv + ["--workers", "1"], device="cpu")
+    assert (on_device["data_path"], on_host["data_path"]) == ("device-store",
+                                                              "host-prefetch")
+    assert on_device["loader"] is None
+    assert on_host["loader"]["workers"] == 1 and on_host["loader"]["slots"] == 3
+    assert len(on_host["losses"]) == 4 and on_host["losses"] == on_device["losses"]
+    assert (on_host["mcc"], on_host["lin"]) == (on_device["mcc"], on_device["lin"])
+    several = main_3dident.main(argv + ["--workers", "3"], device="cpu")
+    assert several["loader"]["workers"] == 3
+    assert len(several["losses"]) == 4 and np.all(np.isfinite(several["losses"]))
+    assert "host-prefetch: 3 workers, 5 pinned slots" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", ["supervised", "test"])
+def test_supervised_and_test_modes_run_over_the_device_budget(
+        mode, fixtures, monkeypatch, capsys):
+    """Their rows are gathered on the host as they are needed (the native
+    gather), the same renders as the device store's."""
+    argv = _argv(fixtures[True], "--mode", mode, "--iterations", "3")
+    on_device = main_3dident.main(argv, device="cpu")
+    monkeypatch.setenv(data.BUDGET_ENV, "1000")
+    on_host = main_3dident.main(argv, device="cpu")
+    assert on_host["data_path"] == "host-gather"
+    assert on_device["data_path"] == ("device-store" if mode == "supervised"
+                                      else "host-gather")
+    assert on_host["losses"] == on_device["losses"]
+    assert on_host["lin"] == on_device["lin"] and np.isfinite(on_host["lin"])
 
 
 def test_main_needs_cuda_unless_told_otherwise(fixtures, capsys):

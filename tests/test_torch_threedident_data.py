@@ -17,8 +17,8 @@ from cl_ica_tpu.ops.knn import l2_topk as jax_l2_topk
 from cl_ica_tpu.tools import make_synthetic_3dident as jax_tool
 from cl_ica_tpu_torch.data import (
     PackedImageStore,
+    PrefetchingPairLoader,
     SequentialThreeDIdent,
-    StoreOverBudget,
     ThreeDIdentBatchSampler,
     normalize_3dident,
     pack_images,
@@ -175,6 +175,9 @@ def test_normalisation_constants_are_the_jax_packages():
     ({"device_images": False}, None, False),
 ])
 def test_device_store_budget_rule(root, monkeypatch, kwargs, env, on_device):
+    """A store within the budget goes to the device; one beyond it stays on
+    the host (never uploaded), where its rows are gathered natively: the
+    same renders either way."""
     if env is None:
         monkeypatch.delenv(data.BUDGET_ENV, raising=False)
     else:
@@ -185,12 +188,10 @@ def test_device_store_budget_rule(root, monkeypatch, kwargs, env, on_device):
     want = jax_data.ThreeDIdentBatchSampler(root, _jax_latent_space(), 8, **kwargs)
     assert (sampler.device_store is not None) == on_device
     assert (want.device_store is not None) == on_device
-    if on_device or kwargs.get("device_images") is False:
-        sampler.require_device_store()
-    else:
-        with pytest.raises(StoreOverBudget, match="A11b") as err:
-            sampler.require_device_store()
-        assert data.BUDGET_ENV in str(err.value)
+    assert sampler.host_store == (not on_device)
+    idx = torch.tensor([5, 0, 47, 5])
+    packed = np.asarray(sampler.images._packed)
+    np.testing.assert_array_equal(sampler.images_of(idx).numpy(), packed[idx.numpy()])
 
 
 def _jax_latent_space(n=11):
@@ -224,6 +225,124 @@ def test_sequential_and_packed_store(root):
     store = PackedImageStore(root, N_POINTS)
     np.testing.assert_array_equal(store.gather(idx), x)
     assert SequentialThreeDIdent(root, load_images=False).batch(idx)[1] is None
+
+
+# ---------------------------------------------------------------------------
+# the host-prefetch loader
+# ---------------------------------------------------------------------------
+
+
+def _host_sampler(root, batch=8):
+    return ThreeDIdentBatchSampler(root, _latent_space(), batch, device_images=False)
+
+
+def _rows_of(sampler, z):
+    """The table rows whose latents are z's rows."""
+    hit = (sampler.latents[None] == z[:, None]).all(-1)
+    assert bool(hit.any(1).all())
+    return hit.float().argmax(1).numpy()
+
+
+def test_one_worker_gives_the_batches_of_sample_batch(root):
+    """Worker 0 draws from the generator it is given: with one worker the
+    loader's batches are ``sample_batch``'s (and, normalised, the device
+    store's ``sample_with_images``) from the same seed."""
+    sampler = _host_sampler(root)
+    on_device = ThreeDIdentBatchSampler(root, _latent_space(), 8)
+    loader = PrefetchingPairLoader(sampler, torch.Generator().manual_seed(3))
+    ref, ref_views = (torch.Generator().manual_seed(3) for _ in range(2))
+    try:
+        for _ in range(8):
+            (z, zt), (x, xt) = next(loader)
+            (wz, wzt), (wx, wxt) = sampler.sample_batch(ref)
+            (_, _), (vx, vxt) = on_device.sample_with_images(ref_views)
+            assert torch.equal(z, wz) and torch.equal(zt, wzt)
+            assert x.dtype == torch.uint8 and x.shape == (8, SIZE, SIZE, 3)
+            np.testing.assert_array_equal(x.numpy(), wx)
+            np.testing.assert_array_equal(xt.numpy(), wxt)
+            assert torch.equal(normalize_3dident(x), vx)
+            assert torch.equal(normalize_3dident(xt), vxt)
+    finally:
+        loader.close()
+    assert loader.slots == 3 and loader.pinned_bytes == 3 * 16 * SIZE * SIZE * 3
+
+
+def test_several_workers_give_distinct_batches(root):
+    """As the JAX loader (tests/test_data.py): independent worker streams,
+    each batch the renders of its own latents."""
+    sampler = _host_sampler(root)
+    loader = PrefetchingPairLoader(sampler, torch.Generator().manual_seed(0),
+                                   num_workers=3)
+    packed = np.asarray(sampler.images._packed)
+    seen = set()
+    try:
+        for _ in range(6):
+            (z, zt), (x, xt) = next(loader)
+            np.testing.assert_array_equal(x.numpy(), packed[_rows_of(sampler, z)])
+            np.testing.assert_array_equal(xt.numpy(), packed[_rows_of(sampler, zt)])
+            seen.add(float(z.sum()))
+    finally:
+        loader.close()
+    assert len(seen) == 6
+
+
+def test_close_stops_every_thread(root):
+    import threading
+
+    loader = PrefetchingPairLoader(_host_sampler(root),
+                                   torch.Generator().manual_seed(0), num_workers=4)
+    next(loader)
+    loader.close()
+    assert not any(t.is_alive() for t in loader._threads)
+    assert not [t for t in threading.enumerate() if t.name.startswith("prefetch-")]
+    with pytest.raises(StopIteration):
+        next(loader)
+
+
+def test_a_workers_failure_reaches_the_caller(root, monkeypatch):
+    sampler = _host_sampler(root)
+
+    def broken(generator):
+        raise ValueError("no latents today")
+
+    monkeypatch.setattr(sampler, "sample_latent_batch", broken)
+    loader = PrefetchingPairLoader(sampler, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="prefetch worker failed") as err:
+        next(loader)
+    assert isinstance(err.value.__cause__, ValueError)
+    loader.close()
+
+
+def test_the_loader_serves_only_a_host_store(root):
+    with pytest.raises(ValueError, match="on the host"):
+        PrefetchingPairLoader(ThreeDIdentBatchSampler(root, _latent_space(), 8),
+                              torch.Generator())
+
+
+def test_many_workers_under_fast_thread_switches(root):
+    """More workers than cores, a thread switch every microsecond: every
+    batch is still the renders of its latents, and no more batches wait
+    than there are slots."""
+    import sys
+
+    sampler = _host_sampler(root, batch=4)
+    packed = np.asarray(sampler.images._packed)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        loader = PrefetchingPairLoader(sampler, torch.Generator().manual_seed(1),
+                                       depth=1, num_workers=(os.cpu_count() or 1) + 4)
+        try:
+            for _ in range(40):
+                (z, zt), (x, xt) = next(loader)
+                np.testing.assert_array_equal(x.numpy(), packed[_rows_of(sampler, z)])
+                np.testing.assert_array_equal(xt.numpy(),
+                                              packed[_rows_of(sampler, zt)])
+        finally:
+            loader.close()
+    finally:
+        sys.setswitchinterval(interval)
+    assert loader.peak_ready <= loader.slots == loader.num_workers + 1
 
 
 def test_pack_images_equals_the_jax_packages_pack(tmp_path):

@@ -23,7 +23,11 @@ kernels) or fast (the plain norm under autograd) picks main_3dident's
 norm; --fused-stem takes the stem tail through the ops.stem kernels (and
 the other norms through 'fast', as main_3dident forces), --bf16 computes
 the backbone in bfloat16, --tf32 lets float32 convolutions and products
-use TF32.
+use TF32. --over-budget traces the same step fed from the store kept on
+the host, as a store beyond the device budget is, through
+PrefetchingPairLoader at each of --workers (a comma list, 0 = one a
+core), beside the step fed from the store uploaded to the device: wall
+ms a step, the device's busy share and peak memory of each.
 
 With --kitti it does the same for main_kitti's default step (ConvEncoder64,
 batch 64 = 32 pairs, z_dim 10, p = 1, the corpus on the device), on the
@@ -41,7 +45,7 @@ launches, and a trace of the replays (device time by kernel, busy share).
 
 Usage: python3 tools/profile_torch_step.py [--box | --p 0] [--steps N]
        python3 tools/profile_torch_step.py --3dident [--norm-kind {minres,fast}]
-               [--fused-stem] [--bf16]
+               [--fused-stem] [--bf16] [--over-budget [--workers 1,4,0]]
        python3 tools/profile_torch_step.py --kitti [--augment] [--fixture DIR]
 Prints the card's name and power limit beside every number.
 """
@@ -62,7 +66,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cl_ica_tpu_torch.cli import kitti_solver, main_3dident, main_kitti, main_mlp  # noqa: E402
-from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, kitti, normalize_3dident  # noqa: E402
+from cl_ica_tpu_torch.data import (  # noqa: E402
+    PrefetchingPairLoader,
+    ThreeDIdentBatchSampler,
+    kitti,
+    normalize_3dident,
+)
 from cl_ica_tpu_torch.models import construct_invertible_mlp, get_mlp  # noqa: E402
 from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: E402
 from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti  # noqa: E402
@@ -208,6 +217,7 @@ def profile_3dident(cli, card: str) -> None:
     args = main_3dident.parse_args(argv)
     latent_space, n_non_ang, n_ang = main_3dident.setup_latent_space(args)
     sampler = ThreeDIdentBatchSampler(root, latent_space, args.batch_size,
+                                      device_images=True if cli.over_budget else None,
                                       device="cuda")
     model = main_3dident.build_encoder(
         args, n_non_ang + n_ang, n_non_ang,
@@ -222,6 +232,35 @@ def profile_3dident(cli, card: str) -> None:
 
     def step():
         return main_3dident.train_step(model, loss, opt, None, sampler, gen)
+
+    if cli.over_budget:
+        host = ThreeDIdentBatchSampler(root, latent_space, args.batch_size,
+                                       device_images=False, device="cuda")
+        size = host.images._packed.nbytes
+        print(f"[over budget] store of {host.images._packed.shape[0]} renders, "
+              f"{size} bytes ({size / 2**30:.2f} GiB) under {root}")
+        for workers in [None] + [int(w) for w in cli.workers.split(",")]:
+            label = ("device store" if workers is None else
+                     f"host store, --workers {workers or os.cpu_count()}")
+            loader = None if workers is None else PrefetchingPairLoader(
+                host, gen, num_workers=workers or os.cpu_count())
+            batches = sampler if loader is None else loader
+            try:
+                def fed():
+                    return main_3dident.train_step(model, loss, opt, None, batches, gen)
+
+                for _ in range(3):
+                    fed()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                trace(fed, cli.steps, f"{tag}, {label}", card)
+                print(f"[over budget] {tag}, {label}: peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+                      f"{card}")
+            finally:
+                if loader is not None:
+                    loader.close()
+        return
 
     captured(step, [gen], cli.steps, tag, card)
     for _ in range(3):
@@ -375,6 +414,12 @@ def main() -> int:
     ap.add_argument("--fixture", default=None,
                     help="an existing 3DIdent fixture folder (224x224), or "
                          "with --kitti a KITTI corpus folder")
+    ap.add_argument("--over-budget", action="store_true",
+                    help="with --3dident: the step fed from the store kept on "
+                         "the host beside the one fed from the device store")
+    ap.add_argument("--workers", default="1,4,0",
+                    help="with --over-budget: the loader's worker counts, a "
+                         "comma list (0 = one a core)")
     ap.add_argument("--steps", type=int, default=None,
                     help="default 30, 10 with --3dident, 100 with --kitti")
     cli = ap.parse_args()
