@@ -117,9 +117,27 @@ use) and no network, and it exits non-zero on any failure. Phases:
              slots), --mode supervised and --mode test over budget; 10e
              pairs/s and peak GiB of the device store against the host path
              at --workers 1, 4 and 0, in turns, float32 and --bf16
+ 11 mesh     the data-parallel mesh (--mesh N, parallel/). The script needs
+             one GPU, and NCCL takes one rank a device, so: 11a world
+             size 1 over NCCL in a spawned rank on cuda:0, every collective
+             called: main_mlp's box p=1 and p=0 lanes at full width (n=10,
+             B=6144) and main_3dident's default minres step (ResNet18,
+             B=512, phase 6's fixture), each against a lane of the same
+             seed taking the eager single-device step, outputs, parameters
+             and buffers bit for bit (cudnn.deterministic), with the launch
+             counters of the mesh steps (loss kernels once a step, the bn
+             kernels 20 times); 11b two gloo ranks on cuda:0 (the parallel
+             API's backend and rank-to-device map, no driver flag):
+             main_mlp --mesh 2 for 20 steps at B=6144 (each rank's Lp
+             kernels at (3072, 6144)) and main_3dident --mesh 2 for 5 steps
+             at B=512, against the one-device run of the seed (step 1 within
+             1e-5, then finite and falling); 11c the Lp (p=1, 2) and dot
+             kernels at a rank's (B/W, B) block for W = 2, 4, 8 against
+             their plain versions at phase 2's bars, with device ms and
+             bounds (the kernels line's "rect")
 
 ``--only a,b`` runs a subset of {mlp, stem, bn, 3dident, times, kitti,
-capture, prefetch} (the build
+capture, prefetch, mesh} (the build
 always runs) for a short look at one part. Such a run is no pass: it
 prints {"ok": false, "partial": [...]} and exits 1; the kernels line and
 the ok line are printed by the full run only.
@@ -150,7 +168,7 @@ import torch
 import torch.nn.functional as F
 
 from cl_ica_tpu_torch.cli import kitti_solver, main_3dident, main_kitti, main_mlp
-from cl_ica_tpu_torch import native
+from cl_ica_tpu_torch import native, parallel
 from cl_ica_tpu_torch.data import (
     PrefetchingPairLoader,
     ThreeDIdentBatchSampler,
@@ -2435,14 +2453,248 @@ def phase_prefetch(smi: str) -> dict:
     return {k: grew_h[k] for k in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the data-parallel mesh (--mesh N, parallel/)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3       # 11a: steps held bit for bit
+MESH_MLP_STEPS = 20  # 11b: main_mlp --mesh 2's steps
+MESH_3D_STEPS = 5    # 11b: main_3dident --mesh 2's steps
+MESH_WORLDS = (2, 4, 8)  # 11c: the rectangular kernels at (B/W, B)
+
+
+def _params_equal(a, b) -> tuple[int, int]:
+    pairs = list(zip(a, b))
+    return sum(torch.equal(x, y) for x, y in pairs), len(pairs)
+
+
+def _mesh_w1_rank(device) -> dict:
+    """11a, as the one rank of an NCCL group on cuda:0: each lane twice from
+    seed 0, one with the single-device eager step, one with the mesh step
+    at world size 1 (every collective called), MESH_STEPS steps each; their
+    outputs and tensors, and the mesh steps' launch counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    mesh = parallel.make_mesh(1, device)
+    out = {"backend": torch.distributed.get_backend()}
+    for config in ("box", "simclr"):
+        args = main_mlp.parse_args(CONFIGS[config])
+        lanes = [main_mlp.Lane(args, 0, device,
+                               main_mlp.build_latent_space(args, device),
+                               main_mlp.make_loss(args), m) for m in (None, mesh)]
+        for lane in lanes:
+            lane.start_phase(False, args.n_steps)
+        want = torch.stack([_eager(lanes[0].step) for _ in range(MESH_STEPS)])
+        infonce.reset_launch_counts()
+        got = torch.stack([lanes[1].step() for _ in range(MESH_STEPS)])
+        torch.cuda.synchronize()
+        out[config] = {"outputs_equal": torch.equal(got, want),
+                       "max_diff": float((got - want).abs().max()),
+                       "tensors": _params_equal(lanes[0].f.parameters(),
+                                                lanes[1].f.parameters()),
+                       "launches": infonce.launch_counts()}
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    space, na, n_ang = main_3dident.setup_latent_space(args)
+    sampler = ThreeDIdentBatchSampler(FIXTURE, space, 512, device=device)
+
+    def lane(wrap=None):
+        model = main_3dident.build_encoder(
+            args, na + n_ang, na, torch.Generator().manual_seed(0)).to(device).train()
+        opt, sched = make_optimizer(model.parameters(), args.lr, kind=args.optimizer)
+        loss = main_3dident.build_split_loss(args, na, wrap=wrap)
+        return model, opt, sched, loss, torch.Generator(device=device).manual_seed(0)
+
+    model, opt, sched, loss, gen = lane()
+    want = torch.stack([torch.stack(main_3dident.train_step(
+        model, loss, opt, sched, sampler, gen)) for _ in range(MESH_STEPS)])
+    model2, opt2, sched2, loss2, gen2 = lane(
+        functools.partial(parallel.gspmd_safe_loss, mesh))
+    step = parallel.make_sharded_3dident_train_step(mesh, model2, loss2, opt2, sched2)
+    rows = parallel.data_rows(0, 1, 512)
+    infonce.reset_launch_counts()
+    got = torch.stack([torch.stack(step(*main_3dident.draw_rank_views(
+        sampler, gen2, rows)[1::2])) for _ in range(MESH_STEPS)])
+    torch.cuda.synchronize()
+    out["3dident"] = {"outputs_equal": torch.equal(got, want),
+                      "max_diff": float((got - want).abs().max()),
+                      "tensors": _params_equal(
+                          list(model.parameters()) + list(model.buffers()),
+                          list(model2.parameters()) + list(model2.buffers())),
+                      "launches": infonce.launch_counts()}
+    return out
+
+
+def _hold_mesh_w1() -> dict:
+    """11a: world size 1 through NCCL, bit for bit against the eager step."""
+    t0 = time.perf_counter()
+    got = parallel.launch(_mesh_w1_rank, 1, device="cuda")
+    launches = {k: 0 for k in KERNELS}
+    per_step = {"box": {k: 1 for k in LP}, "simclr": {k: 1 for k in DOT},
+                "3dident": {**{k: 1 for k in LP + DOT},
+                            **{k: BN_NORMS_A_STEP for k in BN}}}
+    for tag, want in per_step.items():
+        r = got[tag]
+        grew = {k: v for k, v in r["launches"].items() if v}
+        print(f"[11 mesh] 11a {tag}: world size 1 over {got['backend']}, "
+              f"{MESH_STEPS} steps against the eager single-device step from "
+              f"seed 0: outputs {'bit-equal' if r['outputs_equal'] else 'DIFFER'} "
+              f"(max |diff| {r['max_diff']:.3e}); {r['tensors'][0]} of "
+              f"{r['tensors'][1]} parameter (and buffer) tensors bit-equal; "
+              f"launches {grew}")
+        expected = {k: MESH_STEPS * v for k, v in want.items()}
+        if grew != expected:
+            raise AssertionError(f"11a {tag}: launches {grew}, expected {expected}")
+        if (got["backend"] != "nccl" or not r["outputs_equal"]
+                or r["tensors"][0] != r["tensors"][1]):
+            raise AssertionError(f"11a {tag}: the mesh step differs from the "
+                                 f"single-device step: {r}")
+        for k, v in r["launches"].items():
+            launches[k] += v
+    print(f"[11 mesh] 11a {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _mesh_mlp_argv(save_dir: str) -> list:
+    return BOX[:BOX.index("--n-steps")] + [
+        "--n-steps", str(MESH_MLP_STEPS), "--more-unsupervised", "1",
+        "--n-log-steps", "5", "--num-eval-batches", "1", "--seed", "0",
+        "--save-dir", save_dir]
+
+
+def _falling(losses: list) -> bool:
+    k = max(1, len(losses) // 4)
+    return (all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-k:]) < np.mean(losses[:k]))
+
+
+def _hold_mesh_two_ranks() -> None:
+    """11b: two gloo ranks on the one card (both on cuda:0, the gloo
+    collectives staging CUDA tensors through the host), main_mlp and
+    main_3dident each with --mesh 2 through the parallel API's launcher,
+    against the single-device run of the same seed."""
+    t0 = time.perf_counter()
+    run_dir = os.path.join(OUT_DIR, "11_mesh")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    two = dict(backend="gloo", devices=["cuda:0", "cuda:0"])
+    # log.csv's loss at each logged step (the phase's last step is logged
+    # twice: after its window and by the final evaluation)
+    logged = lambda d: list({int(r["step"]): float(r["loss"]) for r in
+                             csv.DictReader(open(os.path.join(d, "log.csv")))}.values())
+    one_dir, mesh_dir = os.path.join(run_dir, "mlp_one"), os.path.join(run_dir, "mlp_two")
+    main_mlp.main(_mesh_mlp_argv(one_dir), device="cuda")
+    t1 = time.perf_counter()
+    parallel.launch(main_mlp.main, 2, args=(_mesh_mlp_argv(mesh_dir) + ["--mesh", "2"],),
+                    device="cuda", **two)
+    mesh_s = time.perf_counter() - t1
+    want, got = logged(one_dir), logged(mesh_dir)
+    first = abs(got[0] - want[0]) / abs(want[0])
+    print(f"[11 mesh] 11b main_mlp box p=1 --mesh 2, two gloo ranks on cuda:0, "
+          f"B={BATCH} (each rank's Lp kernels at ({BATCH // 2}, {BATCH}, "
+          f"{N_FEAT})), {MESH_MLP_STEPS} steps in {mesh_s:.1f} s: step 1 loss "
+          f"{got[0]:.7f} vs one device {want[0]:.7f} (rel {first:.2e}); losses "
+          f"at steps 1, 6, 11, 16, 20: {[round(x, 6) for x in got]}; one "
+          f"device's {[round(x, 6) for x in want]}")
+    if len(got) != len(want) or first > 1e-5 or not _falling(got):
+        raise AssertionError(f"11b main_mlp: {got} vs {want}")
+
+    argv = _RUN3D + ["--mode", "unsupervised", "--iterations", str(MESH_3D_STEPS),
+                     "--n-log-steps", "100", "--n-eval-samples", "1024"]
+    one = main_3dident.main(argv, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' two halves of the batch need the card
+    t1 = time.perf_counter()
+    mesh = parallel.launch(main_3dident.main, 2, args=(argv + ["--mesh", "2"],),
+                           device="cuda", **two)
+    mesh_s = time.perf_counter() - t1
+    first = abs(mesh["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    print(f"[11 mesh] 11b main_3dident --mesh 2 (minres), two gloo ranks on "
+          f"cuda:0, B=512 (each rank one forward of 512 images; Lp and dot "
+          f"kernels at (256, 512)), {len(mesh['losses'])} steps in {mesh_s:.1f} s: "
+          f"losses {[round(x, 6) for x in mesh['losses']]} vs one device "
+          f"{[round(x, 6) for x in one['losses']]} (step 1 rel {first:.2e}); "
+          f"MCC {mesh['mcc']:.4f} / {one['mcc']:.4f}")
+    if (len(mesh["losses"]) != MESH_3D_STEPS or first > 1e-5
+            or not _falling(mesh["losses"])):
+        raise AssertionError(f"11b main_3dident: {mesh['losses']} vs {one['losses']}")
+    print(f"[11 mesh] 11b {time.perf_counter() - t0:.1f} s")
+
+
+def _time_rect(impl, m: int, n_rows: int, n_feat: int = N_FEAT) -> dict:
+    """Device ms (_graph_ms) of the forward and each gradient alone of
+    impl(z1, z3) at (m, n_rows), as _time_loss does for a square call."""
+    rng = np.random.default_rng(1)
+    z1, z3 = _pair(m, n_rows, rng, n_feat)
+    ct = torch.ones(m, device="cuda")
+    a = torch.tensor(z1, device="cuda")
+    b = torch.tensor(z3, device="cuda")
+    out = {"fwd": _graph_ms(lambda: impl(a, b))}
+    for k, (g1, g3) in (("dz1", (True, False)), ("dz3", (False, True))):
+        a = torch.tensor(z1, device="cuda", requires_grad=g1)
+        b = torch.tensor(z3, device="cuda", requires_grad=g3)
+        wrt = a if g1 else b
+        held = {}
+
+        def forward():
+            held["lse"] = impl(a, b)
+
+        out[k] = _graph_ms(
+            lambda: torch.autograd.grad(held["lse"], wrt, ct, retain_graph=True),
+            prepare=forward)
+    return out
+
+
+def _rect_kernels(worst: dict, smi: str) -> dict:
+    """11c: the loss kernels at a rank's rectangular (B/W, B) block against
+    their plain versions at the phase 2 bars, and their device ms beside
+    the plain versions' and the bound."""
+    rng = np.random.default_rng(11)
+    rect = {}
+    for p, label in ((1.0, "p=1"), (2.0, "p=2"), (0.0, "p=0")):
+        kernel, plain, _ = _loss_cases(p, TAU)
+        names = DOT if p == 0 else LP
+        for world in MESH_WORLDS:
+            m = BATCH // world
+            z1, z3 = _pair(m, BATCH, rng)
+            ct = _cotangent(m, rng)
+            got = _value_and_grads(kernel, z1, z3, ct)
+            want = _value_and_grads(plain, z1, z3, ct)
+            _hold(f"11c {label} ({m}, {BATCH}, {N_FEAT})", names, got, want, worst)
+            kern, pl = _time_rect(kernel, m, BATCH), _time_rect(plain, m, BATCH)
+            bounds = _bounds(m, BATCH, N_FEAT)
+            for key, k in zip(names, ("fwd", "dz1", "dz3")):
+                rect.setdefault(key, {}).setdefault(label, {})[f"W={world}"] = {
+                    "shape": [m, BATCH, N_FEAT], "ms": kern[k], "plain_ms": pl[k],
+                    "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+            _say_time(f"[11 times] 11c {label} at ({m}, {BATCH}, {N_FEAT}) (W={world}) "
+                      "kernel / plain ms: " + ", ".join(
+                          f"{k} {kern[k]:.4f} / {pl[k]:.4f} (bound {bounds[k][0]:.4f})"
+                          for k in ("fwd", "dz1", "dz3")) + f"; on {smi}")
+    return rect
+
+
+def phase_mesh(worst: dict, smi: str) -> tuple[dict, dict]:
+    """Phase 11: world size 1 over NCCL, two gloo ranks on the card, and the
+    rectangular loss kernels. Returns the 11a launches and 11c's times."""
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(FIXTURE, "raw_latents.npy")):
+        phase_fixture()
+    launches = _hold_mesh_w1()
+    _hold_mesh_two_ranks()
+    rect = _rect_kernels(worst, smi)
+    print(f"[11 mesh] {time.perf_counter() - t0:.1f} s")
+    return launches, rect
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma-separated subset of mlp,stem,bn,3dident,times,"
-                         "kitti,capture,prefetch")
+                         "kitti,capture,prefetch,mesh")
     only = set(filter(None, ap.parse_args().only.split(",")))
     unknown = only - {"mlp", "stem", "bn", "3dident", "times", "kitti", "capture",
-                      "prefetch"}
+                      "prefetch", "mesh"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown --only parts {sorted(unknown)}")
     run = lambda part: not only or part in only
@@ -2479,6 +2731,10 @@ def main() -> int:
         phase_capture(smi)
     if run("prefetch"):
         for k, v in phase_prefetch(smi).items():
+            launches[k] += v
+    if run("mesh"):
+        grew, rect = phase_mesh(worst, smi)
+        for k, v in grew.items():
             launches[k] += v
     if only:
         print(json.dumps({"ok": False, "partial": sorted(only)}))
@@ -2552,6 +2808,8 @@ def main() -> int:
             entry.update({"shape_3dident": [m, m, n_feat], "ms_3dident": kern3[k],
                           "plain_ms_3dident": plain3[k], "bound_ms_3dident": bound3[0],
                           "bound_by_3dident": bound3[1], "library_ms_3dident": lib3[k]})
+            # a rank's rectangular block under --mesh W (phase 11c)
+            entry["rect"] = rect[key]
             if key in LP:
                 # main_kitti's step (phase 8a's shape, p = 1, tau = 1)
                 kernk, plaink, libk = times_kitti

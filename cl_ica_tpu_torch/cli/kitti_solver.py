@@ -25,6 +25,12 @@ initialisation on the CPU, so a seed gives the same weights on every
 device). ``Solver`` drives one lane; ``EnsembleSolver``
 drives N lanes in lockstep, where the JAX package vmaps them, so lane i
 repeats a serial run with seed i exactly, not only up to reassociation.
+
+Under a data-parallel ``mesh`` (parallel/; one lane) every rank draws and
+augments the global batch from the lane's generator, keeps its rows
+(``data_rows``) and takes parallel.make_sharded_data_train_step's step,
+eagerly; rank 0 alone writes the logs and checkpoints, and every rank
+resumes from them.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from . import fused_arg
 from ..data.kitti import KittiDeviceSampler, KittiMasks, augment_mask_pairs_fast
 from ..losses import LpSimCLRLoss
 from ..models import ConvEncoder64
+from ..parallel import data_rows, make_sharded_data_train_step
 from ..train import CapturedStep, make_optimizer
 
 NUMBERED_EVERY = 50000  # a numbered checkpoint every this many steps
@@ -135,7 +142,7 @@ class EnsembleSolver:
     checkpoints) and repeats it exactly."""
 
     def __init__(self, args, dataset: KittiMasks, seeds, out_dirs, ckpt_dirs,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if not len(seeds) == len(out_dirs) == len(ckpt_dirs) >= 1:
             raise ValueError("one output and one checkpoint directory a seed")
         self.seeds, self.out_dirs, self.ckpt_dirs = (list(seeds), list(out_dirs),
@@ -148,17 +155,38 @@ class EnsembleSolver:
         self.augment = dataset.use_augmentation
         self.lanes = [KittiLane(args, s, self.device, self.max_iter) for s in self.seeds]
         self.sampler = KittiDeviceSampler(dataset, self.device)
-        self.steps = [CapturedStep(
-            functools.partial(lane.step, self.batch_pairs, self.augment, self.sampler),
-            [lane.generator], self.device) for lane in self.lanes]
+        self.mesh, self.lead = mesh, mesh is None or mesh.lead
+        if mesh is None:
+            self.steps = [CapturedStep(
+                functools.partial(lane.step, self.batch_pairs, self.augment,
+                                  self.sampler),
+                [lane.generator], self.device) for lane in self.lanes]
+        else:
+            self.steps = [self._mesh_step(lane, mesh) for lane in self.lanes]
         if args.resume:
             self.load_checkpoint(args.ckpt_name)
+
+    def _mesh_step(self, lane: KittiLane, mesh):
+        """The lane's step over the mesh: the global batch drawn (and
+        augmented) as one device draws it, the rank's rows encoded."""
+        rows = data_rows(mesh.rank, mesh.world, self.batch_pairs)
+        body = make_sharded_data_train_step(mesh, lane.net, lane.loss,
+                                            lane.optimizer, lane.scheduler)
+
+        def step():
+            x1, x2 = sample_inputs(self.sampler, lane.generator,
+                                   self.batch_pairs, self.augment)
+            return torch.stack(body(x1[rows], x2[rows]))
+
+        return step
 
     # -- checkpoints -------------------------------------------------------
 
     def save_checkpoint(self, filename: str) -> None:
         """Each lane's checkpoint as ckpt_dir/filename, written under a
-        temporary name and replaced into place."""
+        temporary name and replaced into place (rank 0's, under a mesh)."""
+        if not self.lead:
+            return
         for lane, d in zip(self.lanes, self.ckpt_dirs):
             path = os.path.join(d, filename)
             torch.save(lane.checkpoint(self.global_iter), path + ".tmp")
@@ -181,7 +209,8 @@ class EnsembleSolver:
                 "delete the checkpoints")
         for lane, ckpt, step in zip(self.lanes, ckpts, self.steps):
             lane.restore(ckpt)
-            step.reset()  # the optimizer's state tensors were replaced
+            if self.mesh is None:
+                step.reset()  # the optimizer's state tensors were replaced
         self.global_iter = iters[0]
         print(f"=> loaded checkpoint '{filename}' of {len(paths)} lane(s) "
               f"(iter {self.global_iter})")
@@ -197,7 +226,7 @@ class EnsembleSolver:
         log or checkpoint boundary. A non-finite loss or norm raises
         FloatingPointError there."""
         files = []
-        for d in self.out_dirs:
+        for d in self.out_dirs if self.lead else ():
             # append for resumed runs; the header only in a fresh file
             log = open(os.path.join(d, "log.csv"), "a", 1)
             nlog = open(os.path.join(d, "norms.csv"), "a", 1)
@@ -254,9 +283,9 @@ class EnsembleSolver:
 class Solver(EnsembleSolver):
     """One seed's run: args.seed, args.output_dir, args.ckpt_dir."""
 
-    def __init__(self, args, dataset: KittiMasks, device="cuda"):
+    def __init__(self, args, dataset: KittiMasks, device="cuda", mesh=None):
         super().__init__(args, dataset, [args.seed], [args.output_dir],
-                         [args.ckpt_dir], device)
+                         [args.ckpt_dir], device, mesh)
 
     @property
     def net(self) -> ConvEncoder64:

@@ -29,6 +29,17 @@ JAX package scans the steps of each segment (train/capture.py).
 optimizer, scheduler, generators, step, loss history), so a resumed run
 repeats the uninterrupted one step for step.
 
+``--mesh N`` trains data-parallel over N ranks (parallel/; rank r on
+cuda:r over NCCL, or gloo with device="cpu"), in all three modes. Every
+rank keeps the image store on the path one device uses (on the device
+within the budget, else the host-prefetch loader, which then gathers the
+rank's rows only); each draws and matches the global batch of pairs from
+the same seed, gathers the renders of its B/N pairs, encodes its 2B/N
+images in one forward with the norms' statistics over all ranks, and
+takes the split loss against the global negatives. Rank 0 alone
+evaluates, prints, logs and saves; every rank resumes from its files.
+--mode test is rank 0's evaluation.
+
 The run is on CUDA: ``main(argv, device=None)`` resolves to "cuda" and
 raises when there is none; the CPU is used only when a caller passes
 device="cpu" explicitly. Flags whose machinery is not ported exit with
@@ -41,12 +52,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import os
 import sys
 from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -63,6 +76,14 @@ from ..losses import LpSimCLRLoss, R2Loss, SimCLRLoss
 from ..models import construct_invertible_mlp, get_mlp
 from ..models.layers import RescaleLayer, SoftclipLayer
 from ..models.resnet import ResNet18, ResNet50, ResNet101, ResNet152, lecun_normal_
+from ..parallel import (
+    data_rows,
+    gspmd_safe_loss,
+    make_mesh,
+    make_sharded_3dident_sup_step,
+    make_sharded_3dident_train_step,
+    run_mesh,
+)
 from ..spaces import LatentSpace, NBoxSpace, NSphereSpace, ProductLatentSpace
 from ..train import (
     CapturedStep,
@@ -180,11 +201,13 @@ def parse_args(argv=None):
                         help="Write structured metrics (log.csv + args.json) "
                              "into this directory.")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="Data-parallel over N devices (not ported "
-                             "yet: ROADMAP A13).")
+                        help="Train data-parallel over N ranks, one a GPU: "
+                             "each encodes its rows of the batch, negatives "
+                             "and batch statistics global. 0/1 = single "
+                             "device.")
     parser.add_argument("--mesh-model", type=int, default=0,
                         help="Tensor-parallel axis of the mesh (not "
-                             "ported yet: ROADMAP A13).")
+                             "ported yet: ROADMAP A13b).")
     parser.add_argument("--lr-cosine", action="store_true",
                         help="cosine-decay the learning rate to 0 over "
                              "--iterations (default: constant lr)")
@@ -220,6 +243,18 @@ def parse_args(argv=None):
                 f"--mesh {args.mesh} must be divisible by "
                 f"--mesh-model {args.mesh_model} (2-D data x model mesh)"
             )
+    if args.mesh and args.mesh > 1:
+        if args.dummy_mixing or args.identity_mixing_and_solution:
+            raise SystemExit(
+                "--mesh is incompatible with --dummy-mixing/"
+                "--identity-mixing-and-solution: there is no image store to "
+                "shard, so the run would silently stay single-device")
+        n_data = (args.mesh // args.mesh_model
+                  if args.mesh_model and args.mesh_model > 1 else args.mesh)
+        if args.batch_size % n_data:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be divisible by "
+                f"the mesh's data axis ({n_data}; row-sharded batches)")
     if args.scan:
         if args.mode != "unsupervised":
             raise SystemExit("--scan fuses unsupervised train steps; "
@@ -257,8 +292,8 @@ def parse_args(argv=None):
 def refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on a flag this port does not run yet."""
     unported = [
-        ((args.mesh and args.mesh > 1) or (args.mesh_model and args.mesh_model > 1),
-         "--mesh/--mesh-model (multi-GPU data parallelism)", "A13"),
+        (args.mesh_model and args.mesh_model > 1,
+         "--mesh-model (tensor parallelism)", "A13b"),
         (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
         (args.norm_kind == "minres8",
          "--norm-kind minres8 (float8 norm residuals)", "A14"),
@@ -451,10 +486,12 @@ class ThreeDIdentEncoder(nn.Module):
                          dim=1)
 
 
-def build_split_loss(args, n_non_angular, use_fused=None):
+def build_split_loss(args, n_non_angular, use_fused=None, wrap=None):
     """Split InfoNCE: Lp on the non-angular + SimCLR on the angular
     columns. use_fused: None = auto (the kernels on CUDA), True/False
-    forced (--fused-loss/--no-fused-loss)."""
+    forced (--fused-loss/--no-fused-loss). ``wrap`` maps each member loss
+    to what is called in its place (under --mesh,
+    ``functools.partial(parallel.gspmd_safe_loss, mesh)``)."""
     spherical = SimCLRLoss(normalize=False, tau=1.0, use_fused=use_fused)
     if args.unsupervised_loss == "vmf":
         nonspherical = SimCLRLoss(normalize=True, tau=1.0, use_fused=use_fused)
@@ -462,6 +499,8 @@ def build_split_loss(args, n_non_angular, use_fused=None):
         p = {"l1": 1, "l2": 2, "l3": 3}[args.unsupervised_loss]
         nonspherical = LpSimCLRLoss(p=p, tau=1.0, simclr_compatibility_mode=True,
                                     pow=True, use_fused=use_fused)
+    if wrap is not None:
+        spherical, nonspherical = wrap(spherical), wrap(nonspherical)
 
     def split(z1r, z2r, z3r):
         na = n_non_angular
@@ -555,6 +594,22 @@ def draw_views(sampler, generator, mixing=None):
     return z, mixing(z), zt, mixing(zt)
 
 
+@torch.no_grad()
+def draw_rank_views(sampler, generator, rows: slice):
+    """(z, x, z̃, x̃) of a rank's rows of one training batch under --mesh:
+    the whole batch drawn and matched as ``draw_views`` draws it (so every
+    rank, seeded alike, draws the same batch), the renders of these rows
+    alone gathered and normalised. A ``PrefetchingPairLoader`` made with
+    ``rows`` hands out these rows itself."""
+    if isinstance(sampler, PrefetchingPairLoader):
+        (z, zt), (x, xt) = next(sampler)
+        return z, normalize_3dident(x), zt, normalize_3dident(xt)
+    idx_z, idx_zt, z, zt = sampler.sample_latent_batch(generator)
+    x = normalize_3dident(sampler.images_of(idx_z[rows]))
+    xt = normalize_3dident(sampler.images_of(idx_zt[rows]))
+    return z[rows], x, zt[rows], xt
+
+
 def update(optimizer, scheduler, total):
     optimizer.zero_grad(set_to_none=True)
     total.backward()
@@ -612,6 +667,8 @@ def main(argv=None, device=None):
     flag for reduced precision)."""
     args = parse_args(argv)
     refuse_unported(args)
+    if args.mesh and args.mesh > 1 and not dist.is_initialized():
+        return run_mesh(main, argv, args.mesh, device)
     device = resolve_device(device)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -630,9 +687,16 @@ def _run(args, device):
 
 def _experiment(args, device, closing: contextlib.ExitStack):
     assert os.path.exists(args.offline_dataset)
+    # under --mesh this process is one rank of the group run_mesh started
+    mesh = (make_mesh(args.mesh, device)
+            if args.mesh and args.mesh > 1 else None)
+    lead = mesh is None or mesh.lead
+    rows = None if mesh is None else data_rows(mesh.rank, mesh.world,
+                                               args.batch_size)
     print("Using dataset:", args.offline_dataset)
-    logger = MetricsLogger(log_dir=args.log_dir, print_to_stdout=False)
-    if args.log_dir:
+    logger = MetricsLogger(log_dir=args.log_dir if lead else None,
+                           print_to_stdout=False)
+    if args.log_dir and lead:
         logger.log_args(vars(args))
 
     latent_space, n_non_ang, n_ang = setup_latent_space(args)
@@ -692,8 +756,9 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         print("Model loaded:", args.load_model)
 
     def save_model(path):
-        torch.save(model.state_dict(), path)
-        print("Model saved as", path)
+        if lead:
+            torch.save(model.state_dict(), path)
+            print("Model saved as", path)
 
     params = [p for p in model.parameters() if p.requires_grad]
     optimizer = scheduler = None
@@ -736,6 +801,14 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         return z, view_of(z, idx_z)
 
     split_loss = build_split_loss(args, n_non_ang, use_fused=fused_arg(args))
+    mesh_step = mesh_sup_step = None
+    if mesh is not None:
+        # the members against the global negatives (parallel/collective.py)
+        mesh_step = make_sharded_3dident_train_step(
+            mesh, model, build_split_loss(
+                args, n_non_ang, use_fused=fused_arg(args),
+                wrap=functools.partial(gspmd_safe_loss, mesh)),
+            optimizer, scheduler)
 
     if args.supervised_loss == "r2":
         sup_loss = R2Loss(reduction="mean", mode="negative_r2")
@@ -749,6 +822,10 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         total = sup_loss(model(x1), z1)
         update(optimizer, scheduler, total)
         return total.detach()
+
+    if mesh is not None and optimizer is not None:
+        mesh_sup_step = make_sharded_3dident_sup_step(mesh, model, sup_loss,
+                                                      optimizer, scheduler)
 
     @torch.no_grad()
     def evaluate(eval_perm=True):
@@ -794,6 +871,8 @@ def _experiment(args, device, closing: contextlib.ExitStack):
 
     def save_train_state(next_step):
         flush()
+        if not lead:
+            return
         checkpoint.save_resume_state(state_dir, next_step, {
             "model": model.state_dict(),
             "optimizer": optimizer.state_dict() if optimizer else None,
@@ -836,7 +915,8 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         elif args.mode == "unsupervised":
             data_path = "host-prefetch"
             loader = closing.enter_context(contextlib.closing(PrefetchingPairLoader(
-                sampler, train_gen, num_workers=args.workers or (os.cpu_count() or 1))))
+                sampler, train_gen, num_workers=args.workers or (os.cpu_count() or 1),
+                rows=rows)))
             batches = loader
             print(f"host-prefetch: {loader.num_workers} workers, {loader.slots} "
                   f"pinned slots of {loader.pinned_bytes // loader.slots} bytes",
@@ -861,11 +941,16 @@ def _experiment(args, device, closing: contextlib.ExitStack):
                 pending.append(torch.stack((total, torch.zeros_like(total))))
             elif captured is not None:
                 pending.append(captured())
+            elif mesh_step is not None:
+                _, x1, _, x2 = draw_rank_views(batches, train_gen, rows)
+                pending.append(torch.stack(mesh_step(x1, x2)))
             else:
                 pending.append(torch.stack(train_step(
                     model, split_loss, optimizer, scheduler, batches, train_gen, g)))
-            if step % args.n_log_steps == 0 or step == args.iterations:
+            log_step = step % args.n_log_steps == 0 or step == args.iterations
+            if log_step:
                 flush()
+            if log_step and lead:  # rank 0 alone evaluates under --mesh
                 throughput.update(args.batch_size * min(args.n_log_steps, step + 1))
                 mcc, lin, mse, lin_mse = evaluate()
                 pps = throughput.pairs_per_sec
@@ -898,7 +983,7 @@ def _experiment(args, device, closing: contextlib.ExitStack):
                 save_train_state(step + 1)
     elif args.mode == "supervised":
         for step in range(start_step, args.iterations):
-            if step % args.n_log_steps == 0 or step == args.iterations:
+            if (step % args.n_log_steps == 0 or step == args.iterations) and lead:
                 flush()
                 mcc, lin, mse, lin_mse = evaluate()
                 print(
@@ -914,8 +999,13 @@ def _experiment(args, device, closing: contextlib.ExitStack):
                     "loss": losses[-1] if losses else float("inf"),
                     "linear_disentanglement": lin,
                 })
-            z1, x1, _, _ = draw_views(sampler, train_gen, g)
-            if optimizer is not None:
+            if mesh is not None:
+                z1, x1, _, _ = draw_rank_views(sampler, train_gen, rows)
+            else:
+                z1, x1, _, _ = draw_views(sampler, train_gen, g)
+            if mesh_sup_step is not None:
+                total = mesh_sup_step(x1, z1)
+            elif optimizer is not None:
                 total = sup_step(x1, z1)
             else:  # --identity-solution: nothing to train
                 total = torch.full((), float("inf"), device=device)
@@ -923,7 +1013,7 @@ def _experiment(args, device, closing: contextlib.ExitStack):
             if args.save_every is not None and (step + 1) % args.save_every == 0:
                 save_model(args.save_model + f".iteration_{step + 1}")
                 save_train_state(step + 1)
-    else:  # test
+    elif lead:  # test: rank 0's evaluation under --mesh
         mcc, lin, mse, lin_mse = evaluate(eval_perm=not args.identity_solution)
         print(f"Lin. Disentanglement: {lin}, MCC: {mcc}, MSE: {mse}, "
               f"lin. fit MSE: {lin_mse}")
@@ -933,6 +1023,8 @@ def _experiment(args, device, closing: contextlib.ExitStack):
     if args.save_model is not None:
         save_model(args.save_model)
         print(f"Saving final model at: {args.save_model}")
+    if not lead:
+        return None
     return {"losses": losses, "mcc": last["mcc"], "lin": last["lin"],
             "mean_znorm": last["mean_znorm"],
             "pairs_per_sec": throughput.pairs_per_sec, "data_path": data_path,

@@ -17,6 +17,13 @@ raises, naming the Zenodo record and tools.make_synthetic_kitti. Flags
 whose machinery is not ported exit with the ROADMAP item that ports them;
 --num-workers and --cuda are accepted and do nothing.
 
+``--mesh N`` trains data-parallel over N ranks (parallel/; rank r on
+cuda:r over NCCL, or gloo with device="cpu"): each rank draws and
+augments the global batch of pairs from the same seed, encodes its rows,
+and takes the loss against the global negatives. Rank 0 alone writes the
+logs and checkpoints and evaluates. ``--evaluate`` and ``--seeds`` exit
+with --mesh, as in the JAX package.
+
 Usage: python -m cl_ica_tpu_torch.cli.main_kitti [flags]
 """
 
@@ -30,8 +37,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.kitti import return_data
+from ..parallel import make_mesh, run_mesh
 from ..train import MetricsLogger
 from . import kitti_evaluate
 from .kitti_solver import EnsembleSolver, Solver
@@ -113,8 +122,9 @@ def build_parser():
                         help="Profiler trace directory (not ported yet: "
                              "ROADMAP A14).")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="Data-parallel over N devices (not ported "
-                             "yet: ROADMAP A13). 0/1 = single device.")
+                        help="Train data-parallel over N ranks, one a GPU "
+                             "(rows of the batch sharded, negatives "
+                             "global). 0/1 = single device.")
     parser.add_argument("--fused-loss", action="store_true",
                         help="Force the fused InfoNCE kernels (default: "
                              "auto, fused on CUDA)")
@@ -171,7 +181,6 @@ def uniform(low, high):
 def refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on a flag this port does not run yet."""
     unported = [
-        (args.mesh and args.mesh > 1, "--mesh (multi-GPU data parallelism)", "A13"),
         (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
     ]
     for hit, what, item in unported:
@@ -224,8 +233,10 @@ def run_ensemble_experiment(args, dataset, device):
     print("done in %.2fs" % (time.time() - t0))
 
 
-def run_experiment(args, dataset, device):
-    """One train(+eval) run, or an evaluation under --evaluate."""
+def run_experiment(args, dataset, device, mesh=None):
+    """One train(+eval) run, or an evaluation under --evaluate. Under a
+    mesh every rank trains; rank 0 alone writes files and evaluates."""
+    lead = mesh is None or mesh.lead
     t0 = time.time()
     if not args.experiment_dir:
         args.experiment_dir = experiment_dir_of(args)
@@ -233,28 +244,34 @@ def run_experiment(args, dataset, device):
     args.output_dir = os.path.join(args.output_dir, args.experiment_dir)
     os.makedirs(args.output_dir, exist_ok=True)
     existing = os.listdir(args.output_dir)
-    if args.random_search or args.random_seeds:
+    if (args.random_search or args.random_seeds) and lead:
         while str(args.seed) in existing:
             args.seed = randint(1000000, 9999999)
+    if mesh is not None:  # rank 0's draws, on every rank
+        box = [(args.seed, args.beta, args.gamma, args.rate_prior)]
+        dist.broadcast_object_list(box, src=0)
+        args.seed, args.beta, args.gamma, args.rate_prior = box[0]
     args.output_dir = os.path.join(args.output_dir, str(args.seed))
     os.makedirs(args.output_dir, exist_ok=True)
     args.ckpt_dir = os.path.join(args.ckpt_dir, args.experiment_dir, str(args.seed))
     os.makedirs(args.ckpt_dir, exist_ok=True)
-    if args.use_writer:
+    if args.use_writer and lead:
         # the JAX package's writer is handed the args and nothing else; its
         # TensorBoard copy of them is not ported
         MetricsLogger(log_dir=os.path.join(args.log_dir, args.experiment_dir,
                                            str(args.seed)),
                       print_to_stdout=False).log_args(vars(args))
-    with open(os.path.join(args.output_dir, "args"), "w") as fh:
-        json.dump(args.__dict__, fh)
+    if lead:
+        with open(os.path.join(args.output_dir, "args"), "w") as fh:
+            json.dump(args.__dict__, fh)
     np.random.seed(args.seed)
 
     if args.evaluate:
         kitti_evaluate.main(args, dataset, device)
     else:
-        Solver(args, dataset, device).train()
-        evaluate(args, device)
+        Solver(args, dataset, device, mesh).train()
+        if lead:
+            evaluate(args, device)
         print("done in %.2fs" % (time.time() - t0))
 
     # restore the roots for the outer search loops
@@ -279,13 +296,30 @@ def check_args(args) -> None:
             raise SystemExit(
                 "--seeds covers training (+auto-eval); to re-evaluate "
                 "existing lanes run --evaluate per seed")
+        if args.mesh and args.mesh > 1:
+            raise SystemExit(
+                "--seeds and --mesh both claim the leading device axis; "
+                "run the ensemble single-device (it exists because the "
+                "path is latency-bound, not compute-bound)")
+    if args.mesh and args.mesh > 1:
+        if args.evaluate:
+            raise SystemExit(
+                "--mesh covers only training; --evaluate runs the host-side "
+                "metric harness single-device — drop --mesh")
+        if (args.batch_size // 2) % args.mesh:
+            raise SystemExit(
+                f"batch pairs {args.batch_size // 2} (= --batch-size/2) "
+                f"must be divisible by the mesh's {args.mesh} ranks")
 
 
 def main(argv=None, device=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
-    device = resolve_device(device)
     check_args(args)
+    if args.mesh and args.mesh > 1 and not dist.is_initialized():
+        return run_mesh(main, argv, args.mesh, device)
+    device = resolve_device(device)
+    mesh = make_mesh(args.mesh, device) if args.mesh and args.mesh > 1 else None
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -299,13 +333,13 @@ def main(argv=None, device=None):
                 args.beta = uniform(1, 16) if args.search_beta else 1
                 args.gamma = uniform(1, 16) if not args.betavae else 0
                 args.rate_prior = uniform(1, 10) if not args.betavae else 1
-                args = run_experiment(args, dataset, device)
+                args = run_experiment(args, dataset, device, mesh)
         elif args.random_seeds:
             for _ in range(args.num_runs):
                 args.seed = randint(1000000, 9999999)
-                args = run_experiment(args, dataset, device)
+                args = run_experiment(args, dataset, device, mesh)
         else:
-            run_experiment(args, dataset, device)
+            run_experiment(args, dataset, device, mesh)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 

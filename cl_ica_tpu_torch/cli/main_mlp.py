@@ -20,6 +20,14 @@ reproduces a serial run with ``--seed base+i``.
 (train/checkpoint.py), so a resumed run repeats the uninterrupted one
 step for step.
 
+``--mesh N`` trains data-parallel over N ranks (parallel/): the command
+starts N processes (or joins torchrun's), rank r on cuda:r over NCCL, or
+all on the CPU over gloo for device="cpu"; each draws the global batch
+from the same seed, keeps its B/N rows, and takes the loss against the
+global negatives, so the run is the one-device run up to the order of
+floating-point sums. The mesh step runs eagerly. Rank 0 alone evaluates,
+prints, logs and writes the artifacts; every rank resumes from them.
+
 The run is on CUDA: ``main(argv, device=None)`` resolves to "cuda" and
 raises when there is none; the CPU is used only when a caller passes
 device="cpu" explicitly. Flags whose machinery is not ported yet exit
@@ -31,17 +39,20 @@ Usage: python -m cl_ica_tpu_torch.cli.main_mlp [flags]
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import pickle
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import fused_arg
 from ..evaluation import linear_disentanglement, permutation_disentanglement
 from ..losses import LpSimCLRLoss, SimCLRLoss
 from ..models import construct_invertible_mlp, encoder_params_to_flax, get_mlp
+from ..parallel import make_mesh, make_sharded_synthetic_train_step, run_mesh
 from ..spaces import LatentSpace, NBoxSpace, NRealSpace, NSphereSpace
 from ..train import (
     CapturedStep,
@@ -142,11 +153,12 @@ def parse_args(argv=None):
                         help="Profiler trace directory (not ported yet: "
                              "ROADMAP A14).")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="Data-parallel over N devices (not ported "
-                             "yet: ROADMAP A13).")
+                        help="Train data-parallel over N ranks, one a GPU "
+                             "(rows of the batch sharded, negatives and "
+                             "batch statistics global). 0/1 = one device.")
     parser.add_argument("--mesh-model", type=int, default=0,
                         help="Tensor-parallel axis of the mesh (not "
-                             "ported yet: ROADMAP A13).")
+                             "ported yet: ROADMAP A13b).")
     args = parser.parse_args(argv)
     if args.seeds and args.seeds > 1:
         if args.mesh and args.mesh > 1:
@@ -195,8 +207,8 @@ def parse_args(argv=None):
 def refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on a flag this port does not run yet."""
     unported = [
-        ((args.mesh and args.mesh > 1) or (args.mesh_model and args.mesh_model > 1),
-         "--mesh/--mesh-model (multi-GPU data parallelism)", "A13"),
+        (args.mesh_model and args.mesh_model > 1,
+         "--mesh-model (tensor parallelism)", "A13b"),
         (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
     ]
     for hit, what, item in unported:
@@ -315,10 +327,11 @@ class Lane:
     """One seed's run. Three generator streams: training data, evaluation
     samples, and encoder init (on the CPU, so a seed gives the same
     initial weights on every device). The frozen mixing g is rebuilt from
-    the seed, so a checkpoint does not carry it."""
+    the seed, so a checkpoint does not carry it. Under a ``mesh`` the step
+    is the sharded one, run eagerly; every rank holds the same lane."""
 
-    def __init__(self, args, seed: int, device, latent_space, loss):
-        self.args, self.seed, self.device = args, seed, device
+    def __init__(self, args, seed: int, device, latent_space, loss, mesh=None):
+        self.args, self.seed, self.device, self.mesh = args, seed, device, mesh
         self.latent_space, self.loss = latent_space, loss
         self.train_gen = torch.Generator(device=device).manual_seed(seed)
         self.eval_gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -355,12 +368,15 @@ class Lane:
         self.optimizer, self.scheduler = make_optimizer(
             self.f.parameters(), args.lr, args.weight_decay,
             cosine_steps=n_steps if args.lr_cosine else None)
-        body = make_synthetic_train_step(
-            self.latent_space.sample_pair, self.g, self.f, self.loss,
-            self.optimizer, args.batch_size, supervised=supervised,
-            scheduler=self.scheduler)
-        self.step = CapturedStep(lambda: tuple(body(self.train_gen).values()),
-                                 [self.train_gen], self.device)
+        make = make_synthetic_train_step
+        if self.mesh is not None:
+            make = functools.partial(make_sharded_synthetic_train_step, self.mesh)
+        body = make(self.latent_space.sample_pair, self.g, self.f, self.loss,
+                    self.optimizer, args.batch_size, supervised=supervised,
+                    scheduler=self.scheduler)
+        run = lambda: tuple(body(self.train_gen).values())
+        self.step = (CapturedStep(run, [self.train_gen], self.device)
+                     if self.mesh is None else lambda: torch.stack(run()))
 
     def clear_histories(self) -> None:
         self.losses, self.linear_scores, self.perm_scores = [], [], []
@@ -404,7 +420,8 @@ class Lane:
             self.optimizer.load_state_dict(state["optimizer"])
             if self.scheduler is not None:
                 self.scheduler.load_state_dict(state["scheduler"])
-            self.step.reset()  # the optimizer's state tensors were replaced
+            if self.mesh is None:
+                self.step.reset()  # the optimizer's state tensors were replaced
         self.train_gen.set_state(state["generators"]["train"])
         self.eval_gen.set_state(state["generators"]["eval"])
         self.init_gen.set_state(state["generators"]["init"])
@@ -576,12 +593,24 @@ def run_ensemble(args, device):
     return per_seed_lin, per_seed_perm
 
 
+def _broadcast(value):
+    """Rank 0's value on every rank."""
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def main(argv=None, device=None):
     args = parse_args(argv)
     refuse_unported(args)
+    if args.mesh and args.mesh > 1 and not dist.is_initialized():
+        return run_mesh(main, argv, args.mesh, device)
     device = resolve_device(device)
     if args.seeds and args.seeds > 1:
         return run_ensemble(args, device)
+    mesh = (make_mesh(args.mesh, device)
+            if args.mesh and args.mesh > 1 else None)
+    lead = mesh is None or mesh.lead
     # --save-every/--resume: one artifact per checkpoint {the lane's
     # state, phase, step} behind an atomically replaced LATEST pointer;
     # the resumed trajectory repeats the uninterrupted one step for step
@@ -602,19 +631,23 @@ def main(argv=None, device=None):
                 )
         else:
             print("--resume: no checkpoint found; starting fresh", flush=True)
-    logger = MetricsLogger(log_dir=args.save_dir or None, print_to_stdout=False)
-    if args.save_dir:
+    logger = MetricsLogger(log_dir=(args.save_dir or None) if lead else None,
+                           print_to_stdout=False)
+    if args.save_dir and lead:
         logger.log_args(vars(args))
     seed = args.seed if args.seed is not None else int(time.time()) % 2**31
+    if mesh is not None:  # rank 0's clock seeds every rank
+        seed = _broadcast(seed)
     lane = Lane(args, seed, device, build_latent_space(args, device),
-                make_loss(args))
+                make_loss(args), mesh)
 
-    # identity-solution sanity scores
-    lin0, perm0 = lane.identity_scores()
-    print(f"Id. Lin. Disentanglement: {lin0:.4f}")
-    print(f"Id. Perm. Disentanglement: {perm0:.4f}")
+    if lead:
+        # identity-solution sanity scores
+        lin0, perm0 = lane.identity_scores()
+        print(f"Id. Lin. Disentanglement: {lin0:.4f}")
+        print(f"Id. Perm. Disentanglement: {perm0:.4f}")
 
-    if args.save_dir:
+    if args.save_dir and lead:
         os.makedirs(args.save_dir, exist_ok=True)
         np.savez(os.path.join(args.save_dir, "g.npz"),
                  *[w.cpu().numpy() for w in lane.g.weights])
@@ -648,6 +681,8 @@ def main(argv=None, device=None):
                       if args.save_every else 0)
 
         def save_resume(phase, step):
+            if not lead:
+                return
             checkpoint.save_resume_state(
                 resume_dir, phase * (10 ** 9) + step,
                 {"lane": lane.state_dict(), "phase": phase, "step": step})
@@ -659,6 +694,8 @@ def main(argv=None, device=None):
             throughput.update(args.batch_size * n)
 
         def do_eval():
+            if not lead:
+                return
             lin, perm = lane.evaluate()
             losses = lane.losses
             pps = throughput.pairs_per_sec
@@ -706,10 +743,12 @@ def main(argv=None, device=None):
             # the carried generator streams
             save_resume(phase_idx + 1, 0)
 
-        if args.save_dir:
+        if args.save_dir and lead:
             tag = "sup" if test else "unsup"
             lane.save_encoder(os.path.join(args.save_dir, f"{tag}_f.pkl"))
 
+    if not lead:
+        return None
     # final mean/std over num_eval_batches
     finals = [lane.final_scores() for _ in range(args.num_eval_batches)]
     final_linear = [lin for lin, _ in finals]

@@ -367,9 +367,10 @@ class _Slot:
     """One pinned host buffer of a batch's 2B renders, and the event of
     its last copy to the device (None before the first)."""
 
-    def __init__(self, host: torch.Tensor):
+    def __init__(self, host: torch.Tensor, owner: int = 0):
         self.host = host
         self.copied = None
+        self.owner = owner  # the queue of free slots it goes back to
 
 
 class _Failure:
@@ -412,13 +413,20 @@ class PrefetchingPairLoader:
     from it independently. With several workers the order of batches
     depends on the threads; batches are IID, so the semantics do not.
 
+    ``rows``: a rank's rows of each batch under a data-parallel mesh
+    (parallel/). The workers draw and match the whole batch, gather the
+    renders of these rows only, and hand out these rows of z and z̃. The
+    batches then come in a fixed order, worker 0's first, then worker 1's,
+    ... in turn, each worker filling slots of its own, so that every rank,
+    seeded alike, trains on the same sequence of batches.
+
     On the CPU (the tests) there is no pinning and no stream; ``next()``
     hands out a copy of the slot. ``close()`` stops and joins the threads
     and drops the buffers.
     """
 
     def __init__(self, sampler: ThreeDIdentBatchSampler, generator: torch.Generator,
-                 depth: int = 2, num_workers: int = 1):
+                 depth: int = 2, num_workers: int = 1, rows: Optional[slice] = None):
         if not sampler.host_store:
             raise ValueError("PrefetchingPairLoader serves a packed image store "
                              "kept on the host")
@@ -430,14 +438,20 @@ class PrefetchingPairLoader:
         self._sampler = sampler
         # the cores' gather threads are shared among the workers
         self._gather_threads = max(1, (os.cpu_count() or 1) // self.num_workers)
-        shape = (2 * sampler.batch_size,) + sampler.images.row_shape
+        self._rows = rows
+        n = len(range(sampler.batch_size)[rows]) if rows is not None else sampler.batch_size
+        shape = (2 * n,) + sampler.images.row_shape
         self.slots = self.num_workers + max(1, int(depth))
         self.pinned_bytes = self.slots * int(np.prod(shape))
-        self._free: queue.Queue = queue.Queue()
-        for _ in range(self.slots):
-            self._free.put(_Slot(torch.empty(shape, dtype=torch.uint8,
-                                              pin_memory=self._cuda)))
-        self._ready: queue.Queue = queue.Queue()
+        # one queue of free and one of filled slots, or one each a worker
+        # when the batches come in the workers' turn
+        queues = self.num_workers if rows is not None else 1
+        self._free = [queue.Queue() for _ in range(queues)]
+        for i in range(self.slots):
+            self._free[i % queues].put(_Slot(torch.empty(
+                shape, dtype=torch.uint8, pin_memory=self._cuda), i % queues))
+        self._ready = [queue.Queue() for _ in range(queues)]
+        self._turn = 0
         self.peak_ready = 0  # the most filled slots seen waiting at once
         self._peak_lock = threading.Lock()
         self._ahead: collections.deque = collections.deque()
@@ -453,21 +467,21 @@ class PrefetchingPairLoader:
             torch.Generator(device=self.device).manual_seed(_worker_seed(generator, k))
             for k in range(1, self.num_workers)]
         self._threads = [
-            threading.Thread(target=self._work, args=(g,), daemon=True,
+            threading.Thread(target=self._work, args=(g, k % queues), daemon=True,
                              name=f"prefetch-{k}")
             for k, g in enumerate(generators)]
         for t in self._threads:
             t.start()
 
-    def _take_free(self) -> Optional[_Slot]:
+    def _take_free(self, q: int) -> Optional[_Slot]:
         while not self._stop.is_set():
             try:
-                return self._free.get(timeout=0.1)
+                return self._free[q].get(timeout=0.1)
             except queue.Empty:
                 continue
         return None
 
-    def _work(self, generator: torch.Generator) -> None:
+    def _work(self, generator: torch.Generator, q: int) -> None:
         try:
             stream = None
             if self._cuda:
@@ -475,7 +489,7 @@ class PrefetchingPairLoader:
                 stream = torch.cuda.Stream(self.device)
                 stream.wait_event(self._start)
             while not self._stop.is_set():
-                slot = self._take_free()
+                slot = self._take_free(q)
                 if slot is None:
                     return
                 if slot.copied is not None:
@@ -483,19 +497,24 @@ class PrefetchingPairLoader:
                 with (torch.cuda.stream(stream) if self._cuda
                       else contextlib.nullcontext()):
                     idx_z, idx_zt, z, zt = self._sampler.sample_latent_batch(generator)
+                    if self._rows is not None:
+                        idx_z, idx_zt, z, zt = (t[self._rows]
+                                                for t in (idx_z, idx_zt, z, zt))
                     rows = torch.cat([idx_z, idx_zt]).cpu().numpy()
                 self._sampler.images.gather(rows, out=slot.host,
                                             threads=self._gather_threads)
-                self._ready.put((z, zt, slot))
+                self._ready[q].put((z, zt, slot))
                 with self._peak_lock:
-                    self.peak_ready = max(self.peak_ready, self._ready.qsize())
+                    self.peak_ready = max(self.peak_ready,
+                                          sum(r.qsize() for r in self._ready))
         except BaseException as err:  # handed to the consumer, which raises it
-            self._ready.put(_Failure(err))
+            self._ready[q].put(_Failure(err))
 
     def _next_ready(self, block: bool):
         while True:
             try:
-                item = self._ready.get(timeout=0.1) if block else self._ready.get_nowait()
+                ready = self._ready[self._turn]
+                item = ready.get(timeout=0.1) if block else ready.get_nowait()
             except queue.Empty:
                 if not block:
                     return None
@@ -504,20 +523,21 @@ class PrefetchingPairLoader:
                 continue
             if isinstance(item, _Failure):
                 raise RuntimeError("a prefetch worker failed") from item.error
+            self._turn = (self._turn + 1) % len(self._ready)
             return item
 
     def _to_device(self, item):
         z, zt, slot = item
         if not self._cuda:
             x = slot.host.clone()
-            self._free.put(slot)
+            self._free[slot.owner].put(slot)
             return z, zt, x, None
         with torch.cuda.stream(self._copy_stream):
             x = slot.host.to(self.device, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._copy_stream)
         slot.copied = done
-        self._free.put(slot)
+        self._free[slot.owner].put(slot)
         return z, zt, x, done
 
     def __iter__(self):
@@ -545,7 +565,7 @@ class PrefetchingPairLoader:
             t.join(timeout=60)
         alive = [t.name for t in self._threads if t.is_alive()]
         self._ahead.clear()
-        for q in (self._ready, self._free):
+        for q in self._ready + self._free:
             while True:
                 try:
                     q.get_nowait()

@@ -14,9 +14,16 @@ import itertools
 from typing import Optional
 
 import numpy as np
-import scipy.stats as sps
 
 from .munkres import Munkres
+
+
+def _spearmanr(a, b):
+    # scipy.stats takes seconds to import: only where a rank correlation is
+    # asked for, not in every process that imports the package
+    import scipy.stats
+
+    return scipy.stats.spearmanr(a, b)
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -50,7 +57,7 @@ def _disentanglement(z, hz, mode: str = "r2", reorder: Optional[bool] = None):
 
     dim = z.shape[-1]
     if mode == "spearman":
-        raw_corr, _ = sps.spearmanr(z, hz)
+        raw_corr, _ = _spearmanr(z, hz)
     else:
         raw_corr = np.corrcoef(z.T, hz.T)
     corr = raw_corr[:dim, dim:]
@@ -62,7 +69,7 @@ def _disentanglement(z, hz, mode: str = "r2", reorder: Optional[bool] = None):
         for i in range(dim):
             hz_sort[:, i] = hz[:, indexes[i][1]]
         if mode == "spearman":
-            raw_corr, _ = sps.spearmanr(z, hz_sort)
+            raw_corr, _ = _spearmanr(z, hz_sort)
         else:
             raw_corr = np.corrcoef(z.T, hz_sort.T)
         corr = raw_corr[:dim, dim:]

@@ -9,9 +9,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
-import scipy.stats as sps
 
 from .munkres import Munkres
+from .disentanglement import _spearmanr
 
 
 def correlation(x: np.ndarray, y: np.ndarray, method: str = "Pearson"):
@@ -27,7 +27,7 @@ def correlation(x: np.ndarray, y: np.ndarray, method: str = "Pearson"):
     if method == "Pearson":
         corr = np.corrcoef(y, x)[0:dim, dim:]
     elif method == "Spearman":
-        corr, _ = sps.spearmanr(y.T, x.T)
+        corr, _ = _spearmanr(y.T, x.T)
         corr = corr[0:dim, dim:]
     else:
         raise ValueError(method)
@@ -44,7 +44,7 @@ def correlation(x: np.ndarray, y: np.ndarray, method: str = "Pearson"):
     if method == "Pearson":
         corr_sort = np.corrcoef(y, x_sort)[0:dim, dim:]
     else:
-        corr_sort, _ = sps.spearmanr(y.T, x_sort.T)
+        corr_sort, _ = _spearmanr(y.T, x_sort.T)
         corr_sort = corr_sort[0:dim, dim:]
 
     return corr_sort, sort_idx, x_sort

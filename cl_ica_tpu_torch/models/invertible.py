@@ -14,7 +14,6 @@ from typing import List, Literal, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
-from scipy.stats import ortho_group
 from torch import nn
 
 from .layers import smooth_leaky_relu
@@ -92,6 +91,8 @@ def construct_invertible_mlp(
                     weights.append(cands[ok[0]].astype(np.float32))
                     break
     elif weight_matrix_init == "rvs":
+        from scipy.stats import ortho_group  # seconds to import: only here
+
         for _ in range(n_layers):
             weights.append(ortho_group.rvs(n, random_state=rng).astype(np.float32))
     else:

@@ -2,11 +2,18 @@
 
 Port of cl_ica_tpu/models/layers.py:14-60 (heads), :96-152
 (``FastBatchNorm``), :155-232 (``MinResBN``) and :283-335
-(``StemBNReLUPool``). Parameter names and
+(``StemBNReLUPool``), and the MLP's ``BatchNorm1d``. Parameter names and
 shapes follow the Flax modules so that models/convert.py maps them by
 name: ``RescaleLayer.r`` is (1,), ``SoftclipLayer.max_abs_bound`` is (n,),
 a norm's ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` are
 ``weight``/``bias`` and ``running_mean``/``running_var``.
+
+Every norm here, in training mode under a data-parallel step
+(``ops.collectives.current_group()`` set by parallel/), takes its
+statistics over the whole batch, all ranks' rows, and updates its running
+buffers with them (the unbiased correction from the global count), as the
+JAX package's norms do under GSPMD. Outside such a step each is the
+single-device module, bit for bit.
 """
 
 from __future__ import annotations
@@ -16,7 +23,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bn_minres import bn_add_relu, bn_only, bn_relu
+from ..ops.collectives import all_reduce_mean, current_group, world_of
 from ..ops.stem import bn_relu_pool_train
+
+
+def _group_kw() -> dict:
+    """The norm functions' ``group`` argument: none outside a data-parallel
+    step, so that their call is the single-device one."""
+    group = current_group()
+    return {} if group is None else {"group": group}
+
+
+def _global_count(x) -> int:
+    """Positions a channel's statistics are taken over, all ranks' rows."""
+    return x.numel() // x.shape[1] * world_of(current_group())
 
 
 def smooth_leaky_relu(x, alpha: float = 0.2):
@@ -75,7 +95,8 @@ class FastBatchNorm2d(nn.Module):
     max(E[x²] − E[x]², 0); the running variance gets the unbiased
     correction n/(n−1); ``momentum`` is torch's (0.1 is Flax's 0.9); the
     per-channel affine a = rstd·weight, b = bias − mean·a is applied in
-    the input's dtype. The gradient runs through the statistics (autograd).
+    the input's dtype. The gradient runs through the statistics (autograd;
+    under a data-parallel step through their mean over the ranks).
     ``norm_kind`` 'fast' and 'batch' of the JAX package are this one
     mathematics; 'minres' is too, with another backward (``MinResBN2d``)."""
 
@@ -102,9 +123,11 @@ class FastBatchNorm2d(nn.Module):
             dims = (0, 2, 3)
             mean = x.mean(dim=dims, dtype=torch.float32)
             mean2 = x.square().mean(dim=dims, dtype=torch.float32)
+            group = current_group()
+            if group is not None:
+                mean, mean2 = all_reduce_mean(torch.stack([mean, mean2]), group)
             var = (mean2 - mean * mean).clamp(min=0)
-            self.update_running(mean.detach(), var.detach(),
-                                x.numel() // x.shape[1])
+            self.update_running(mean.detach(), var.detach(), _global_count(x))
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -155,12 +178,15 @@ class MinResBN2d(FastBatchNorm2d):
         if res is not None:
             res = res.contiguous(memory_format=torch.channels_last)
             y, mean, var = bn_add_relu(nhwc, res.permute(0, 2, 3, 1),
-                                       self.weight, self.bias, self.eps)
+                                       self.weight, self.bias, self.eps,
+                                       **_group_kw())
         elif self.act == "relu":
-            y, mean, var = bn_relu(nhwc, self.weight, self.bias, self.eps)
+            y, mean, var = bn_relu(nhwc, self.weight, self.bias, self.eps,
+                                   **_group_kw())
         else:
-            y, mean, var = bn_only(nhwc, self.weight, self.bias, self.eps)
-        self.update_running(mean, var, x.numel() // x.shape[1])
+            y, mean, var = bn_only(nhwc, self.weight, self.bias, self.eps,
+                                   **_group_kw())
+        self.update_running(mean, var, _global_count(x))
         return y.permute(0, 3, 1, 2)
 
 
@@ -186,6 +212,35 @@ class StemBNReLUPool(FastBatchNorm2d):
             return F.max_pool2d(z, kernel_size=3, stride=2, padding=1)
         x = x.contiguous(memory_format=torch.channels_last)
         pooled, mean, var = bn_relu_pool_train(
-            x.permute(0, 2, 3, 1), self.weight, self.bias, self.eps)
-        self.update_running(mean, var, x.numel() // x.shape[1])
+            x.permute(0, 2, 3, 1), self.weight, self.bias, self.eps,
+            **_group_kw())
+        self.update_running(mean, var, _global_count(x))
         return pooled.permute(0, 3, 1, 2)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """The MLP's --layer-normalization bn: ``nn.BatchNorm1d`` (Flax's
+    BatchNorm as the JAX package's MLP uses it), which under a
+    data-parallel step normalises (B, C) rows with the whole batch's mean
+    and biased variance, each the ranks' average (a mean over the ranks of
+    the rows' mean, then of their squared deviations from it), through
+    autograd, and updates its running buffers with them, the variance with
+    the global count's unbiased correction. Outside such a step it is
+    ``nn.BatchNorm1d``. (``nn.SyncBatchNorm`` takes CUDA tensors only.)"""
+
+    def forward(self, x):
+        group = current_group()
+        if group is None or not self.training:
+            return super().forward(x)
+        if x.ndim != 2:
+            raise ValueError(f"x must be (B, C) rows, got {tuple(x.shape)}")
+        mean = all_reduce_mean(x.mean(dim=0), group)
+        var = all_reduce_mean((x - mean).square().mean(dim=0), group)
+        n = x.shape[0] * world_of(group)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m * n / max(n - 1, 1))
+            self.num_batches_tracked.add_(1)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight + self.bias

@@ -20,13 +20,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import RescaleLayer, SoftclipLayer
+from .layers import BatchNorm1d, RescaleLayer, SoftclipLayer
 
 
 def _norm_layer(kind: str, width: int) -> nn.Module:
     if kind == "bn":
         # Flax BatchNorm: running = 0.99·running + 0.01·batch, eps 1e-5
-        return nn.BatchNorm1d(width, eps=1e-5, momentum=0.01)
+        return BatchNorm1d(width, eps=1e-5, momentum=0.01)
     if kind == "gn":
         # Flax GroupNorm(num_groups=1): LayerNorm over features, eps 1e-6
         return nn.GroupNorm(1, width, eps=1e-6)

@@ -44,6 +44,15 @@ upstream gradient that is not dense (the global mean pool's backward
 hands the last block a broadcast one) is copied dense first, and such
 copies are counted (``dy_copies``).
 
+Under a data-parallel mesh (``group``: the ranks of parallel/, each with
+its rows of the batch) the statistics and the backward sums are the whole
+batch's. The forward averages each rank's moments, mean and E[x²], over
+the ranks (equal row counts) before var and rstd are formed from them;
+the backward sums Σg and Σg·x over the ranks and folds dx with the global
+count, while dscale and dbias stay the rank's own, since the parameters'
+gradients are averaged over the ranks afterwards (parallel/sharded.py).
+With no group nothing communicates and every value is what it was.
+
 On CPU tensors the functions run the plain versions (``channel_stats``,
 ``bn_apply_reference``, ``bn_bwd_reference``, ``bn_dx_reference``),
 because there is no kernel to launch there. On CUDA tensors they launch
@@ -59,6 +68,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .build import load_library
+from .collectives import all_reduce_mean_, all_reduce_sum_, world_of
 from .infonce import _check_launch, _launches, _stream
 
 LIBRARY = "bn_minres"
@@ -98,12 +108,15 @@ def _dims(x: torch.Tensor) -> Tuple[int, ...]:
     return tuple(range(x.ndim - 1))
 
 
-def channel_stats(x: torch.Tensor, eps: float):
+def channel_stats(x: torch.Tensor, eps: float, group=None):
     """(mean, var, rstd), float32 per channel of (..., C) x: float32 means
     straight from the input, the square taken in x's dtype (as
-    ``jnp.square(x)``), var = max(E[x²] − E[x]², 0), rstd = 1/√(var + eps)."""
+    ``jnp.square(x)``), var = max(E[x²] − E[x]², 0), rstd = 1/√(var + eps).
+    With a group, mean and E[x²] are first averaged over the ranks."""
     mean = x.mean(dim=_dims(x), dtype=torch.float32)
     mean2 = x.square().mean(dim=_dims(x), dtype=torch.float32)
+    if group is not None:
+        mean, mean2 = all_reduce_mean_(torch.stack([mean, mean2]), group)
     var = (mean2 - mean * mean).clamp_(min=0)
     return mean, var, torch.rsqrt(var + eps)
 
@@ -148,17 +161,22 @@ def bn_bwd_reference(x, dy, a, b, y: Optional[torch.Tensor] = None,
             (g * x).sum(dim=_dims(x), dtype=torch.float32))
 
 
+def param_grads(mean, rstd, sum_g, sum_gx):
+    """(dscale, dbias) from the backward sums, in float32."""
+    return (sum_gx - mean * sum_g) * rstd, sum_g
+
+
 def dx_factors(scale, mean, rstd, sum_g, sum_gx, count: int,
                dtype: torch.dtype):
     """(dscale, dbias, k) from the backward sums, as the JAX
     ``_bn_bwd_core`` folds them in float32: dscale = (Σg·x − mean·Σg)·rstd,
     dbias = Σg, and k = (A, B, C) (3, C) in ``dtype`` for
     dx = A·g − B·x + C."""
-    dscale = (sum_gx - mean * sum_g) * rstd
+    dscale, dbias = param_grads(mean, rstd, sum_g, sum_gx)
     inv = scale * rstd
     big_b = inv * rstd * (dscale / count)
     big_c = inv * (rstd * (dscale / count) * mean - sum_g / count)
-    return dscale, sum_g, torch.stack([inv, big_b, big_c]).to(dtype)
+    return dscale, dbias, torch.stack([inv, big_b, big_c]).to(dtype)
 
 
 def bn_dx_reference(x, dy, k, a, b, y: Optional[torch.Tensor] = None,
@@ -186,6 +204,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.clica_bn_stats.argtypes = [_P, _P, _P, _LL, _I, _I, _I,
                                    ctypes.c_float, _P]
     lib.clica_bn_stats.restype = _I
+    lib.clica_bn_moments.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _P]
+    lib.clica_bn_moments.restype = _I
+    lib.clica_bn_finish.argtypes = [_P, _P, _I, ctypes.c_float, _P]
+    lib.clica_bn_finish.restype = _I
     lib.clica_bn_apply.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _I, _P]
     lib.clica_bn_apply.restype = _I
     lib.clica_bn_bwd.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
@@ -270,15 +292,28 @@ def _mode(other, relu: bool) -> int:
     return ADD_RELU if other is not None else RELU if relu else ONLY
 
 
-def launch_stats(x: torch.Tensor, eps: float):
+def launch_stats(x: torch.Tensor, eps: float, group=None):
     """The statistics kernel and its reduction: (mean, var, rstd), float32
-    (C,) views of one (3, C) tensor."""
+    (C,) views of one (3, C) tensor. With a group the same pass writes the
+    moments (mean, E[x²]), they are averaged over the ranks, and the
+    reduction kernel forms (mean, var, rstd) from the average."""
     lib, positions, c, bf16, grid = _prepare(x, None, ())
     partial = torch.empty((2, grid, c), device=x.device, dtype=torch.float32)
     out = torch.empty((3, c), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        rc = lib.clica_bn_stats(x.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                                positions, c, bf16, grid, float(eps), _stream(x))
+        if group is None:
+            rc = lib.clica_bn_stats(x.data_ptr(), partial.data_ptr(),
+                                    out.data_ptr(), positions, c, bf16, grid,
+                                    float(eps), _stream(x))
+        else:
+            moments = torch.empty((2, c), device=x.device, dtype=torch.float32)
+            rc = lib.clica_bn_moments(x.data_ptr(), partial.data_ptr(),
+                                      moments.data_ptr(), positions, c, bf16,
+                                      grid, _stream(x))
+            _check_launch(lib, rc, "bn moments")
+            all_reduce_mean_(moments, group)
+            rc = lib.clica_bn_finish(moments.data_ptr(), out.data_ptr(), c,
+                                     float(eps), _stream(x))
     _check_launch(lib, rc, "bn stats")
     _launches["bn_stats"] += 1
     return out[0], out[1], out[2]
@@ -357,23 +392,24 @@ def _dense(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class _MinResBN(torch.autograd.Function):
     """(y, mean, var) = f(x, res, scale, bias) for the three functions (res
     None without the residual add; relu False only without it). eps, the
-    relu and the route are not differentiable, and neither are the mean
-    and var outputs: they feed running-statistics buffers (the JAX
-    custom VJPs drop their cotangents). Saved: x, (C,) vectors and, with
-    res, the output y (the relu mask's sign; see the module docstring)."""
+    relu, the route and the group are not differentiable, and neither are
+    the mean and var outputs: they feed running-statistics buffers (the
+    JAX custom VJPs drop their cotangents). Saved: x, (C,) vectors and,
+    with res, the output y (the relu mask's sign; see the module
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, x, res, scale, bias, eps, relu, use_kernels):
+    def forward(ctx, x, res, scale, bias, eps, relu, use_kernels, group):
         if use_kernels:
-            mean, var, rstd = launch_stats(x, eps)
+            mean, var, rstd = launch_stats(x, eps, group)
         else:
-            mean, var, rstd = channel_stats(x, eps)
+            mean, var, rstd = channel_stats(x, eps, group)
         a, b = affine(scale, bias, mean, rstd, x.dtype)
         apply = launch_apply if use_kernels else bn_apply_reference
         y = apply(x, a, b, res, relu)
         ctx.save_for_backward(x, y if res is not None else None, scale, bias,
                               mean, rstd)
-        ctx.relu, ctx.use_kernels = relu, use_kernels
+        ctx.relu, ctx.use_kernels, ctx.group = relu, use_kernels, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -384,41 +420,53 @@ class _MinResBN(torch.autograd.Function):
         dy = _dense(dy, x)
         sums = launch_bwd if ctx.use_kernels else bn_bwd_reference
         sum_g, sum_gx = sums(x, dy, a, b, y, ctx.relu)
-        dscale, dbias, k = dx_factors(scale, mean, rstd, sum_g, sum_gx,
-                                      x.numel() // x.shape[-1], x.dtype)
+        # dscale and dbias are this rank's (the ranks' gradients are
+        # averaged later); dx takes the whole batch's sums and count
+        dscale, dbias = param_grads(mean, rstd, sum_g, sum_gx)
+        count, totals = x.numel() // x.shape[-1], (sum_g, sum_gx)
+        if ctx.group is not None:
+            totals = all_reduce_sum_(torch.stack(totals), ctx.group)
+            count *= world_of(ctx.group)
+        k = dx_factors(scale, mean, rstd, *totals, count, x.dtype)[2]
         dx_fn = launch_dx if ctx.use_kernels else bn_dx_reference
         dx, g = dx_fn(x, dy, k, a, b, y, ctx.relu)
-        return dx, g if y is not None else None, dscale, dbias, None, None, None
+        return (dx, g if y is not None else None, dscale, dbias, None, None,
+                None, None)
 
 
-def _minres(x, res, scale, bias, eps, relu, use_kernels):
+def _minres(x, res, scale, bias, eps, relu, use_kernels, group=None):
     if x.ndim < 2:
         raise ValueError(f"x must be (..., C), got {tuple(x.shape)}")
-    return _MinResBN.apply(x, res, scale, bias, float(eps), relu, use_kernels)
+    return _MinResBN.apply(x, res, scale, bias, float(eps), relu, use_kernels,
+                           group)
 
 
 def bn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float = 1e-5):
+            eps: float = 1e-5, group=None):
     """Training-mode batch norm → relu with the minimal-residual backward.
 
     x (..., C) dense, float32 or bfloat16; scale, bias (C,) float32.
     Returns (y, mean, var): y in x's dtype; mean and the biased var, the
     float32 batch statistics the normalisation used, carry NO gradient.
-    CUDA tensors run the Hopper kernels or raise; CPU tensors the plain
-    versions."""
-    return _minres(x, None, scale, bias, eps, True, x.device.type != "cpu")
+    ``group``: the data-parallel ranks whose rows make up the batch (see
+    the module docstring), None for this tensor alone. CUDA tensors run
+    the Hopper kernels or raise; CPU tensors the plain versions."""
+    return _minres(x, None, scale, bias, eps, True, x.device.type != "cpu",
+                   group)
 
 
 def bn_add_relu(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor, eps: float = 1e-5):
+                bias: torch.Tensor, eps: float = 1e-5, group=None):
     """Training-mode batch norm of x, + res, → relu (a ResNet block's
     tail); res's gradient is the masked upstream gradient g. It keeps y,
     not res, for the backward. As ``bn_relu`` otherwise."""
-    return _minres(x, res, scale, bias, eps, True, x.device.type != "cpu")
+    return _minres(x, res, scale, bias, eps, True, x.device.type != "cpu",
+                   group)
 
 
 def bn_only(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float = 1e-5):
+            eps: float = 1e-5, group=None):
     """Training-mode batch norm with no activation (a projection
     shortcut). As ``bn_relu`` otherwise."""
-    return _minres(x, None, scale, bias, eps, False, x.device.type != "cpu")
+    return _minres(x, None, scale, bias, eps, False, x.device.type != "cpu",
+                   group)

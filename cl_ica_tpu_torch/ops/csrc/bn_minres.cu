@@ -19,7 +19,12 @@
 //             jnp.square(x) is), a block's sums into one row of a
 //             (2, rows, C) buffer; bn_reduce_kernel adds the rows in double
 //             in a fixed order and forms mean, var = max(E[x^2] - mean^2, 0)
-//             and rstd = 1/sqrt(var + eps).
+//             and rstd = 1/sqrt(var + eps). Under a data-parallel mesh
+//             the same pass writes the moments, mean and E[x^2]
+//             (clica_bn_moments); the wrapper averages them over the ranks
+//             and hands them back to bn_reduce_kernel as one row of count 1
+//             (clica_bn_finish), which forms var and rstd from them in the
+//             same arithmetic.
 //   apply     bn_apply_kernel<T, M>: y = x*a + b (+ res) (relu), one pass.
 //   bwd sums  bn_bwd_kernel<T, M>: per channel the sums of g and of g*x
 //             (g*x rounded to x's type, as the JAX line's product is), where
@@ -268,8 +273,13 @@ bn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
 
 // out[s][c] = the rows of partial[s] added in double in a fixed order
 // (eight threads a channel take every eighth row, then their eight totals
-// are added in order). With stats, out is (3, C): mean, var, rstd of
-// count positions; otherwise (2, C): the two sums.
+// are added in order). With stats kStats, out is (3, C): mean, var, rstd
+// of count positions; with kMoments (2, C): mean and E[x^2]; with kSums
+// (2, C): the two sums. Rows of count 1 that hold moments turn back into
+// the same mean and E[x^2] (t / 1.0 is exact), so kStats over them forms
+// var and rstd exactly as it does from the partial sums.
+enum { kSums = 0, kStats = 1, kMoments = 2 };
+
 __global__ void bn_reduce_kernel(const float* __restrict__ partial,
                                  float* __restrict__ out, int rows, int C,
                                  long long count, float eps, int stats) {
@@ -290,13 +300,18 @@ __global__ void bn_reduce_kernel(const float* __restrict__ partial,
     t0 += part[0][r][threadIdx.x];
     t1 += part[1][r][threadIdx.x];
   }
-  if (!stats) {
+  if (stats == kSums) {
     out[c] = (float)t0;
     out[C + c] = (float)t1;
     return;
   }
   const float mean = (float)(t0 / (double)count);
   const float mean2 = (float)(t1 / (double)count);
+  if (stats == kMoments) {
+    out[c] = mean;
+    out[C + c] = mean2;
+    return;
+  }
   const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
   out[c] = mean;
   out[C + c] = var;
@@ -412,13 +427,13 @@ inline bool bad_shape(long long P, int C, int V, int grid) {
 
 template <typename T>
 int launch_stats(const void* x, float* partial, float* out, long long P, int C,
-                 int grid, float eps, cudaStream_t st) {
+                 int grid, float eps, int moments, cudaStream_t st) {
   const dim3 blocks(grid, slices_of(C / Pack<T>::V));
   bn_stats_kernel<T><<<blocks, kThreads, 0, st>>>((const T*)x, partial, P, C);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  bn_reduce_kernel<<<(C + 31) / 32, dim3(32, 8), 0, st>>>(partial, out, grid,
-                                                          C, P, eps, 1);
+  bn_reduce_kernel<<<(C + 31) / 32, dim3(32, 8), 0, st>>>(
+      partial, out, grid, C, P, eps, moments ? kMoments : kStats);
   return (int)cudaGetLastError();
 }
 
@@ -442,7 +457,7 @@ int launch_bwd(const void* x, const void* dy, const void* y, const void* a,
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   bn_reduce_kernel<<<(C + 31) / 32, dim3(32, 8), 0, st>>>(partial, sums, grid,
-                                                          C, P, 0.f, 0);
+                                                          C, P, 0.f, kSums);
   return (int)cudaGetLastError();
 }
 
@@ -482,9 +497,31 @@ int clica_bn_stats(const void* x, float* partial, float* out, long long P,
                    int C, int is_bf16, int grid, float eps, void* stream) {
   if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16
-             ? launch_stats<__nv_bfloat16>(x, partial, out, P, C, grid, eps, st)
-             : launch_stats<float>(x, partial, out, P, C, grid, eps, st);
+  return is_bf16 ? launch_stats<__nv_bfloat16>(x, partial, out, P, C, grid,
+                                               eps, 0, st)
+                 : launch_stats<float>(x, partial, out, P, C, grid, eps, 0, st);
+}
+
+// The same pass with the moments, mean and E[x^2] of x (P, C), into out
+// (2, C) float: what a data-parallel mesh averages over its ranks.
+int clica_bn_moments(const void* x, float* partial, float* out, long long P,
+                     int C, int is_bf16, int grid, void* stream) {
+  if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? launch_stats<__nv_bfloat16>(x, partial, out, P, C, grid,
+                                               0.f, 1, st)
+                 : launch_stats<float>(x, partial, out, P, C, grid, 0.f, 1, st);
+}
+
+// mean, var and rstd into out (3, C) float from moments (2, C): mean and
+// E[x^2], as clica_bn_moments writes them (averaged over the ranks of a
+// mesh in between).
+int clica_bn_finish(const float* moments, float* out, int C, float eps,
+                    void* stream) {
+  if (C < 1) return (int)cudaErrorInvalidValue;
+  bn_reduce_kernel<<<(C + 31) / 32, dim3(32, 8), 0, (cudaStream_t)stream>>>(
+      moments, out, 1, C, 1, eps, kStats);
+  return (int)cudaGetLastError();
 }
 
 // y = x*a + b (mode 0), relu of it (1), relu(x*a + b + res) (2); a and b

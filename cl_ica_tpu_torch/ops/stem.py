@@ -28,6 +28,14 @@ Layout: (N, H, W, C), dense, as in the JAX package. H and W even; C a
 multiple of the kernels' 16-byte vector (4 float32, 8 bfloat16 values),
 at most 256 vectors. float32 and bfloat16.
 
+Under a data-parallel mesh (``group``: the ranks of parallel/, each with
+its rows of the batch) the statistics are the whole batch's: each rank's
+mean and E[x²] are averaged over the ranks; and the backward's channel
+sums are summed over the ranks and divided by the global count for dx,
+while the sums returned as dscale and dbias stay the rank's own (the
+parameters' gradients are averaged over the ranks afterwards). With no
+group nothing communicates.
+
 On CPU tensors ``bn_relu_pool_train`` runs the plain versions
 (``stem_fwd_reference``, ``stem_bwd_reference``, ``stem_dx_reference``),
 because there is no kernel to launch there. On CUDA tensors it launches
@@ -45,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import load_library
+from .collectives import all_reduce_mean_, all_reduce_sum_, world_of
 from .infonce import _check_launch, _launches, _stream
 
 THREADS = 256  # a backward block's threads: (ws + 1) * cv of them compute
@@ -383,12 +392,14 @@ def launch_stem_dx(x, dy, k1, nk2, nk3, mean) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def batch_statistics(x: torch.Tensor, eps: float):
+def batch_statistics(x: torch.Tensor, eps: float, group=None):
     """(mean, biased var, rstd) per channel of (N, H, W, C) x: float32 sums
     straight from the input (the square is taken in x's dtype, as
     ``jnp.square(x)`` is), var = max(E[x²] − E[x]², 0)."""
     mean = x.mean(dim=(0, 1, 2), dtype=torch.float32)
     mean2 = x.square().mean(dim=(0, 1, 2), dtype=torch.float32)
+    if group is not None:  # the ranks' average of each rank's moments
+        mean, mean2 = all_reduce_mean_(torch.stack([mean, mean2]), group)
     var = (mean2 - mean * mean).clamp_(min=0)
     return mean, var, torch.rsqrt(var + eps)
 
@@ -396,11 +407,12 @@ def batch_statistics(x: torch.Tensor, eps: float):
 class _BnReluPool(torch.autograd.Function):
     """(pooled, mean, var) = f(x, scale, bias); eps and the route are not
     differentiable, and neither are the mean and var outputs: they feed
-    running-statistics buffers (the JAX custom_vjp drops their cotangents)."""
+    running-statistics buffers (the JAX custom_vjp drops their cotangents).
+    Neither is the group."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, use_kernels):
-        mean, var, rstd = batch_statistics(x, eps)
+    def forward(ctx, x, scale, bias, eps, use_kernels, group):
+        mean, var, rstd = batch_statistics(x, eps, group)
         a = (rstd * scale).to(x.dtype)
         b = (bias - mean * rstd * scale).to(x.dtype)
         if use_kernels:
@@ -408,7 +420,7 @@ class _BnReluPool(torch.autograd.Function):
         else:
             pooled = stem_fwd_reference(x, a, b)
         ctx.save_for_backward(x, scale, mean, rstd, a, b)
-        ctx.use_kernels = use_kernels
+        ctx.use_kernels, ctx.group = use_kernels, group
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
@@ -422,16 +434,20 @@ class _BnReluPool(torch.autograd.Function):
         else:
             dy, sb, sg = stem_bwd_reference(x, g, a, b, mean, rstd)
         m_count = x.shape[0] * x.shape[1] * x.shape[2]
+        total_b, total_g = sb, sg
+        if ctx.group is not None:  # the whole batch's sums and count
+            total_b, total_g = all_reduce_sum_(torch.stack([sb, sg]), ctx.group)
+            m_count *= world_of(ctx.group)
         k1 = scale * rstd
-        k2 = k1 * sb / m_count
-        k3 = k1 * sg / m_count
+        k2 = k1 * total_b / m_count
+        k3 = k1 * total_g / m_count
         # dx = k1·dy − k2 − k3·x̂ in one pass, x̂'s factor rstd folded into k3
         dx_fn = launch_stem_dx if ctx.use_kernels else stem_dx_reference
         dx = dx_fn(x, dy, k1, -k2, -(k3 * rstd), mean)
-        return dx, sg, sb, None, None
+        return dx, sg, sb, None, None, None
 
 
-def _bn_relu_pool(x, scale, bias, eps, use_kernels):
+def _bn_relu_pool(x, scale, bias, eps, use_kernels, group=None):
     if x.ndim != 4:
         raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
     if x.shape[1] % 2 or x.shape[2] % 2:
@@ -439,11 +455,11 @@ def _bn_relu_pool(x, scale, bias, eps, use_kernels):
             "bn_relu_pool_train requires even H and W (3x3/2 pool with "
             f"padding 1 over an even grid); got H={x.shape[1]}, "
             f"W={x.shape[2]}")
-    return _BnReluPool.apply(x, scale, bias, float(eps), use_kernels)
+    return _BnReluPool.apply(x, scale, bias, float(eps), use_kernels, group)
 
 
 def bn_relu_pool_train(x: torch.Tensor, scale: torch.Tensor,
-                       bias: torch.Tensor, eps: float = 1e-5):
+                       bias: torch.Tensor, eps: float = 1e-5, group=None):
     """maxpool3×3/2(relu(batchnorm_train(x))) with the minimal-residual
     backward.
 
@@ -451,12 +467,14 @@ def bn_relu_pool_train(x: torch.Tensor, scale: torch.Tensor,
     (C,) float32. Returns (pooled, mean, var): pooled (N, H/2, W/2, C) in
     x's dtype; mean and var the float32 batch statistics (biased variance,
     what the normalisation used), which carry NO gradient: they exist to
-    update running-statistics buffers.
+    update running-statistics buffers. ``group``: the data-parallel ranks
+    whose rows make up the batch (see the module docstring), None for this
+    tensor alone.
 
     CUDA tensors run the Hopper kernels (``stem_fwd`` here, ``stem_bwd`` and
     ``stem_dx`` in backward) or raise; CPU tensors run the plain versions.
     """
-    return _bn_relu_pool(x, scale, bias, eps, x.device.type != "cpu")
+    return _bn_relu_pool(x, scale, bias, eps, x.device.type != "cpu", group)
 
 
 def bn_relu_pool_reference(x: torch.Tensor, scale: torch.Tensor,

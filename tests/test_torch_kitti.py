@@ -354,7 +354,11 @@ def test_driver_writes_the_jax_layout(root, tmp_path, quick_eval):
 def test_driver_runs_on_cuda_unless_told_otherwise(root, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main_kitti.main(["--dset-dir", root], device=None)
-    with pytest.raises(SystemExit, match="A13"):
+    # --mesh is ported (A13); CUDA ranks need a GPU each, and none falls
+    # back to the CPU
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(SystemExit, match=f"--mesh 2 needs 2 GPUs, one a rank; "
+                                         f"{visible} visible"):
         main_kitti.main(["--dset-dir", root, "--mesh", "2"])
     with pytest.raises(SystemExit, match="A14"):
         main_kitti.main(["--dset-dir", root, "--profile-dir", str(tmp_path)])

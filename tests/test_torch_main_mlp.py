@@ -90,11 +90,18 @@ def test_parser_checks_match(argv, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mesh", "2"], "A13"),
+    # --mesh is ported (A13): two gloo ranks on the CPU run to the end
+    (["--mesh", "2", "--n", "4", "--batch-size", "16", "--n-steps", "1",
+      "--n-log-steps", "2", "--num-eval-batches", "1", "--seed", "0",
+      "--only-unsupervised"], None),
+    (["--mesh", "2", "--mesh-model", "2"], "A13b"),
     (["--profile-dir", "SAVE"], "A14"),
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(argv, item, tmp_path, capsys):
     argv = [str(tmp_path) if a == "SAVE" else a for a in argv]
+    if item is None:
+        assert np.all(np.isfinite(main_mlp.main(argv, device="cpu")))
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP.md item {item}"):
         main_mlp.main(argv, device="cpu")
 
@@ -247,6 +254,7 @@ def test_port_imports_no_jax():
         "import cl_ica_tpu_torch.ops.knn\n"
         "import cl_ica_tpu_torch.tools.make_synthetic_3dident\n"
         "import cl_ica_tpu_torch.cli.main_kitti, cl_ica_tpu_torch.data.kitti, cl_ica_tpu_torch.tools.make_synthetic_kitti\n"
+        "import cl_ica_tpu_torch.parallel\n"
         "import chip_smoke\n"
         "import tools.profile_torch_step\n"
         "import tools.compare_lse_kernels\n"
