@@ -134,10 +134,34 @@ use) and no network, and it exits non-zero on any failure. Phases:
              1e-5, then finite and falling); 11c the Lp (p=1, 2) and dot
              kernels at a rank's (B/W, B) block for W = 2, 4, 8 against
              their plain versions at phase 2's bars, with device ms and
-             bounds (the kernels line's "rect")
+             bounds (the kernels line's "rect"); 11a also runs main_3dident
+             --norm-kind minres8's step so
+ 12 options  the ResNet's remaining options. 12a the float8 modes of the
+             bn kernels (bn_apply8, bn_bwd8, bn_dx8; ops/bn_minres8.py) at
+             every norm shape of ResNet18 at 1024 images and two ragged
+             ones, float32 and bfloat16, in each of bn_relu, bn_add_relu and
+             bn_only, against their plain versions: xq byte-equal (also past
+             e4m3fn's range, where it is NaN), y bit-equal to the minres
+             apply kernel's, the sums and dx at the bn bars; xhat at 448,
+             464, 465, 500, inf and -500 (C9); the argmax pool's code mode
+             and scatter (pool_code, pool_scatter; ops/pool_minres.py) at
+             (1024, 112, 112, 64), tied and ragged shapes: pooled and codes
+             equal, dz equal to the plain version's and within a rounding of
+             max_pool2d_with_indices_backward's; their times and bounds.
+             12b cli.main_3dident --norm-kind minres8 at full width (ResNet18,
+             B=512, phase 6's fixture), 10 steps, step 1 bit-equal to
+             minres's, finite and falling, the float8 modes 20 times a step;
+             its --scan step against its eager step, bit for bit. 12c the
+             model options at B=512 (1024 random images of 224x224), one
+             training step each: stem_pool='argmax' against 'xla' (output
+             1e-5, gradients 1e-4 relative), stem='s2d_exact' against conv7
+             on the same weights, remat=True against none bit for bit with
+             the running buffers (cudnn.deterministic), stem='s2d' finite.
+             12d step ms and peak GiB, minres against minres8 and the xla
+             stem pool against argmax, in turns, float32 and --bf16
 
 ``--only a,b`` runs a subset of {mlp, stem, bn, 3dident, times, kitti,
-capture, prefetch, mesh} (the build
+capture, prefetch, mesh, options} (the build
 always runs) for a short look at one part. Such a run is no pass: it
 prints {"ok": false, "partial": [...]} and exits 1; the kernels line and
 the ok line are printed by the full run only.
@@ -177,7 +201,15 @@ from cl_ica_tpu_torch.data import (
 )
 from cl_ica_tpu_torch.data import threedident as data3d
 from cl_ica_tpu_torch.models import ConvEncoder64, construct_invertible_mlp, get_mlp
-from cl_ica_tpu_torch.ops import bn_minres, build, infonce, infonce_dot, stem
+from cl_ica_tpu_torch.ops import (
+    bn_minres,
+    bn_minres8,
+    build,
+    infonce,
+    infonce_dot,
+    pool_minres,
+    stem,
+)
 from cl_ica_tpu_torch.spaces.utils import fallback_count, reset_fallback_counts
 from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti
 from cl_ica_tpu_torch.train import (
@@ -269,6 +301,25 @@ KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
     "bn_dx": ("bn_dx_kernel<T, M>", "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
               "cl_ica_tpu/ops/bn_minres.py:106 (_bn_bwd_core's dx; XLA pass, "
               "not a pallas_call)"),
+    "bn_apply8": ("bn_apply_kernel<T, M, true>",
+                  "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
+                  "cl_ica_tpu/ops/bn_minres8.py:76 (_quantize, with the "
+                  "forwards' affine and relu; XLA pass, not a pallas_call)"),
+    "bn_bwd8": ("bn_bwd_kernel<T, M, true> + bn_reduce_kernel",
+                "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
+                "cl_ica_tpu/ops/bn_minres8.py:92 (_bwd_core8's sums and "
+                "_mask8 :111; XLA pass, not a pallas_call)"),
+    "bn_dx8": ("bn_dx_kernel<T, M, true>", "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
+               "cl_ica_tpu/ops/bn_minres8.py:106 (_bwd_core8's dx; XLA pass, "
+               "not a pallas_call)"),
+    "pool_code": ("stem_fwd_kernel<T, true>",
+                  "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
+                  "cl_ica_tpu/ops/pool_minres.py:48 (_pool_fwd_core; XLA "
+                  "reduce_window, not a pallas_call)"),
+    "pool_scatter": ("pool_scatter_kernel<T>",
+                     "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
+                     "cl_ica_tpu/ops/pool_minres.py:92 (_dz_stencil; XLA "
+                     "pass, not a pallas_call)"),
 }
 _RUN = ("--n 10 --batch-size 6144 --only-unsupervised --n-steps 100 "
         "--n-log-steps 50 --num-eval-batches 2 --seed 0").split()
@@ -1354,7 +1405,7 @@ def phase_3dident() -> dict:
     print(f"[6 3dident] 6a: mean loss steps 1-10 {first:.5f} -> last 10 "
           f"{lastw:.5f}; MCC {out_a['mcc']:.4f} linear R2 {out_a['lin']:.4f} "
           f"mean |hz| {out_a['mean_znorm']:.4f} (evaluation at step 21)")
-    if grew_a != {k: 0 if k in BN else steps for k in KERNELS}:
+    if grew_a != {k: steps if k in LP + DOT + STEM else 0 for k in KERNELS}:
         raise AssertionError(f"6a: launches {grew_a}, expected {steps} of each "
                              "loss and stem kernel, no bn kernel")
     if not lastw < first:
@@ -1703,17 +1754,18 @@ NORM_PATHS = {"minres": (), "fast": ("--norm-kind", "fast"),
               "fused": ("--fused-stem",)}
 
 
-def _step3d_pairs_per_sec(sampler, flags: tuple, bf16: bool
+def _step3d_pairs_per_sec(sampler, flags: tuple, bf16: bool, stem_pool: str = "xla"
                           ) -> tuple[float, float]:
     """(pairs/s, peak GiB) of steady unsupervised steps of main_3dident's
     default configuration (ResNet18, B = 512, everything on the card) with
-    ``flags``: main_3dident's own ``train_step`` on its own model and loss."""
+    ``flags`` (and the backbone's ``stem_pool``): main_3dident's own
+    ``train_step`` on its own model and loss."""
     argv = _RUN3D + ["--mode", "unsupervised", *flags] + (["--bf16"] if bf16 else [])
     args = main_3dident.parse_args(argv)
     _, n_non_ang, n_ang = main_3dident.setup_latent_space(args)
     model = main_3dident.build_encoder(
         args, n_non_ang + n_ang, n_non_ang,
-        torch.Generator().manual_seed(0)).cuda().train()
+        torch.Generator().manual_seed(0), stem_pool=stem_pool).cuda().train()
     loss = main_3dident.build_split_loss(args, n_non_ang)
     opt, _ = make_optimizer(model.parameters(), args.lr)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2494,7 +2546,15 @@ def _mesh_w1_rank(device) -> dict:
                        "tensors": _params_equal(lanes[0].f.parameters(),
                                                 lanes[1].f.parameters()),
                        "launches": infonce.launch_counts()}
-    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    for tag, extra in (("3dident", ()), ("3dident minres8", ("--norm-kind", "minres8"))):
+        out[tag] = _mesh_w1_3dident(mesh, device, extra)
+    return out
+
+
+def _mesh_w1_3dident(mesh, device, extra: tuple) -> dict:
+    """11a's main_3dident lane (with the driver flags ``extra``): the eager
+    one-device step against the mesh step at world size 1."""
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised", *extra])
     space, na, n_ang = main_3dident.setup_latent_space(args)
     sampler = ThreeDIdentBatchSampler(FIXTURE, space, 512, device=device)
 
@@ -2516,13 +2576,12 @@ def _mesh_w1_rank(device) -> dict:
     got = torch.stack([torch.stack(step(*main_3dident.draw_rank_views(
         sampler, gen2, rows)[1::2])) for _ in range(MESH_STEPS)])
     torch.cuda.synchronize()
-    out["3dident"] = {"outputs_equal": torch.equal(got, want),
-                      "max_diff": float((got - want).abs().max()),
-                      "tensors": _params_equal(
-                          list(model.parameters()) + list(model.buffers()),
-                          list(model2.parameters()) + list(model2.buffers())),
-                      "launches": infonce.launch_counts()}
-    return out
+    return {"outputs_equal": torch.equal(got, want),
+            "max_diff": float((got - want).abs().max()),
+            "tensors": _params_equal(
+                list(model.parameters()) + list(model.buffers()),
+                list(model2.parameters()) + list(model2.buffers())),
+            "launches": infonce.launch_counts()}
 
 
 def _hold_mesh_w1() -> dict:
@@ -2532,7 +2591,8 @@ def _hold_mesh_w1() -> dict:
     launches = {k: 0 for k in KERNELS}
     per_step = {"box": {k: 1 for k in LP}, "simclr": {k: 1 for k in DOT},
                 "3dident": {**{k: 1 for k in LP + DOT},
-                            **{k: BN_NORMS_A_STEP for k in BN}}}
+                            **{k: BN_NORMS_A_STEP for k in BN}},
+                "3dident minres8": MINRES8_STEP}
     for tag, want in per_step.items():
         r = got[tag]
         grew = {k: v for k, v in r["launches"].items() if v}
@@ -2687,14 +2747,473 @@ def phase_mesh(worst: dict, smi: str) -> tuple[dict, dict]:
     return launches, rect
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the ResNet's remaining options (minres8, the argmax-code stem
+# pool, the s2d stems, remat)
+# ---------------------------------------------------------------------------
+
+BN8 = ("bn_apply8", "bn_bwd8", "bn_dx8")     # minres8's modes of the bn kernels
+POOL = ("pool_code", "pool_scatter")        # the argmax-code pool's
+MINRES8_STEP = {**dict.fromkeys(LP + DOT, 1), "bn_stats": BN_NORMS_A_STEP,
+                **dict.fromkeys(BN8, BN_NORMS_A_STEP)}
+# the stem's norm of the argmax pool: its statistics, the code and scatter,
+# and the backward sums and dx of bn_relu; the other 19 norms minres's
+ARGMAX_STEP = {"bn_stats": BN_NORMS_A_STEP, "bn_apply": BN_NORMS_A_STEP - 1,
+               "bn_bwd": BN_NORMS_A_STEP, "bn_dx": BN_NORMS_A_STEP,
+               **dict.fromkeys(POOL, 1)}
+# xhat values that pin the conversion past e4m3fn's range (C9): NaN past
+# 464 with the sign, 464 itself to 448
+E4M3_EDGES = (448.0, 464.0, 465.0, 500.0, math.inf, -500.0)
+OPTIONS_B = 512  # 12c: one forward of 1024 images of 224x224
+
+
+def _hold_bn8(shape, dtype, gen, worst: dict) -> None:
+    """The three float8 modes at one shape against their plain versions, in
+    each of bn_relu, bn_add_relu and bn_only: xq byte-equal (also at
+    inputs whose xhat passes e4m3fn's range: a channel's rstd times 300),
+    y bit-equal to the minres apply kernel's, the sums (two calls bit for
+    bit) and dx (with g) at the bn bars, given the plain version's
+    statistics, sums and factors."""
+    x, res, dy, scale, bias = _bn_inputs(shape, dtype, gen)
+    mean, _, rstd = bn_minres.channel_stats(x, EPS)
+    a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
+    s, t = scale.to(dtype), bias.to(dtype)
+    count = x.numel() // shape[-1]
+    big = rstd.clone()
+    big[: shape[-1] // 2] *= 300.0  # |xhat| past 464 in half the channels
+    name = str(dtype).removeprefix("torch.")
+    fails, parts, nans = [], [], 0
+    for fn, with_res, relu in BN_FUNCTIONS:
+        r = res if with_res else None
+        y8, xq = bn_minres8.launch_apply8(x, a, b, mean, rstd, r, relu)
+        y = bn_minres.launch_apply(x, a, b, r, relu)
+        y_p, xq_p = bn_minres8.apply8_reference(x, a, b, mean, rstd, r, relu)
+        same_y = torch.equal(y8, y)
+        e_y, o_y = _same_map(y8, y_p, dtype)
+        same_q = torch.equal(xq.view(torch.uint8), xq_p.view(torch.uint8))
+        _, xq_big = bn_minres8.launch_apply8(x, a, b, mean, big, r, relu)
+        q_big = bn_minres8.quantize_reference(x, mean, big).view(torch.uint8)
+        same_big = torch.equal(xq_big.view(torch.uint8), q_big)
+        nans += int(((q_big & 0x7F) == 0x7F).sum())
+        del y8, y, y_p, xq_big, q_big
+        sums = bn_minres8.launch_bwd8(xq, dy, s, t, r, relu)
+        sums2 = bn_minres8.launch_bwd8(xq, dy, s, t, r, relu)
+        torch.cuda.synchronize()
+        repeats = all(torch.equal(p, q) for p, q in zip(sums, sums2))
+        sums_p = bn_minres8.bwd8_reference(xq_p, dy, s, t, r, relu)
+        e_sums = max(rel_err(k, p) for k, p in zip(sums, sums_p))
+        k = bn_minres8.dx8_factors(scale, rstd, *sums_p, count, dtype)
+        dx, g = bn_minres8.launch_dx8(xq, dy, k, s, t, r, relu)
+        dx_p, g_p = bn_minres8.dx8_reference(xq_p, dy, k, s, t, r, relu)
+        e_dx, o_dx = _map_err(dx, dx_p, dtype)
+        e_g, o_g = _same_map(g, g_p, dtype) if with_res else (0.0, 0.0)
+        del dx, g, dx_p, g_p, xq, xq_p
+        worst["bn_apply8"] = max(worst.get("bn_apply8", 0.0), e_y)
+        worst["bn_bwd8"] = max(worst.get("bn_bwd8", 0.0), max(
+            float((p - q).abs().max()) for p, q in zip(sums, sums_p)))
+        worst["bn_sums8_rel"] = max(worst.get("bn_sums8_rel", 0.0), e_sums)
+        worst["bn_dx8"] = max(worst.get("bn_dx8", 0.0), e_dx, e_g)
+        parts.append(f"{fn}8: xq {'byte-equal' if same_q else 'DIFFER'} (past "
+                     f"464 {'byte-equal' if same_big else 'DIFFER'}), y "
+                     f"{'bit-equal to minres' if same_y else 'DIFFERS from minres'}"
+                     f" ({e_y:.2e} from plain), sums rel {e_sums:.2e} "
+                     f"(twice {'bit-equal' if repeats else 'DIFFER'}), dx "
+                     f"{e_dx:.2e} ({o_dx:.2f})"
+                     + (f" g {e_g:.2e} ({o_g:.2f})" if with_res else ""))
+        if (not (same_q and same_big and same_y and repeats) or o_y > 1.0
+                or e_sums > BN_SUM_BAR or o_dx > 1.0 or o_g > 1.0):
+            fails.append(fn)
+    print(f"[12 options] bn8 {tuple(shape)} {name}: " + "; ".join(parts)
+          + f"; NaN bytes past 464: {nans}")
+    if fails or not nans:
+        raise AssertionError(f"12a float8 modes vs plain, {shape} {name}: {fails}")
+
+
+def _hold_e4m3_edges() -> None:
+    """xhat at 448, 464, 465, 500, inf, -500 (C9): the kernel's bytes equal
+    the plain version's, which are the JAX package's: 0x7e 0x7e 0x7f 0x7f
+    0x7f 0xff."""
+    c = 8
+    x = torch.tensor(E4M3_EDGES, device="cuda").repeat_interleave(c).reshape(
+        len(E4M3_EDGES), 1, 1, c)
+    zero, one = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+    _, xq = bn_minres8.launch_apply8(x, one, zero, zero, one, None, False)
+    got = xq.view(torch.uint8)[:, 0, 0, 0].tolist()
+    want = bn_minres8.quantize_reference(x, zero, one).view(torch.uint8)[:, 0, 0, 0]
+    print(f"[12 options] e4m3 bytes of xhat {E4M3_EDGES}: kernel "
+          f"{[hex(v) for v in got]}, plain {[hex(v) for v in want.tolist()]}")
+    if got != want.tolist() or got != [0x7E, 0x7E, 0x7F, 0x7F, 0x7F, 0xFF]:
+        raise AssertionError(f"12a e4m3 edges: {got}")
+
+
+def _hold_pool(shape, dtype, gen, worst: dict, tied: bool = False) -> None:
+    """The code mode and the scatter at one shape: pooled equal to the plain
+    version's and to F.max_pool2d of the minres apply kernel's output, the
+    codes byte-equal; dz of the scatter equal to the plain version's (the
+    same additions in the same order) and to the library's
+    max_pool2d_with_indices_backward within a rounding (it adds in float32
+    and rounds once)."""
+    x, scale, bias, g = _stem_inputs(shape, dtype, gen, tied)
+    mean, _, rstd = bn_minres.channel_stats(x, EPS)
+    a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
+    pooled, code = pool_minres.launch_pool_code(x, a, b)
+    pooled_p, code_p = pool_minres.pool_code_reference(x, a, b)
+    z = bn_minres.launch_apply(x, a, b).permute(0, 3, 1, 2)
+    lib_pooled, idx = F.max_pool2d(z, 3, 2, 1, return_indices=True)
+    same_p = torch.equal(pooled, pooled_p)
+    same_lib = torch.equal(pooled, lib_pooled.permute(0, 2, 3, 1))
+    same_c = torch.equal(code, code_p)
+    worst["pool_code"] = max(worst.get("pool_code", 0.0),
+                             float((pooled.float() - pooled_p.float()).abs().max()))
+    del pooled_p, lib_pooled, code_p
+    n, h, w, c = shape
+    dz = pool_minres.launch_pool_scatter(g, code, h, w)
+    dz_p = pool_minres.pool_scatter_reference(g, code, h, w)
+    same_dz = torch.equal(dz, dz_p)
+    worst["pool_scatter"] = max(worst.get("pool_scatter", 0.0),
+                                float((dz.float() - dz_p.float()).abs().max()))
+    lib = torch.ops.aten.max_pool2d_with_indices_backward(
+        g.permute(0, 3, 1, 2), z, [3, 3], [2, 2], [1, 1], [1, 1], False,
+        idx).permute(0, 2, 3, 1)
+    # the library adds a position's (at most four) gradients in float32 and
+    # rounds once; the kernel, as the JAX stencil, rounds each sum to the
+    # map's dtype: float32 within STEM_MAP_BAR, bfloat16 within two ulps of
+    # the map's largest value
+    e_lib = float((dz.float() - lib.float()).abs().max())
+    o_lib = e_lib / float(lib.float().abs().max()) / (
+        2 * BF16_ULP if dtype == torch.bfloat16 else STEM_MAP_BAR)
+    del z, idx, lib, dz_p
+    name = str(dtype).removeprefix("torch.")
+    print(f"[12 options] pool {tuple(shape)} {name}{' tied' if tied else ''}: "
+          f"pooled {'equal' if same_p else 'DIFFER'} to plain, "
+          f"{'equal' if same_lib else 'DIFFER'} to max_pool2d(bn_relu); codes "
+          f"{'byte-equal' if same_c else 'DIFFER'}; dz "
+          f"{'equal' if same_dz else 'DIFFER'} to plain, {e_lib:.2e} from the "
+          f"library's backward (over bar {o_lib:.2f})")
+    if not (same_p and same_lib and same_c and same_dz) or o_lib > 1.0:
+        raise AssertionError(f"12a argmax pool kernels, {shape} {name}")
+
+
+def _bn8_bounds(shape, dtype) -> dict:
+    """The least ms of the five kernels of phase 12 at this shape (the f8
+    modes in bn_relu's mode): bytes over the memory rate against operations
+    over the float32 rate. apply8: x read, y written, xq written (1 byte);
+    bwd8: xq and dy read; dx8: xq and dy read, dx written; pool_code: x
+    read, pooled and the codes (a quarter of x's positions) written;
+    pool_scatter: dp and codes read, dz written."""
+    elems = math.prod(shape)
+    size = 2 if dtype == torch.bfloat16 else 4
+    out = {}
+    for k, nbytes, ops in (("bn_apply8", elems * (2 * size + 1), elems * 6),
+                           ("bn_bwd8", elems * (size + 1), elems * 6),
+                           ("bn_dx8", elems * (2 * size + 1), elems * 7),
+                           ("pool_code", elems * (1.25 * size + 0.25), elems * 6),
+                           ("pool_scatter", elems * (1.25 * size + 0.25),
+                            elems * 3)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+        out[k] = (1e3 * max(t_bytes, t_ops),
+                  "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+OPTIONS_TIMED = BN8 + POOL
+
+
+def _time_options(dtype, smi: str) -> dict:
+    """ms of the five kernels at STEM_FULL (the f8 modes in bn_relu's mode)
+    against their plain versions and, for the scatter, PyTorch's
+    max_pool2d_with_indices_backward (held to it in _hold_pool), in turns.
+    No single PyTorch call computes the f8 modes or the code."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, _, dy, scale, bias = _bn_inputs(STEM_FULL, dtype, gen)
+    mean, _, rstd = bn_minres.channel_stats(x, EPS)
+    a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
+    s, t = scale.to(dtype), bias.to(dtype)
+    xq = bn_minres8.quantize_reference(x, mean, rstd)
+    k = bn_minres8.dx8_factors(scale, rstd, *bn_minres8.bwd8_reference(
+        xq, dy, s, t), x.numel() // x.shape[-1], dtype)
+    code = pool_minres.pool_code_reference(x, a, b)[1]
+    n, h, w, c = STEM_FULL
+    g = torch.randn(code.shape, device="cuda", generator=gen).to(dtype)
+    z = bn_minres.bn_apply_reference(x, a, b).permute(0, 3, 1, 2)
+    _, idx = F.max_pool2d(z, 3, 2, 1, return_indices=True)
+    g4 = g.permute(0, 3, 1, 2)
+    cases = {
+        "kernel": {
+            "bn_apply8": lambda: bn_minres8.launch_apply8(x, a, b, mean, rstd),
+            "bn_bwd8": lambda: bn_minres8.launch_bwd8(xq, dy, s, t),
+            "bn_dx8": lambda: bn_minres8.launch_dx8(xq, dy, k, s, t),
+            "pool_code": lambda: pool_minres.launch_pool_code(x, a, b),
+            "pool_scatter": lambda: pool_minres.launch_pool_scatter(g, code, h, w)},
+        "plain": {
+            "bn_apply8": lambda: bn_minres8.apply8_reference(x, a, b, mean, rstd),
+            "bn_bwd8": lambda: bn_minres8.bwd8_reference(xq, dy, s, t),
+            "bn_dx8": lambda: bn_minres8.dx8_reference(xq, dy, k, s, t),
+            "pool_code": lambda: pool_minres.pool_code_reference(x, a, b),
+            "pool_scatter": lambda: pool_minres.pool_scatter_reference(g, code, h, w)},
+        "library": {
+            "pool_scatter": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                g4, z, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)},
+    }
+    order = ("plain", "library", "kernel")
+    out = {}
+    for who in order + order[::-1]:
+        times = {key: _median_ms(f, reps=7, warmup=2) for key, f in cases[who].items()}
+        out[who] = {key: min(v, out.get(who, {}).get(key, v)) for key, v in times.items()}
+    for who in order:
+        out[who] = {key: out[who].get(key) for key in OPTIONS_TIMED}
+    name = str(dtype).removeprefix("torch.")
+    ms = lambda v: "-" if v is None else f"{v:.3f}"
+    _say_time(f"[12 times] {STEM_FULL} {name}, ms (kernel / plain / library), "
+              f"median of 7 after warm-up, better of two turns, on {smi}: "
+              + "; ".join(f"{key} {ms(out['kernel'][key])} / {ms(out['plain'][key])}"
+                          f" / {ms(out['library'][key])}" for key in OPTIONS_TIMED))
+    for key, (tb, by) in _bn8_bounds(STEM_FULL, dtype).items():
+        _say_time(f"[12 times] bound {key} {name}: {tb:.3f} ms, set by {by} "
+                  f"(3.35 TB/s, 67 TFLOP/s fp32)")
+    return out
+
+
+def _options_kernels(worst: dict, smi: str) -> dict:
+    """12a: the five kernels against their plain versions, then their
+    times."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in RN18_NORMS + ((3, 5, 7, 2064), (2, 3, 5, 24)):
+            _hold_bn8(shape, dtype, gen, worst)
+            torch.cuda.empty_cache()
+        for shape, tied in ((STEM_FULL, False), ((2, 6, 10, 16), True),
+                            ((3, 4, 8, 1024), False)):
+            _hold_pool(shape, dtype, gen, worst, tied)
+            torch.cuda.empty_cache()
+    _hold_e4m3_edges()
+    # the scatter and the code refuse what they cannot take
+    for bad in (lambda: pool_minres.launch_pool_code(
+                    torch.zeros((2, 7, 8, 16), device="cuda"),
+                    torch.ones(16, device="cuda"), torch.ones(16, device="cuda")),
+                lambda: bn_minres8.launch_bwd8(
+                    torch.zeros((2, 4, 4, 16), device="cuda"),
+                    torch.zeros((2, 4, 4, 16), device="cuda"),
+                    torch.ones(16, device="cuda"), torch.ones(16, device="cuda"))):
+        try:
+            bad()
+        except ValueError:
+            continue
+        raise AssertionError("12a: a wrapper took an odd H or a float32 xq")
+    print(f"[12 options] 12a kernels held in {time.perf_counter() - t0:.1f} s")
+    times = {dtype: _time_options(dtype, smi)
+             for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    return times
+
+
+def _options_driver() -> dict:
+    """12b: main_3dident --norm-kind minres8 at full width, then its
+    captured step against its eager step. Returns the launches of the
+    driver's run."""
+    t0 = time.perf_counter()
+    unsup = ["--mode", "unsupervised", "--n-log-steps", "100",
+             "--n-eval-samples", "1024"]
+    first, _, _ = _run_3dident("12b default (minres), 1 step",
+                               unsup + ["--iterations", "1"])
+    out, grew, secs = _run_3dident("12b --norm-kind minres8",
+                                   unsup + ["--norm-kind", "minres8",
+                                            "--iterations", "10"])
+    losses = out["losses"]
+    print(f"[12 options] 12b main_3dident --norm-kind minres8, ResNet18 B=512: "
+          f"losses {[round(v, 6) for v in losses]}; step 1 "
+          f"{'bit-equal' if losses[0] == first['losses'][0] else 'DIFFERS'} to "
+          f"minres's ({first['losses'][0]!r}); launches {grew}")
+    want = {k: 10 * MINRES8_STEP.get(k, 0) for k in KERNELS}
+    if grew != want:
+        raise AssertionError(f"12b minres8: launches {grew}, expected {want}")
+    if losses[0] != first["losses"][0] or not _falling(losses):
+        raise AssertionError(f"12b minres8: {losses} (minres {first['losses']})")
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    sampler = ThreeDIdentBatchSampler(
+        FIXTURE, main_3dident.setup_latent_space(args)[0], 512, device="cuda")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _hold_capture("main_3dident --scan --norm-kind minres8 ResNet18 B=512",
+                      functools.partial(_3dident_capture_lane, sampler,
+                                        "--norm-kind", "minres8"),
+                      MINRES8_STEP, 4)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    del sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[12 options] 12b {time.perf_counter() - t0:.1f} s")
+    return grew
+
+
+def _grads_of(model, x):
+    """(output, {name: grad}, {name: buffer}) of one training forward and
+    the backward of the sum of squares of the output."""
+    out = model(x)
+    out.square().sum().backward()
+    return (out.detach(), {k: p.grad for k, p in model.named_parameters()},
+            {k: v.clone() for k, v in model.named_buffers()})
+
+
+def _rel_max(got: dict, want: dict) -> float:
+    """The largest rel_err over the tensors of ``want`` (none all zero)."""
+    return max(rel_err(got[k].double(), want[k].double())
+               for k in want if want[k].abs().max() > 0)
+
+
+def _options_models() -> dict:
+    """12c: the model options at full width, ResNet18 on 1024 images of
+    224x224 (B = 512 pairs), one training forward and backward each:
+    stem_pool='argmax' against 'xla' (output 1e-5, gradients 1e-4
+    relative, the running buffers), s2d_exact against conv7 on the same
+    weights (the net's output, and the stem's output and weight gradient
+    against float64), remat against none bit for bit (cudnn.deterministic, the
+    buffers included; the launches of the recompute counted) and s2d
+    finite. Returns the argmax run's launches."""
+    from cl_ica_tpu_torch.models import ResNet18
+    from cl_ica_tpu_torch.models.resnet import s2d_exact_weight, space_to_depth
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((2 * OPTIONS_B, 3, 224, 224), device="cuda", generator=gen)
+
+    def run(**kw):
+        model = ResNet18(num_classes=110, generator=torch.Generator().manual_seed(0),
+                         **kw).cuda().train()
+        infonce.reset_launch_counts()
+        out = _grads_of(model, x)
+        torch.cuda.synchronize()
+        grew = {k: v for k, v in infonce.launch_counts().items() if v}
+        del model
+        return out, grew
+
+    (o_x, g_x, b_x), grew_x = run(norm_kind="minres")
+    (o_a, g_a, b_a), grew_a = run(norm_kind="minres", stem_pool="argmax")
+    e_out, e_grad = rel_err(o_a, o_x), _rel_max(g_a, g_x)
+    e_buf = _rel_max(b_a, b_x)
+    print(f"[12 options] 12c stem_pool='argmax' vs 'xla' (minres): output rel "
+          f"{e_out:.2e}, gradients rel {e_grad:.2e}, running buffers rel "
+          f"{e_buf:.2e}; launches {grew_a} (xla: {grew_x})")
+    want_a = {k: v for k, v in ARGMAX_STEP.items()}
+    if e_out > VALUE_BAR or e_grad > GRAD_BAR or e_buf > VALUE_BAR or grew_a != want_a:
+        raise AssertionError(f"12c argmax: {e_out}, {e_grad}, {e_buf}, {grew_a}")
+    (o_e, _, _), _ = run(norm_kind="minres", stem="s2d_exact")
+    e_out = rel_err(o_e, o_x)
+    del g_x, b_x
+    # the stem itself, conv7 and the 4x4 kernel over the space-to-depth
+    # input, on the same weight and images: output and weight gradient
+    # (under one upstream gradient) against float64. The whole net's
+    # gradients are no yardstick here: at its initial norms a 1e-6 change
+    # of the forward moved some leaves' gradients by 6e-3 (measured on the
+    # H100 at these inputs), through the norms' cancellations
+    w = ResNet18(num_classes=110, generator=torch.Generator().manual_seed(0)
+                 ).conv_init.weight.detach().cuda().requires_grad_()
+    gy = torch.randn((2 * OPTIONS_B, 64, 112, 112), device="cuda", generator=gen)
+    routes = {"conv7": lambda v, k: F.conv2d(v, k, None, 2, 3),
+              "s2d_exact": lambda v, k: F.conv2d(F.pad(space_to_depth(v), (2, 1, 2, 1)),
+                                                 s2d_exact_weight(k))}
+    with torch.no_grad():
+        y64 = routes["conv7"](x[:64].double(), w.double())
+    g64 = torch.nn.grad.conv2d_weight(x.double(), w.shape, gy.double(), stride=2,
+                                      padding=3)
+    stem_err = {}
+    for name, f in routes.items():
+        y = f(x, w)
+        (gw,) = torch.autograd.grad(y, w, gy)
+        stem_err[name] = (rel_err(y[:64].detach().double(), y64),
+                          rel_err(gw.double(), g64))
+        del y, gw
+    del g64, gy
+    (f7, w7), (fs, ws) = stem_err["conv7"], stem_err["s2d_exact"]
+    print(f"[12 options] 12c stem='s2d_exact' vs conv7 on the same weights: "
+          f"the net's output rel {e_out:.2e}; the stem against float64, "
+          f"output (64 images) {fs:.2e} (conv7 {f7:.2e}), weight gradient "
+          f"{ws:.2e} (conv7 {w7:.2e})")
+    if (e_out > VALUE_BAR or fs > max(2 * f7, VALUE_BAR)
+            or ws > max(2 * w7, GRAD_BAR)):
+        raise AssertionError(f"12c s2d_exact: {e_out}, {stem_err}")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (o_n, g_n, b_n), grew_n = run(norm_kind="minres")
+        (o_r, g_r, b_r), grew_r = run(norm_kind="minres", remat=True)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    same = (torch.equal(o_r, o_n) and all(torch.equal(g_r[k], g_n[k]) for k in g_n)
+            and all(torch.equal(b_r[k], b_n[k]) for k in b_n))
+    print(f"[12 options] 12c remat=True vs none (cudnn.deterministic): output, "
+          f"{len(g_n)} gradients and {len(b_n)} buffers "
+          f"{'bit-equal' if same else 'DIFFER'}; launches {grew_r} (the "
+          f"recompute runs the 19 block norms' statistics and apply again; "
+          f"none: {grew_n})")
+    recompute = BN_NORMS_A_STEP - 1
+    want_r = {**grew_n, "bn_stats": grew_n["bn_stats"] + recompute,
+              "bn_apply": grew_n["bn_apply"] + recompute}
+    if not same or grew_r != want_r:
+        raise AssertionError(f"12c remat: same {same}, launches {grew_r}")
+    del g_n, b_n, g_r, b_r, g_a, b_a
+    (o_s, g_s, _), _ = run(norm_kind="minres", stem="s2d")
+    finite = bool(torch.isfinite(o_s).all()) and all(
+        bool(torch.isfinite(v).all()) for v in g_s.values())
+    print(f"[12 options] 12c stem='s2d': output {tuple(o_s.shape)}, output and "
+          f"gradients {'finite' if finite else 'NOT finite'}")
+    if not finite:
+        raise AssertionError("12c s2d: not finite")
+    del x, g_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[12 options] 12c {time.perf_counter() - t0:.1f} s")
+    return {k: v for k, v in grew_a.items() if k in POOL}
+
+
+def _options_steps(smi: str) -> None:
+    """12d: step ms and peak GiB of main_3dident's unsupervised step, minres
+    against minres8 and the xla stem pool against argmax, in turns, float32
+    and --bf16."""
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    sampler = ThreeDIdentBatchSampler(
+        FIXTURE, main_3dident.setup_latent_space(args)[0], 512, device="cuda")
+    paths = {"minres": ((), "xla"), "minres8": (("--norm-kind", "minres8"), "xla"),
+             "argmax": ((), "argmax")}
+    turns = ("minres", "minres8", "argmax", "argmax", "minres8", "minres")
+    for bf16 in (False, True):
+        runs = [_step3d_pairs_per_sec(sampler, paths[k][0], bf16, paths[k][1])
+                for k in turns]
+        _say_time(f"[12 times] 3DIdent step, ResNet18 B=512 "
+                  f"{'--bf16' if bf16 else 'float32, TF32 off'}, 10 steady "
+                  f"steps, ms a step (peak GiB) in turns "
+                  + ", ".join(f"{k} {512e3 / p:.3f} ({m:.3f})"
+                              for k, (p, m) in zip(turns, runs))
+                  + f" on {smi}")
+    del sampler
+
+
+def phase_options(worst: dict, smi: str) -> tuple[dict, dict]:
+    """Phase 12. Returns the main paths' launches (12b, 12c) and 12a's
+    times."""
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(FIXTURE, "raw_latents.npy")):
+        phase_fixture()
+    times = _options_kernels(worst, smi)
+    launches = _options_driver()
+    for k, v in _options_models().items():
+        launches[k] = launches.get(k, 0) + v
+    _options_steps(smi)
+    print(f"[12 options] {time.perf_counter() - t0:.1f} s")
+    return launches, times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma-separated subset of mlp,stem,bn,3dident,times,"
-                         "kitti,capture,prefetch,mesh")
+                         "kitti,capture,prefetch,mesh,options")
     only = set(filter(None, ap.parse_args().only.split(",")))
     unknown = only - {"mlp", "stem", "bn", "3dident", "times", "kitti", "capture",
-                      "prefetch", "mesh"}
+                      "prefetch", "mesh", "options"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown --only parts {sorted(unknown)}")
     run = lambda part: not only or part in only
@@ -2736,6 +3255,10 @@ def main() -> int:
         grew, rect = phase_mesh(worst, smi)
         for k, v in grew.items():
             launches[k] += v
+    if run("options"):
+        grew, times_options = phase_options(worst, smi)
+        for k, v in grew.items():
+            launches[k] += v
     if only:
         print(json.dumps({"ok": False, "partial": sorted(only)}))
         return 1
@@ -2745,12 +3268,28 @@ def main() -> int:
     stem_bounds16 = _stem_bounds(STEM_FULL, torch.bfloat16)
     bn_bounds = _bn_bounds(STEM_FULL, torch.float32)
     bn_bounds16 = _bn_bounds(STEM_FULL, torch.bfloat16)
+    options_bounds = _bn8_bounds(STEM_FULL, torch.float32)
+    options_bounds16 = _bn8_bounds(STEM_FULL, torch.bfloat16)
     kernels = []
     for key, (kname, source, replaces) in KERNELS.items():
         entry = {"name": kname, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[key],
                  "max_abs_err": worst[key]}
-        if key in BN:
+        if key in BN8 + POOL:
+            t32, t16 = times_options[torch.float32], times_options[torch.bfloat16]
+            entry.update({
+                "ms": t32["kernel"][key], "plain_ms": t32["plain"][key],
+                "bound_ms": options_bounds[key][0],
+                "bound_by": options_bounds[key][1],
+                "library_ms": t32["library"][key], "shape": list(STEM_FULL),
+                "ms_bf16": t16["kernel"][key], "plain_ms_bf16": t16["plain"][key],
+                "bound_ms_bf16": options_bounds16[key][0],
+                "library_ms_bf16": t16["library"][key]})
+            if key in BN8:
+                entry["mode"] = "bn_relu"
+            if key == "bn_bwd8":
+                entry["sums_max_rel_err"] = worst["bn_sums8_rel"]
+        elif key in BN:
             k = key.removeprefix("bn_")
             t32, t16 = times_bn[torch.float32], times_bn[torch.bfloat16]
             entry.update({

@@ -19,7 +19,8 @@ training batches ahead of the step and copy them to the device while it
 runs, and the evaluation, --mode supervised and --mode test gather their
 rows on the host (the native gather) and copy them over. The default
 ``--norm-kind minres`` runs every norm of the ResNet through the
-``ops.bn_minres`` kernels;
+``ops.bn_minres`` kernels (``minres8`` through their float8 modes,
+``ops.bn_minres8``);
 ``--fused-stem`` takes the stem tail through the ``ops.stem`` kernels
 instead and the other norms through the plain 'fast' norm, as the JAX
 driver forces. ``--scan`` captures the unsupervised step once as a
@@ -185,10 +186,11 @@ def parse_args(argv=None):
                              "add) in functions that keep only their input "
                              "(and a block's output) for the backward "
                              "(ops/bn_minres, four CUDA "
-                             "kernels); 'fast' and 'batch' are the plain "
-                             "norm under autograd. --fused-stem forces "
-                             "'fast'. 'minres8' (float8 residuals) is not "
-                             "ported: ROADMAP A14.")
+                             "kernels); 'minres8' is minres keeping the "
+                             "normalised input as float8 for the backward "
+                             "(ops/bn_minres8); 'fast' and 'batch' are the "
+                             "plain norm under autograd. --fused-stem forces "
+                             "'fast'.")
     parser.add_argument("--scan", action="store_true",
                         help="Capture the unsupervised training step once "
                              "as a CUDA graph and replay it between log/save "
@@ -295,8 +297,6 @@ def refuse_unported(args) -> None:
         (args.mesh_model and args.mesh_model > 1,
          "--mesh-model (tensor parallelism)", "A13b"),
         (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
-        (args.norm_kind == "minres8",
-         "--norm-kind minres8 (float8 norm residuals)", "A14"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -404,6 +404,7 @@ class ThreeDIdentEncoder(nn.Module):
         fused_stem: bool = False,
         norm_kind: str = "minres",
         generator=None,
+        stem_pool: str = "xla",
     ):
         super().__init__()
         n = n_latents
@@ -422,6 +423,7 @@ class ThreeDIdentEncoder(nn.Module):
                 dtype=dtype,
                 norm_kind="fast" if fused_stem else norm_kind,
                 fused_stem_pool=fused_stem,
+                stem_pool=stem_pool,
                 generator=generator,
             )
             self.dense = nn.Linear(n * 10, n)
@@ -544,7 +546,9 @@ def latent_dims_to_use(args):
     return None
 
 
-def build_encoder(args, n_latents, n_non_ang, generator=None):
+def build_encoder(args, n_latents, n_non_ang, generator=None, stem_pool="xla"):
+    """The encoder of ``args``; ``stem_pool`` is the backbone's (no flag of
+    the driver sets it, as in the JAX driver)."""
     subset_only = (args.rotation_and_color_only or args.rotation_only
                    or args.color_only)
     return ThreeDIdentEncoder(
@@ -562,6 +566,7 @@ def build_encoder(args, n_latents, n_non_ang, generator=None):
         fused_stem=args.fused_stem,
         norm_kind=args.norm_kind,
         generator=generator,
+        stem_pool=stem_pool,
     )
 
 

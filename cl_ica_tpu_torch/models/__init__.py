@@ -1,6 +1,7 @@
 from .layers import (
     FastBatchNorm2d,
     MinResBN2d,
+    MinResBNPool,
     RescaleLayer,
     SoftclipLayer,
     StemBNReLUPool,
@@ -45,6 +46,7 @@ __all__ = [
     "encoder_params_to_flax",
     "FastBatchNorm2d",
     "MinResBN2d",
+    "MinResBNPool",
     "StemBNReLUPool",
     "BasicBlock",
     "Bottleneck",

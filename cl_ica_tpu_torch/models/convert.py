@@ -18,9 +18,11 @@ conversion: its weights are already applied as x @ W.T in both packages.
 The ResNet (``resnet_params_from_flax`` / ``resnet_params_to_flax``):
 
     params/conv_init/kernel  HWIO (kh, kw, in, out) -> conv_init.weight OIHW
+    params/conv_init_kernel  (7, 7, in, out), stem 's2d_exact' -> the same
     params/bn_init/{scale,bias}, batch_stats/bn_init/{mean,var}
                                    -> bn_init.{weight,bias,running_mean,running_var}
     {BasicBlock,Bottleneck}_i/Conv_k/kernel        -> blocks.i.convs.k.weight
+    (Checkpoint{BasicBlock,Bottleneck}_i under remat, the same)
     .../{FastBatchNorm,MinResBN,BatchNorm}_k/...   -> blocks.i.norms.k....
     .../conv_proj/kernel, .../norm_proj/...        -> blocks.i.conv_proj, norm_proj
     params/Dense_0/{kernel,bias}                   -> fc.{weight,bias}
@@ -119,6 +121,8 @@ def encoder_params_to_flax(state_dict) -> dict:
 
 _NORM_CLASSES = ("FastBatchNorm", "MinResBN", "BatchNorm")
 _BLOCK_CLASSES = ("BasicBlock", "Bottleneck")
+# Flax's nn.remat names a rematerialised block class Checkpoint<class>
+_REMAT_PREFIX = "Checkpoint"
 
 
 def _f32(value) -> torch.Tensor:
@@ -153,6 +157,8 @@ def resnet_params_from_flax(flax_vars) -> Dict[str, torch.Tensor]:
         prefix, _, idx = name.rpartition("_")
         if name == "conv_init":
             _conv_from_flax(sd, "conv_init", leaves, name)
+        elif name == "conv_init_kernel":  # stem 's2d_exact': a bare kernel
+            _conv_from_flax(sd, "conv_init", {"kernel": leaves}, name)
         elif name == "bn_init":
             _norm_from_flax(sd, "bn_init", leaves, stats.get(name, {}), name)
         elif name == "Dense_0":
@@ -160,7 +166,7 @@ def resnet_params_from_flax(flax_vars) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"unknown parameter in {name}: {sorted(leaves)}")
             sd["fc.weight"] = _f32(np.asarray(leaves["kernel"]).T)
             sd["fc.bias"] = _f32(leaves["bias"])
-        elif prefix in _BLOCK_CLASSES:
+        elif prefix.removeprefix(_REMAT_PREFIX) in _BLOCK_CLASSES:
             block_stats = stats.get(name, {})
             for sub, sub_leaves in leaves.items():
                 sub_prefix, _, k = sub.rpartition("_")
@@ -182,10 +188,13 @@ def resnet_params_from_flax(flax_vars) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def resnet_params_to_flax(state_dict, norm_name: str = "FastBatchNorm") -> dict:
+def resnet_params_to_flax(state_dict, norm_name: str = "FastBatchNorm",
+                          stem: str = "conv7", remat: bool = False) -> dict:
     """Inverse of ``resnet_params_from_flax``. ``norm_name`` is the Flax
     class name of the blocks' norms: 'FastBatchNorm' (norm_kind 'fast',
-    what --fused-stem uses), 'MinResBN' ('minres') or 'BatchNorm'."""
+    what --fused-stem uses), 'MinResBN' ('minres', 'minres8') or
+    'BatchNorm'. ``stem`` 's2d_exact' names the stem's kernel
+    ``conv_init_kernel``; ``remat`` names the blocks Checkpoint<class>_i."""
     if norm_name not in _NORM_CLASSES:
         raise ValueError(f"norm_name must be one of {_NORM_CLASSES}")
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
@@ -208,7 +217,9 @@ def resnet_params_to_flax(state_dict, norm_name: str = "FastBatchNorm") -> dict:
 
     for key, value in sd.items():
         parts = key.split(".")
-        if key == "conv_init.weight":
+        if key == "conv_init.weight" and stem == "s2d_exact":
+            params["conv_init_kernel"] = value.transpose(2, 3, 1, 0).copy()
+        elif key == "conv_init.weight":
             params.setdefault("conv_init", {})["kernel"] = value.transpose(2, 3, 1, 0).copy()
         elif parts[0] == "bn_init" and parts[1] in norm_leaf:
             put_norm(["bn_init"], parts[1], value)
@@ -217,7 +228,8 @@ def resnet_params_to_flax(state_dict, norm_name: str = "FastBatchNorm") -> dict:
         elif key == "fc.bias":
             params.setdefault("Dense_0", {})["bias"] = value
         elif parts[0] == "blocks":
-            block = (f"{'Bottleneck' if n_convs.get(parts[1]) == 3 else 'BasicBlock'}"
+            block = (f"{_REMAT_PREFIX if remat else ''}"
+                     f"{'Bottleneck' if n_convs.get(parts[1]) == 3 else 'BasicBlock'}"
                      f"_{parts[1]}")
             if parts[2] == "convs" and parts[4] == "weight":
                 params.setdefault(block, {})[f"Conv_{parts[3]}"] = {

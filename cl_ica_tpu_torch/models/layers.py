@@ -1,8 +1,8 @@
 """Constraint heads, activations, and the ResNet's batch norm.
 
 Port of cl_ica_tpu/models/layers.py:14-60 (heads), :96-152
-(``FastBatchNorm``), :155-232 (``MinResBN``) and :283-335
-(``StemBNReLUPool``), and the MLP's ``BatchNorm1d``. Parameter names and
+(``FastBatchNorm``), :155-232 (``MinResBN``), :235-280 (``MinResBNPool``)
+and :283-335 (``StemBNReLUPool``), and the MLP's ``BatchNorm1d``. Parameter names and
 shapes follow the Flax modules so that models/convert.py maps them by
 name: ``RescaleLayer.r`` is (1,), ``SoftclipLayer.max_abs_bound`` is (n,),
 a norm's ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` are
@@ -14,17 +14,39 @@ statistics over the whole batch, all ranks' rows, and updates its running
 buffers with them (the unbiased correction from the global count), as the
 JAX package's norms do under GSPMD. Outside such a step each is the
 single-device module, bit for bit.
+
+Under ``recomputing()`` (a rematerialised block's second forward, in the
+backward: models/resnet.py ``remat``) the norms compute as before but leave
+their running buffers alone, so that a step updates them once, as Flax's
+``nn.remat`` does.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bn_minres import bn_add_relu, bn_only, bn_relu
+from ..ops.bn_minres8 import bn_add_relu8, bn_only8, bn_relu8
 from ..ops.collectives import all_reduce_mean, current_group, world_of
+from ..ops.pool_minres import bn_relu_pool
 from ..ops.stem import bn_relu_pool_train
+
+_RECOMPUTING = [False]
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Within: the norms' running buffers are not updated (the forward runs
+    a second time, for a rematerialised block's backward)."""
+    was, _RECOMPUTING[0] = _RECOMPUTING[0], True
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] = was
 
 
 def _group_kw() -> dict:
@@ -113,7 +135,10 @@ class FastBatchNorm2d(nn.Module):
     @torch.no_grad()
     def update_running(self, mean, var, n: int) -> None:
         """running ← (1 − momentum)·running + momentum·batch, the variance
-        with the unbiased correction n / max(n − 1, 1)."""
+        with the unbiased correction n / max(n − 1, 1); nothing under
+        ``recomputing()``."""
+        if _RECOMPUTING[0]:
+            return
         m = self.momentum
         self.running_mean.mul_(1 - m).add_(mean, alpha=m)
         self.running_var.mul_(1 - m).add_(var, alpha=m * (n / max(n - 1, 1)))
@@ -151,6 +176,11 @@ class MinResBN2d(FastBatchNorm2d):
     carry no gradient. Eval mode is the plain composition on the running
     statistics.
 
+    ``residuals_f8=True`` (``ResNet(norm_kind='minres8')``) takes the
+    functions of ``ops.bn_minres8``: the same forward, bit for bit, and a
+    backward that keeps the normalised x as float8_e4m3fn (and, with the
+    add, res) in place of x.
+
     The input is logical (N, C, H, W); the kernels take dense (N, H, W, C)
     memory, which is what a ``channels_last`` tensor is. The layout is
     made explicit here (a no-op when it already is) and the output comes
@@ -158,11 +188,12 @@ class MinResBN2d(FastBatchNorm2d):
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, zero_init: bool = False,
-                 act: str = "relu"):
+                 act: str = "relu", residuals_f8: bool = False):
         super().__init__(num_features, eps, momentum, zero_init)
         if act not in ("relu", "none"):
             raise ValueError(f"act must be 'relu' or 'none', got {act!r}")
         self.act = act
+        self.residuals_f8 = residuals_f8
 
     def forward(self, x, res=None):
         if res is not None and self.act != "relu":
@@ -175,17 +206,18 @@ class MinResBN2d(FastBatchNorm2d):
             return F.relu(y) if self.act == "relu" else y
         x = x.contiguous(memory_format=torch.channels_last)
         nhwc = x.permute(0, 2, 3, 1)
+        f8 = self.residuals_f8
         if res is not None:
             res = res.contiguous(memory_format=torch.channels_last)
-            y, mean, var = bn_add_relu(nhwc, res.permute(0, 2, 3, 1),
-                                       self.weight, self.bias, self.eps,
-                                       **_group_kw())
+            y, mean, var = (bn_add_relu8 if f8 else bn_add_relu)(
+                nhwc, res.permute(0, 2, 3, 1), self.weight, self.bias, self.eps,
+                **_group_kw())
         elif self.act == "relu":
-            y, mean, var = bn_relu(nhwc, self.weight, self.bias, self.eps,
-                                   **_group_kw())
+            y, mean, var = (bn_relu8 if f8 else bn_relu)(
+                nhwc, self.weight, self.bias, self.eps, **_group_kw())
         else:
-            y, mean, var = bn_only(nhwc, self.weight, self.bias, self.eps,
-                                   **_group_kw())
+            y, mean, var = (bn_only8 if f8 else bn_only)(
+                nhwc, self.weight, self.bias, self.eps, **_group_kw())
         self.update_running(mean, var, _global_count(x))
         return y.permute(0, 3, 1, 2)
 
@@ -207,15 +239,32 @@ class StemBNReLUPool(FastBatchNorm2d):
     handed on; the pooled output comes back as a channels_last view."""
 
     def forward(self, x):
+        return self._pool(x, bn_relu_pool_train)
+
+    def _pool(self, x, train_fn):
         if not self.training:
             z = F.relu(super().forward(x))
             return F.max_pool2d(z, kernel_size=3, stride=2, padding=1)
         x = x.contiguous(memory_format=torch.channels_last)
-        pooled, mean, var = bn_relu_pool_train(
+        pooled, mean, var = train_fn(
             x.permute(0, 2, 3, 1), self.weight, self.bias, self.eps,
             **_group_kw())
         self.update_running(mean, var, _global_count(x))
         return pooled.permute(0, 3, 1, 2)
+
+
+class MinResBNPool(StemBNReLUPool):
+    """Batch norm → relu → 3×3/2 max pool keeping an int8 argmax code, the
+    JAX package's ``MinResBNPool`` (``ResNet(stem_pool='argmax')`` with
+    norm_kind 'minres'): training mode goes through
+    ``ops.pool_minres.bn_relu_pool`` (the minres norm's statistics and
+    arithmetic, so its output is ``MinResBN2d``'s followed by
+    ``F.max_pool2d``, bit for bit), whose backward keeps x and the code in
+    place of the pool's input and int64 indices. Parameters, buffers, eval
+    mode and layout as ``StemBNReLUPool``."""
+
+    def forward(self, x):
+        return self._pool(x, bn_relu_pool)
 
 
 class BatchNorm1d(nn.BatchNorm1d):

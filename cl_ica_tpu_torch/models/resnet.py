@@ -21,10 +21,20 @@ package's ``fused_bn`` blocks run it: the stem's norm and each block's
 first norms fuse the relu, the projection's norm has none, and a block's
 last norm takes the shortcut and fuses the add and the relu, each one
 function whose backward keeps only x (and, for a block's last norm, the
-block's output) (ops/bn_minres.py).
-What the JAX package tried against its TPU's byte floor and kept opt-in
-waits (ROADMAP A14) and raises: ``norm_kind='minres8'``,
-``stem_pool='argmax'``, the ``s2d`` and ``s2d_exact`` stems, ``remat``.
+block's output) (ops/bn_minres.py). 'minres8' is the same with the float8
+residual (``MinResBN2d(residuals_f8=True)``, ops/bn_minres8.py).
+
+The JAX package's other options: ``stem_pool='argmax'`` with 'minres' puts
+``MinResBNPool`` (ops/pool_minres.py) at the stem's norm, relu and pool; with
+'minres8' it raises, as there; with the other kinds, and under
+``fused_stem_pool``, it is ignored, as there. ``stem='s2d'`` is a 2×2
+space-to-depth (3 → 12 channels) and a 4×4 stride-1 'SAME' convolution;
+``stem='s2d_exact'`` computes conv7's function from conv7's (64, 3, 7, 7)
+weight, zero-padded to 8×8 and rearranged into the 4×4 kernel over the
+space-to-depth input. Both are cuDNN convolutions. ``remat=True`` runs each
+block under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, where the norms leave their running buffers
+alone (``layers.recomputing``), so a step updates them once.
 
 ``dtype=torch.bfloat16`` computes the backbone in bfloat16 the way the
 MLP encoder does: parameters stay float32 and are cast at use, the
@@ -33,6 +43,7 @@ norms' statistics are float32, and the output is float32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import partial
 from typing import Optional, Sequence
@@ -40,15 +51,19 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .layers import FastBatchNorm2d, MinResBN2d, StemBNReLUPool
+from .layers import (
+    FastBatchNorm2d,
+    MinResBN2d,
+    MinResBNPool,
+    StemBNReLUPool,
+    recomputing,
+)
 
-_NORM_KINDS = ("batch", "fast", "minres", "none")
-
-
-def _waits(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to cl_ica_tpu_torch (ROADMAP.md item A14)")
+_NORM_KINDS = ("batch", "fast", "minres", "minres8", "none")
+_MINRES = ("minres", "minres8")
+_STEMS = ("conv7", "s2d", "s2d_exact")
 
 
 def _same_padding(size: int, kernel: int, stride: int):
@@ -82,14 +97,38 @@ class _Conv(nn.Conv2d):
 
 def _norm(kind: str, width: int, zero_init: bool = False,
           act: str = "relu") -> nn.Module:
-    """The norm of ``kind``; ``act`` is the activation a 'minres' norm
-    fuses (the other kinds leave it to the caller)."""
+    """The norm of ``kind``; ``act`` is the activation a 'minres' or
+    'minres8' norm fuses (the other kinds leave it to the caller)."""
     if kind == "none":
         return nn.Identity()
-    if kind == "minres":
+    if kind in _MINRES:
         return MinResBN2d(width, eps=1e-5, momentum=0.1, zero_init=zero_init,
-                          act=act)
+                          act=act, residuals_f8=kind == "minres8")
     return FastBatchNorm2d(width, eps=1e-5, momentum=0.1, zero_init=zero_init)
+
+
+def space_to_depth(x):
+    """(N, C, H, W) → (N, 4C, H/2, W/2), channel (a·2 + b)·C + c holding
+    x[c, 2i + a, 2j + b]: the JAX package's NHWC reshape and transpose."""
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, 4 * c, h // 2, w // 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def s2d_exact_weight(weight):
+    """conv7's (O, C, 7, 7) weight as the (O, 4C, 4, 4) kernel over the
+    space-to-depth input: zero-padded to 8×8 at the top and left (tap
+    u = 2k + a − 1), then (k, a) and (l, b) split, a and b moved into the
+    channels in space_to_depth's order."""
+    o, c = weight.shape[:2]
+    w8 = F.pad(weight, (1, 0, 1, 0)).reshape(o, c, 4, 2, 4, 2)
+    return w8.permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
+
+
+def _checkpoint_contexts():
+    """The forward as is; the recompute under ``recomputing()``."""
+    return contextlib.nullcontext(), recomputing()
 
 
 class BasicBlock(nn.Module):
@@ -105,7 +144,7 @@ class BasicBlock(nn.Module):
         if c_in != filters or stride != 1:
             self.conv_proj = _Conv(c_in, filters, 1, stride)
             self.norm_proj = _norm(norm_kind, filters, act="none")
-        self.minres = norm_kind == "minres"
+        self.minres = norm_kind in _MINRES
 
     def forward(self, x):
         if self.minres:  # the JAX package's fused_bn block
@@ -136,7 +175,7 @@ class Bottleneck(nn.Module):
         if c_in != out or stride != 1:
             self.conv_proj = _Conv(c_in, out, 1, stride)
             self.norm_proj = _norm(norm_kind, out, act="none")
-        self.minres = norm_kind == "minres"
+        self.minres = norm_kind in _MINRES
 
     def forward(self, x):
         if self.minres:  # the JAX package's fused_bn block
@@ -174,32 +213,40 @@ class ResNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if norm_kind == "minres8":
-            raise _waits("norm_kind='minres8' (float8 norm residuals)")
         if norm_kind not in _NORM_KINDS:
-            raise ValueError(f"norm_kind must be one of {_NORM_KINDS} or "
-                             f"'minres8', got {norm_kind!r}")
-        if stem in ("s2d", "s2d_exact"):
-            raise _waits(f"stem={stem!r} (space-to-depth stem)")
-        if stem != "conv7":
+            raise ValueError(f"norm_kind must be one of {_NORM_KINDS}, got "
+                             f"{norm_kind!r}")
+        if stem not in _STEMS:
             raise ValueError(f"unknown stem {stem!r}")
-        if stem_pool == "argmax":
-            raise _waits("stem_pool='argmax' (argmax-code pool)")
-        if stem_pool != "xla":
+        if stem_pool not in ("xla", "argmax"):
             raise ValueError(f"unknown stem_pool {stem_pool!r}")
-        if remat:
-            raise _waits("remat=True (block rematerialisation)")
         if fused_stem_pool and norm_kind == "none":
             # the fused stem always batch-normalises; with the no-norm
             # diagnostic it would quietly diverge from the unfused path
             raise ValueError(
                 "fused_stem_pool=True applies BatchNorm in the stem "
                 "and cannot be combined with norm_kind='none'")
+        argmax = stem_pool == "argmax" and not fused_stem_pool
+        if argmax and norm_kind == "minres8":
+            # the argmax pool has no float8 residual: the stem, the largest
+            # activation, would quietly keep its full-precision input
+            raise ValueError(
+                "stem_pool='argmax' does not support norm_kind='minres8' "
+                "(the argmax-pool stem keeps bf16 residuals); use "
+                "norm_kind='minres' or the default stem_pool='xla'")
         self.dtype = dtype
         self.fused_stem_pool = fused_stem_pool
-        self.conv_init = _Conv(in_channels, num_filters, 7, 2, 3)
-        self.bn_init = (StemBNReLUPool(num_filters, eps=1e-5, momentum=0.1)
-                        if fused_stem_pool else _norm(norm_kind, num_filters))
+        self.stem = stem
+        self.remat = remat
+        # s2d_exact keeps conv7's weight; s2d convolves 4x4 over 4C channels
+        self.conv_init = (_Conv(4 * in_channels, num_filters, 4) if stem == "s2d"
+                          else _Conv(in_channels, num_filters, 7, 2, 3))
+        if fused_stem_pool:
+            self.bn_init = StemBNReLUPool(num_filters, eps=1e-5, momentum=0.1)
+        elif argmax and norm_kind == "minres":
+            self.bn_init = MinResBNPool(num_filters, eps=1e-5, momentum=0.1)
+        else:  # stem_pool='argmax' with another norm is ignored, as in JAX
+            self.bn_init = _norm(norm_kind, num_filters)
         blocks, c_in = [], num_filters
         for i, size in enumerate(stage_sizes):
             for j in range(size):
@@ -227,16 +274,26 @@ class ResNet(nn.Module):
     def forward(self, x):
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = self.conv_init(x.contiguous(memory_format=torch.channels_last))
-        if self.fused_stem_pool:
+        x = x.contiguous(memory_format=torch.channels_last)
+        if self.stem == "s2d_exact":
+            w = s2d_exact_weight(self.conv_init.weight).to(x.dtype)
+            x = F.conv2d(F.pad(space_to_depth(x), (2, 1, 2, 1)), w)
+        elif self.stem == "s2d":
+            x = self.conv_init(space_to_depth(x))
+        else:
+            x = self.conv_init(x)
+        if isinstance(self.bn_init, StemBNReLUPool):  # norm, relu and pool
             x = self.bn_init(x)
         elif isinstance(self.bn_init, MinResBN2d):  # norm and relu in one
             x = F.max_pool2d(self.bn_init(x), kernel_size=3, stride=2, padding=1)
         else:
             x = F.max_pool2d(F.relu(self.bn_init(x)), kernel_size=3, stride=2,
                              padding=1)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            # no block draws random numbers: nothing to stash or restore
+            x = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                            context_fn=_checkpoint_contexts) if remat else block(x))
         x = x.mean(dim=(2, 3))
         x = F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))
         return x.float()

@@ -214,6 +214,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.clica_bn_bwd.restype = _I
     lib.clica_bn_dx.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
     lib.clica_bn_dx.restype = _I
+    # the float8 modes (ops/bn_minres8.py)
+    lib.clica_bn_apply8.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_bn_apply8.restype = _I
+    lib.clica_bn_bwd8.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_bn_bwd8.restype = _I
+    lib.clica_bn_dx8.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_bn_dx8.restype = _I
     lib.clica_error_string.argtypes = [_I]
     lib.clica_error_string.restype = ctypes.c_char_p
     return lib
@@ -379,10 +386,10 @@ def launch_dx(x, dy, k, a, b, y=None, relu: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def _dense(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """dy in x's dtype and dense memory; a copy, where one is needed, is
-    counted."""
-    dy = dy.to(x.dtype)
+def _dense(dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dy in ``dtype`` (x's) and dense memory; a copy, where one is needed,
+    is counted."""
+    dy = dy.to(dtype)
     if not dy.is_contiguous():
         _copies["dy"] += 1
         dy = dy.contiguous()
@@ -417,7 +424,7 @@ class _MinResBN(torch.autograd.Function):
     def backward(ctx, dy, _d_mean, _d_var):
         x, y, scale, bias, mean, rstd = ctx.saved_tensors
         a, b = affine(scale, bias, mean, rstd, x.dtype)
-        dy = _dense(dy, x)
+        dy = _dense(dy, x.dtype)
         sums = launch_bwd if ctx.use_kernels else bn_bwd_reference
         sum_g, sum_gx = sums(x, dy, a, b, y, ctx.relu)
         # dscale and dbias are this rank's (the ranks' gradients are

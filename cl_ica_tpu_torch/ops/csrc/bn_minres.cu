@@ -38,6 +38,25 @@
 //             for bn_add_relu the same pass writes g, the residual's
 //             gradient.
 //
+// The float8 modes (ops/bn_minres8.py, the JAX package's
+// cl_ica_tpu/ops/bn_minres8.py) are the same three kernels with Q = true,
+// where the backward keeps xq = e4m3fn((x - mean)*rstd), one byte a value,
+// in place of x:
+//
+//   apply     writes xq beside y in the same pass over x: xhat in float
+//             ((x - mean) rounded, then *rstd rounded), rounded once to
+//             e4m3fn to nearest even; past 464 (the midpoint of 448, the
+//             largest value, and the next step) and for infinities and NaN
+//             the byte is NaN with xhat's sign, as the JAX package's
+//             conversion gives (PyTorch's saturates instead; C9).
+//   bwd sums  reads xq (as the value xh it stands for) and dy, and res for
+//             bn_add_relu: g = dy * 1[xh*s + t (+ res) > 0], s and t the
+//             norm's scale and bias in T (the JAX _mask8), and per channel
+//             the sums of g and g*xh.
+//   dx        dx = A*g - B*xh + C' with C' = -C of _bwd_core8 (the host
+//             negates it), g as above; for bn_add_relu the same pass
+//             writes g.
+//
 // Every value is computed in float and, in bfloat16, rounded to bfloat16
 // after each operation, as the plain PyTorch versions beside the wrappers
 // do in the tensor's type: products and sums are __fmul_rn/__fadd_rn, never
@@ -63,6 +82,7 @@
 // is 3.3 GB in float32).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -122,6 +142,64 @@ struct Pack<__nv_bfloat16> {
   }
 };
 
+// The value of an e4m3fn byte: 2^(e-7) * (1 + m/8), subnormals m * 2^-9,
+// S.1111.111 NaN. Exact in float (and in bfloat16).
+__device__ __forceinline__ float e4m3_value(unsigned int byte) {
+  const unsigned int e = (byte >> 3) & 0xfu, m = byte & 7u;
+  float v;
+  if (e == 0xfu && m == 7u)
+    v = __int_as_float(0x7fc00000);
+  else if (e == 0u)
+    v = (float)m * 0.001953125f;
+  else
+    v = __int_as_float((int)(((e + 120u) << 23) | (m << 20)));
+  return (byte & 0x80u) ? -v : v;
+}
+
+// A float rounded to the nearest e4m3fn byte (ties to even); NaN, with the
+// value's sign, past 464, for infinities and for NaN.
+__device__ __forceinline__ unsigned int e4m3_byte(float v) {
+  if (!(fabsf(v) <= 464.f)) return signbit(v) ? 0xffu : 0x7fu;
+  return (unsigned int)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+}
+
+// V e4m3fn bytes, a vector of xq, as V / 4 32-bit words.
+template <int V>
+struct QPack {
+  static constexpr int W = V / 4;
+  struct Raw {
+    unsigned int w[W];
+  };
+  static __device__ __forceinline__ Raw load_raw(const unsigned char* p) {
+    Raw r;
+    if constexpr (W == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      r.w[0] = u.x;
+      r.w[1] = u.y;
+    } else {
+      r.w[0] = *reinterpret_cast<const unsigned int*>(p);
+    }
+    return r;
+  }
+  static __device__ __forceinline__ void unpack(const Raw& r, float (&v)[V]) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * i + k] = e4m3_value((r.w[i] >> (8 * k)) & 0xffu);
+  }
+  static __device__ __forceinline__ void store(unsigned char* p, const float (&v)[V]) {
+    unsigned int w[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      w[i] = e4m3_byte(v[4 * i]) | (e4m3_byte(v[4 * i + 1]) << 8) |
+             (e4m3_byte(v[4 * i + 2]) << 16) | (e4m3_byte(v[4 * i + 3]) << 24);
+    if constexpr (W == 2)
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<unsigned int*>(p) = w[0];
+  }
+};
+
 // One operation in T: the float result rounded to T.
 template <typename T>
 __device__ __forceinline__ float mul(float x, float y) {
@@ -144,13 +222,14 @@ __device__ __forceinline__ float pre(float x, float a, float b, float r) {
 }
 
 // g = dy where the relu passed its input, else 0: for bn_relu from the
-// recomputed x*a + b, for bn_add_relu from its output y; dy for bn_only.
-template <typename T, int M>
-__device__ __forceinline__ float masked(float x, float a, float b, float y,
+// recomputed x*a + b, for bn_add_relu from its output y (r), or with Q from
+// xh*a + b + res (r; a, b the scale and bias); dy for bn_only.
+template <typename T, int M, bool Q>
+__device__ __forceinline__ float masked(float x, float a, float b, float r,
                                         float dy) {
   if (M == kOnly) return dy;
-  if (M == kAddRelu) return y > 0.f ? dy : 0.f;
-  return pre<T, M>(x, a, b, 0.f) > 0.f ? dy : 0.f;
+  if (M == kAddRelu && !Q) return r > 0.f ? dy : 0.f;
+  return pre<T, M>(x, a, b, r) > 0.f ? dy : 0.f;
 }
 
 // Which vector of which positions a thread owns. blockIdx.y is the slice of
@@ -171,24 +250,27 @@ struct Geom {
 };
 
 // Calls f(q, v) for each position q the thread owns, v[i] the V values of
-// the first N inputs in[i] at (q, c0..c0+V-1), then done() after each pass
-// of kUnroll positions. The pass's loads are issued before any value is
-// used.
-template <typename T, int N, typename F, typename D>
+// the first N inputs in[i] at (q, c0..c0+V-1) (with Q, v[0] those of the
+// e4m3fn bytes xq, and in[0] unused), then done() after each pass of
+// kUnroll positions. The pass's loads are issued before any value is used.
+template <typename T, int N, bool Q, typename F, typename D>
 __device__ __forceinline__ void walk(const Geom& g, long long P, int C,
-                                     const T* const* in, F&& f, D&& done) {
+                                     const T* const* in, const unsigned char* xq,
+                                     F&& f, D&& done) {
   constexpr int V = Pack<T>::V;
   const long long stride = (long long)gridDim.x * g.per;
   for (long long p = (long long)blockIdx.x * g.per + g.pl; p < P;
        p += kUnroll * stride) {
     typename Pack<T>::Raw raw[kUnroll][N];
+    typename QPack<V>::Raw qraw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long q = p + u * stride;
       if (q < P) {
 #pragma unroll
-        for (int i = 0; i < N; ++i)
+        for (int i = Q ? 1 : 0; i < N; ++i)
           raw[u][i] = Pack<T>::load_raw(in[i] + q * C + g.c0);
+        if (Q) qraw[u] = QPack<V>::load_raw(xq + q * C + g.c0);
       }
     }
 #pragma unroll
@@ -197,7 +279,8 @@ __device__ __forceinline__ void walk(const Geom& g, long long P, int C,
       if (q < P) {
         float v[N][V];
 #pragma unroll
-        for (int i = 0; i < N; ++i) Pack<T>::unpack(raw[u][i], v[i]);
+        for (int i = Q ? 1 : 0; i < N; ++i) Pack<T>::unpack(raw[u][i], v[i]);
+        if (Q) QPack<V>::unpack(qraw[u], v[0]);
         f(q, v);
       }
     }
@@ -208,6 +291,16 @@ __device__ __forceinline__ void walk(const Geom& g, long long P, int C,
 template <typename T>
 __device__ __forceinline__ void load_factor(const T* p, float (&v)[Pack<T>::V]) {
   Pack<T>::unpack(Pack<T>::load_raw(p), v);
+}
+
+// V float32 factors (16-byte aligned) into registers.
+template <int V>
+__device__ __forceinline__ void load_floats(const float* p, float (&v)[V]) {
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) {
+    const float4 f = reinterpret_cast<const float4*>(p)[i];
+    v[4 * i] = f.x; v[4 * i + 1] = f.y; v[4 * i + 2] = f.z; v[4 * i + 3] = f.w;
+  }
 }
 
 // A block's two sums per channel of its slice into row blockIdx.x of
@@ -251,7 +344,7 @@ bn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
   for (int l = 0; l < V; ++l) s0[l] = s1[l] = 0.0, f0[l] = f1[l] = 0.f;
   if (g.active) {
     const T* const in[1] = {x};
-    walk<T, 1>(g, P, C, in,
+    walk<T, 1, false>(g, P, C, in, nullptr,
         [&](long long, const float (&v)[1][V]) {
 #pragma unroll
           for (int l = 0; l < V; ++l) {
@@ -318,20 +411,28 @@ __global__ void bn_reduce_kernel(const float* __restrict__ partial,
   out[2 * C + c] = 1.f / sqrtf(__fadd_rn(var, eps));
 }
 
-template <typename T, int M>
+// With Q, xq = e4m3fn((x - mean)*rstd) is written too; mean and rstd are
+// (C,) float.
+template <typename T, int M, bool Q>
 __global__ void __launch_bounds__(kThreads)
 bn_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
                 const T* __restrict__ a, const T* __restrict__ b,
-                T* __restrict__ y, long long P, int C) {
+                T* __restrict__ y, const float* __restrict__ mean,
+                const float* __restrict__ rstd, unsigned char* __restrict__ xq,
+                long long P, int C) {
   constexpr int V = Pack<T>::V;
   const Geom g(C / V, V);
   if (!g.active) return;
-  float av[V], bv[V];
+  float av[V], bv[V], mv[V], rv[V];
   load_factor(a + g.c0, av);
   load_factor(b + g.c0, bv);
+  if (Q) {
+    load_floats(mean + g.c0, mv);
+    load_floats(rstd + g.c0, rv);
+  }
   constexpr int N = M == kAddRelu ? 2 : 1;  // x (and res)
   const T* const in[2] = {x, res};
-  walk<T, N>(g, P, C, in,
+  walk<T, N, false>(g, P, C, in, nullptr,
       [&](long long q, const float (&v)[N][V]) {
         float out[V];
 #pragma unroll
@@ -340,17 +441,25 @@ bn_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
           out[l] = (M == kOnly || z > 0.f) ? z : 0.f;
         }
         Pack<T>::store(y + q * C + g.c0, out);
+        if (Q) {
+          float xh[V];
+#pragma unroll
+          for (int l = 0; l < V; ++l)
+            xh[l] = __fmul_rn(__fsub_rn(v[0][l], mv[l]), rv[l]);
+          QPack<V>::store(xq + q * C + g.c0, xh);
+        }
       },
       [] {});
 }
 
-// y is the forward's output, read for bn_add_relu only.
-template <typename T, int M>
+// y is the forward's output, read for bn_add_relu only; with Q, x is not
+// read but xq, and y is bn_add_relu's res, a and b the scale and bias.
+template <typename T, int M, bool Q>
 __global__ void __launch_bounds__(kThreads)
 bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
               const T* __restrict__ y, const T* __restrict__ a,
               const T* __restrict__ b, float* __restrict__ partial,
-              long long P, int C) {
+              const unsigned char* __restrict__ xq, long long P, int C) {
   constexpr int V = Pack<T>::V;
   const Geom g(C / V, V);
   double s0[V], s1[V];
@@ -360,14 +469,14 @@ bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   if (g.active) {
     load_factor(a + g.c0, av);
     load_factor(b + g.c0, bv);
-    constexpr int N = M == kAddRelu ? 3 : 2;  // x, dy (and y)
+    constexpr int N = M == kAddRelu ? 3 : 2;  // x, dy (and y or res)
     const T* const in[3] = {x, dy, y};
-    walk<T, N>(g, P, C, in,
+    walk<T, N, Q>(g, P, C, in, xq,
         [&](long long, const float (&v)[N][V]) {
 #pragma unroll
           for (int l = 0; l < V; ++l) {
-            const float gv = masked<T, M>(v[0][l], av[l], bv[l], v[N - 1][l],
-                                          v[1][l]);
+            const float gv = masked<T, M, Q>(v[0][l], av[l], bv[l], v[N - 1][l],
+                                             v[1][l]);
             f0[l] = __fadd_rn(f0[l], gv);
             f1[l] = __fadd_rn(f1[l], mul<T>(gv, v[0][l]));
           }
@@ -385,13 +494,15 @@ bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 }
 
 // k is (3, C) in T: the rows A, B and C of dx = A*g - B*x + C; y as for
-// bn_bwd_kernel.
-template <typename T, int M>
+// bn_bwd_kernel, and with Q x is xq's value (C the negated C of
+// _bwd_core8).
+template <typename T, int M, bool Q>
 __global__ void __launch_bounds__(kThreads)
 bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
              const T* __restrict__ y, const T* __restrict__ a,
              const T* __restrict__ b, const T* __restrict__ k,
-             T* __restrict__ dx, T* __restrict__ gout, long long P, int C) {
+             T* __restrict__ dx, T* __restrict__ gout,
+             const unsigned char* __restrict__ xq, long long P, int C) {
   constexpr int V = Pack<T>::V;
   const Geom g(C / V, V);
   if (!g.active) return;
@@ -401,14 +512,14 @@ bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   load_factor(k + g.c0, kA);
   load_factor(k + C + g.c0, kB);
   load_factor(k + 2 * C + g.c0, kC);
-  constexpr int N = M == kAddRelu ? 3 : 2;  // x, dy (and y)
+  constexpr int N = M == kAddRelu ? 3 : 2;  // x, dy (and y or res)
   const T* const in[3] = {x, dy, y};
-  walk<T, N>(g, P, C, in,
+  walk<T, N, Q>(g, P, C, in, xq,
       [&](long long q, const float (&v)[N][V]) {
         float out[V], gv[V];
 #pragma unroll
         for (int l = 0; l < V; ++l) {
-          gv[l] = masked<T, M>(v[0][l], av[l], bv[l], v[N - 1][l], v[1][l]);
+          gv[l] = masked<T, M, Q>(v[0][l], av[l], bv[l], v[N - 1][l], v[1][l]);
           out[l] = add<T>(sub<T>(mul<T>(kA[l], gv[l]), mul<T>(kB[l], v[0][l])),
                           kC[l]);
         }
@@ -437,23 +548,25 @@ int launch_stats(const void* x, float* partial, float* out, long long P, int C,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M>
+template <typename T, int M, bool Q>
 int launch_apply(const void* x, const void* res, const void* a, const void* b,
-                 void* y, long long P, int C, int grid, cudaStream_t st) {
+                 void* y, const float* mean, const float* rstd, void* xq,
+                 long long P, int C, int grid, cudaStream_t st) {
   const dim3 blocks(grid, slices_of(C / Pack<T>::V));
-  bn_apply_kernel<T, M><<<blocks, kThreads, 0, st>>>(
-      (const T*)x, (const T*)res, (const T*)a, (const T*)b, (T*)y, P, C);
+  bn_apply_kernel<T, M, Q><<<blocks, kThreads, 0, st>>>(
+      (const T*)x, (const T*)res, (const T*)a, (const T*)b, (T*)y, mean, rstd,
+      (unsigned char*)xq, P, C);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M>
+template <typename T, int M, bool Q>
 int launch_bwd(const void* x, const void* dy, const void* y, const void* a,
-               const void* b, float* partial, float* sums, long long P, int C,
-               int grid, cudaStream_t st) {
+               const void* b, float* partial, float* sums, const void* xq,
+               long long P, int C, int grid, cudaStream_t st) {
   const dim3 blocks(grid, slices_of(C / Pack<T>::V));
-  bn_bwd_kernel<T, M><<<blocks, kThreads, 0, st>>>(
+  bn_bwd_kernel<T, M, Q><<<blocks, kThreads, 0, st>>>(
       (const T*)x, (const T*)dy, (const T*)y, (const T*)a, (const T*)b,
-      partial, P, C);
+      partial, (const unsigned char*)xq, P, C);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   bn_reduce_kernel<<<(C + 31) / 32, dim3(32, 8), 0, st>>>(partial, sums, grid,
@@ -461,27 +574,28 @@ int launch_bwd(const void* x, const void* dy, const void* y, const void* a,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M>
+template <typename T, int M, bool Q>
 int launch_dx(const void* x, const void* dy, const void* y, const void* a,
-              const void* b, const void* k, void* dx, void* g, long long P,
-              int C, int grid, cudaStream_t st) {
+              const void* b, const void* k, void* dx, void* g, const void* xq,
+              long long P, int C, int grid, cudaStream_t st) {
   const dim3 blocks(grid, slices_of(C / Pack<T>::V));
-  bn_dx_kernel<T, M><<<blocks, kThreads, 0, st>>>(
+  bn_dx_kernel<T, M, Q><<<blocks, kThreads, 0, st>>>(
       (const T*)x, (const T*)dy, (const T*)y, (const T*)a, (const T*)b,
-      (const T*)k, (T*)dx, (T*)g, P, C);
+      (const T*)k, (T*)dx, (T*)g, (const unsigned char*)xq, P, C);
   return (int)cudaGetLastError();
 }
 
 // Each entry point below takes the mode (0 bn_only, 1 bn_relu,
-// 2 bn_add_relu) and the type, and calls one of these six instances.
-#define CLICA_BN_DISPATCH(fn, ...)                                          \
+// 2 bn_add_relu) and the type, and calls one of six instances: those of Q
+// false, or (the ..8 entry points) of Q true.
+#define CLICA_BN_DISPATCH(fn, Q, ...)                                       \
   switch (mode * 2 + (is_bf16 ? 1 : 0)) {                                   \
-    case 0: return fn<float, kOnly>(__VA_ARGS__);                           \
-    case 1: return fn<__nv_bfloat16, kOnly>(__VA_ARGS__);                   \
-    case 2: return fn<float, kRelu>(__VA_ARGS__);                           \
-    case 3: return fn<__nv_bfloat16, kRelu>(__VA_ARGS__);                   \
-    case 4: return fn<float, kAddRelu>(__VA_ARGS__);                        \
-    case 5: return fn<__nv_bfloat16, kAddRelu>(__VA_ARGS__);                \
+    case 0: return fn<float, kOnly, Q>(__VA_ARGS__);                        \
+    case 1: return fn<__nv_bfloat16, kOnly, Q>(__VA_ARGS__);                \
+    case 2: return fn<float, kRelu, Q>(__VA_ARGS__);                        \
+    case 3: return fn<__nv_bfloat16, kRelu, Q>(__VA_ARGS__);                \
+    case 4: return fn<float, kAddRelu, Q>(__VA_ARGS__);                     \
+    case 5: return fn<__nv_bfloat16, kAddRelu, Q>(__VA_ARGS__);             \
     default: return (int)cudaErrorInvalidValue;                             \
   }
 
@@ -531,7 +645,8 @@ int clica_bn_apply(const void* x, const void* res, const void* a,
                    int mode, int grid, void* stream) {
   if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  CLICA_BN_DISPATCH(launch_apply, x, res, a, b, y, P, C, grid, st)
+  CLICA_BN_DISPATCH(launch_apply, false, x, res, a, b, y, nullptr, nullptr,
+                    nullptr, P, C, grid, st)
 }
 
 // The sums of g and of g*x into sums (2, C) float; partial is a (2, grid, C)
@@ -541,7 +656,8 @@ int clica_bn_bwd(const void* x, const void* dy, const void* y, const void* a,
                  int C, int is_bf16, int mode, int grid, void* stream) {
   if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  CLICA_BN_DISPATCH(launch_bwd, x, dy, y, a, b, partial, sums, P, C, grid, st)
+  CLICA_BN_DISPATCH(launch_bwd, false, x, dy, y, a, b, partial, sums, nullptr,
+                    P, C, grid, st)
 }
 
 // dx = A*g - B*x + C with k = (A, B, C) (3, C) in x's type; in mode 2 g is
@@ -551,7 +667,45 @@ int clica_bn_dx(const void* x, const void* dy, const void* y, const void* a,
                 int C, int is_bf16, int mode, int grid, void* stream) {
   if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  CLICA_BN_DISPATCH(launch_dx, x, dy, y, a, b, k, dx, g, P, C, grid, st)
+  CLICA_BN_DISPATCH(launch_dx, false, x, dy, y, a, b, k, dx, g, nullptr, P, C,
+                    grid, st)
+}
+
+// The float8 modes (minres8). clica_bn_apply's y, and xq (P, C) bytes of
+// e4m3fn((x - mean)*rstd); mean and rstd (C,) float.
+int clica_bn_apply8(const void* x, const void* res, const void* a,
+                    const void* b, const float* mean, const float* rstd,
+                    void* y, void* xq, long long P, int C, int is_bf16,
+                    int mode, int grid, void* stream) {
+  if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  CLICA_BN_DISPATCH(launch_apply, true, x, res, a, b, y, mean, rstd, xq, P, C,
+                    grid, st)
+}
+
+// The sums of g and of g*xh into sums (2, C) float, xh the value of xq's
+// bytes; s and t (C,) the scale and bias in dy's type; res is read in mode 2
+// only.
+int clica_bn_bwd8(const void* xq, const void* dy, const void* res,
+                  const void* s, const void* t, float* partial, float* sums,
+                  long long P, int C, int is_bf16, int mode, int grid,
+                  void* stream) {
+  if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  CLICA_BN_DISPATCH(launch_bwd, true, nullptr, dy, res, s, t, partial, sums,
+                    xq, P, C, grid, st)
+}
+
+// dx = A*g - B*xh + C' with k = (A, B, C') (3, C) in dy's type; in mode 2 g
+// is written too, and res read as for clica_bn_bwd8.
+int clica_bn_dx8(const void* xq, const void* dy, const void* res,
+                 const void* s, const void* t, const void* k, void* dx,
+                 void* g, long long P, int C, int is_bf16, int mode, int grid,
+                 void* stream) {
+  if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  CLICA_BN_DISPATCH(launch_dx, true, nullptr, dy, res, s, t, k, dx, g, xq, P,
+                    C, grid, st)
 }
 
 const char* clica_error_string(int code) {

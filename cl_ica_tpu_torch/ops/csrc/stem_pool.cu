@@ -40,6 +40,25 @@
 //             registers, each product and sum rounded (no fused multiply-add),
 //             rounded once to x's type: stem_dx_reference repeats it.
 //
+// Two more for ResNet(stem_pool='argmax') (ops/pool_minres.py, the JAX
+// package's cl_ica_tpu/ops/pool_minres.py, an XLA custom VJP there):
+//
+//   code      stem_fwd_kernel<T, true>: the forward's pass, with
+//             z = relu(x*a + b) rounded to T after each operation (the
+//             minres norm's arithmetic, bn_minres.cu), which also writes a
+//             byte a value: the row-major position 0..8 in the padded 3x3
+//             window of the first maximum (positions outside the image
+//             never win; a 0 after the relu is a value, so an all-zero
+//             window's code is its first position inside the image).
+//   scatter   pool_scatter_kernel: dz (N, H, W, C) from the pooled gradient
+//             and the codes, a gather: a thread owns a quad (2m..2m+1,
+//             2j..2j+1) and a channel vector and reads the four windows
+//             (m..m+1, j..j+1) that reach it, adding for each position the
+//             gradients of the windows whose code names it, in the order
+//             of the JAX stencil's terms (_dz_stencil: the window above
+//             before the one below, the left before the right), each sum
+//             rounded to T: pool_scatter_reference repeats it bit for bit.
+//
 // All arithmetic is float32 whatever x's type: y = x*a + b as a rounded
 // product and a rounded sum (no fused multiply-add), so that the plain
 // PyTorch versions beside the wrappers (ops/stem.py) repeat it bit for bit.
@@ -189,6 +208,48 @@ __device__ __forceinline__ float affine(float x, float a, float b) {
   return __fadd_rn(__fmul_rn(x, a), b);
 }
 
+// A float rounded to T (nearest, ties to even), as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// V bytes (the codes of a vector) to and from memory as 32-bit words.
+template <int V>
+__device__ __forceinline__ void store_codes(unsigned char* p,
+                                            const unsigned char (&k)[V]) {
+  unsigned int w[V / 4];
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i)
+    w[i] = k[4 * i] | (k[4 * i + 1] << 8) | (k[4 * i + 2] << 16) |
+           ((unsigned int)k[4 * i + 3] << 24);
+  if constexpr (V == 8)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<unsigned int*>(p) = w[0];
+}
+
+template <int V>
+__device__ __forceinline__ void load_codes(const unsigned char* p,
+                                           unsigned char (&k)[V]) {
+  unsigned int w[V / 4];
+  if constexpr (V == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned int*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) k[4 * i + b] = (w[i] >> (8 * b)) & 0xffu;
+}
+
 // V winners, one byte each, to and from shared memory as 32-bit words.
 template <int V>
 __device__ __forceinline__ void store_winners(unsigned char* dst,
@@ -212,11 +273,14 @@ __device__ __forceinline__ void load_winners(const unsigned char* src,
   }
 }
 
-template <typename T>
+// With kCode, z is rounded to T after each operation and each value's
+// window code is written to codes (one byte a value, laid out as out).
+template <typename T, bool kCode>
 __global__ void __launch_bounds__(kThreads)
 stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
-                const T* __restrict__ b, T* __restrict__ out, long long total,
-                int H, int W, int C) {
+                const T* __restrict__ b, T* __restrict__ out,
+                unsigned char* __restrict__ codes, long long total, int H,
+                int W, int C) {
   constexpr int V = Pack<T>::V;
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= total) return;
@@ -229,10 +293,16 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
   const long long n = rest / Ho;
 
   float av[V], bv[V], m[V];
+  unsigned char code[V];
   Pack<T>::load(a + c0, av);
   Pack<T>::load(b + c0, bv);
 #pragma unroll
-  for (int l = 0; l < V; ++l) m[l] = 0.f;
+  for (int l = 0; l < V; ++l) {
+    // below every relu'd value with kCode, so that the first position in
+    // the image is taken; else the zero padding, exact after the relu
+    m[l] = kCode ? -1.f : 0.f;
+    code[l] = 0;
+  }
   const T* xn = x + n * H * W * C;
 #pragma unroll
   for (int dh = 0; dh < 3; ++dh) {
@@ -245,11 +315,79 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
       float xv[V];
       Pack<T>::load(xn + ((long long)h * W + w) * C + c0, xv);
 #pragma unroll
-      for (int l = 0; l < V; ++l)
-        m[l] = fmaxf(m[l], affine(xv[l], av[l], bv[l]));
+      for (int l = 0; l < V; ++l) {
+        if (kCode) {
+          const float z = fmaxf(
+              round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(xv[l], av[l])), bv[l])),
+              0.f);
+          if (z > m[l]) {  // strict: a tie keeps the earlier position
+            m[l] = z;
+            code[l] = (unsigned char)(dh * 3 + dw);
+          }
+        } else {
+          m[l] = fmaxf(m[l], affine(xv[l], av[l], bv[l]));
+        }
+      }
     }
   }
-  Pack<T>::store(out + ((n * Ho + ho) * Wo + wo) * C + c0, m);
+  const long long o = ((n * Ho + ho) * Wo + wo) * C + c0;
+  Pack<T>::store(out + o, m);
+  if (kCode) store_codes<V>(codes + o, code);
+}
+
+// dz of the argmax pool from the pooled gradient dp and the codes (both
+// (N, H/2, W/2, C)): one thread a quad of positions and a channel vector.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pool_scatter_kernel(const T* __restrict__ dp,
+                    const unsigned char* __restrict__ codes,
+                    T* __restrict__ dz, long long total, int H, int W, int C) {
+  constexpr int V = Pack<T>::V;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int cvs = C / V, Ho = H / 2, Wo = W / 2;
+  const int c0 = (int)(idx % cvs) * V;
+  long long rest = idx / cvs;
+  const int j = (int)(rest % Wo);
+  rest /= Wo;
+  const int m = (int)(rest % Ho);
+  const long long n = rest / Ho;
+
+  // the windows (m + r, j + c), r, c in {0, 1}, that lie in the pooled map;
+  // a missing one's code 9 names no position
+  float d[2][2][V];
+  unsigned char k[2][2][V];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (m + r < Ho && j + c < Wo) {
+        const long long o = ((n * Ho + m + r) * Wo + j + c) * C + c0;
+        Pack<T>::load(dp + o, d[r][c]);
+        load_codes<V>(codes + o, k[r][c]);
+      } else {
+#pragma unroll
+        for (int l = 0; l < V; ++l) d[r][c][l] = 0.f, k[r][c][l] = 9;
+      }
+    }
+  float q00[V], q01[V], q10[V], q11[V];
+#pragma unroll
+  for (int l = 0; l < V; ++l) {
+    const auto term = [&](int r, int c, int code) {
+      return k[r][c][l] == code ? d[r][c][l] : 0.f;
+    };
+    const auto sum = [](float acc, float t) { return round_to<T>(__fadd_rn(acc, t)); };
+    q00[l] = term(0, 0, 4);
+    q01[l] = sum(term(0, 0, 5), term(0, 1, 3));
+    q10[l] = sum(term(0, 0, 7), term(1, 0, 1));
+    q11[l] = sum(sum(sum(term(0, 0, 8), term(0, 1, 6)), term(1, 0, 2)),
+                 term(1, 1, 0));
+  }
+  T* base = dz + ((n * H + 2 * m) * W + 2 * j) * C + c0;
+  Pack<T>::store(base, q00);
+  Pack<T>::store(base + C, q01);
+  Pack<T>::store(base + (long long)W * C, q10);
+  Pack<T>::store(base + (long long)W * C + C, q11);
 }
 
 // The backward's geometry, the same for every block (see the note above).
@@ -724,14 +862,26 @@ int bwd_blocks_per_sm(int cv, int ws, int* out) {
       out, stem_bwd_kernel<T>, kThreads, smem);
 }
 
-template <typename T>
+template <typename T, bool kCode>
 int launch_fwd(const void* x, const void* a, const void* b, void* out,
-               long long n, int h, int w, int c, cudaStream_t st) {
+               void* codes, long long n, int h, int w, int c, cudaStream_t st) {
   const long long total = n * (h / 2) * (w / 2) * (c / Pack<T>::V);
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  stem_fwd_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
-      (const T*)x, (const T*)a, (const T*)b, (T*)out, total, h, w, c);
+  stem_fwd_kernel<T, kCode><<<(unsigned)blocks, kThreads, 0, st>>>(
+      (const T*)x, (const T*)a, (const T*)b, (T*)out, (unsigned char*)codes,
+      total, h, w, c);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_scatter(const void* dp, const void* codes, void* dz, long long n,
+                   int h, int w, int c, cudaStream_t st) {
+  const long long total = n * (h / 2) * (w / 2) * (c / Pack<T>::V);
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  pool_scatter_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
+      (const T*)dp, (const unsigned char*)codes, (T*)dz, total, h, w, c);
   return (int)cudaGetLastError();
 }
 
@@ -799,8 +949,33 @@ int clica_stem_fwd(const void* x, const void* a, const void* b, void* out,
   const int vec = is_bf16 ? Pack<__nv_bfloat16>::V : Pack<float>::V;
   if (bad_shape(n, h, w, c, vec)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch_fwd<__nv_bfloat16>(x, a, b, out, n, h, w, c, st)
-                 : launch_fwd<float>(x, a, b, out, n, h, w, c, st);
+  return is_bf16 ? launch_fwd<__nv_bfloat16, false>(x, a, b, out, nullptr, n, h,
+                                                   w, c, st)
+                 : launch_fwd<float, false>(x, a, b, out, nullptr, n, h, w, c, st);
+}
+
+// The argmax pool's forward: out as clica_stem_fwd's with z rounded to x's
+// type after each operation, and codes (n, h/2, w/2, c) bytes, each the
+// window position 0..8 of its value's first maximum.
+int clica_pool_code(const void* x, const void* a, const void* b, void* out,
+                    void* codes, long long n, int h, int w, int c, int is_bf16,
+                    void* stream) {
+  const int vec = is_bf16 ? Pack<__nv_bfloat16>::V : Pack<float>::V;
+  if (bad_shape(n, h, w, c, vec)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? launch_fwd<__nv_bfloat16, true>(x, a, b, out, codes, n, h,
+                                                   w, c, st)
+                 : launch_fwd<float, true>(x, a, b, out, codes, n, h, w, c, st);
+}
+
+// dz (n, h, w, c) of the argmax pool from dp and codes (n, h/2, w/2, c).
+int clica_pool_scatter(const void* dp, const void* codes, void* dz, long long n,
+                       int h, int w, int c, int is_bf16, void* stream) {
+  const int vec = is_bf16 ? Pack<__nv_bfloat16>::V : Pack<float>::V;
+  if (bad_shape(n, h, w, c, vec)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? launch_scatter<__nv_bfloat16>(dp, codes, dz, n, h, w, c, st)
+                 : launch_scatter<float>(dp, codes, dz, n, h, w, c, st);
 }
 
 // dy and the channel sums for the plan (cv, slices, ws, strips, ks, segs,

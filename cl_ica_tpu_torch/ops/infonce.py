@@ -37,7 +37,8 @@ MIN_CHUNK = 64  # the fewest rows of the other operand a tiled gradient block ta
 # where it launches its kernel, and nowhere else. fwd/dz1/dz3 are
 # fused_neg_lse's kernels (this module), dot_* are fused_dot_lse's
 # (ops/infonce_dot.py), stem_* the stem tail's (ops/stem.py), bn_* the
-# blocks' batch norm's (ops/bn_minres.py). Under a
+# blocks' batch norm's (ops/bn_minres.py; bn_*8 its float8 modes,
+# ops/bn_minres8.py), pool_* the argmax pool's (ops/pool_minres.py). Under a
 # CUDA graph's capture a wrapper counts the launch it records; the
 # captured step takes that back and counts each replay's launches instead
 # (train/capture.py).
@@ -45,7 +46,8 @@ _launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0,
                              "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0,
                              "stem_fwd": 0, "stem_bwd": 0, "stem_dx": 0,
                              "bn_stats": 0, "bn_apply": 0, "bn_bwd": 0,
-                             "bn_dx": 0}
+                             "bn_dx": 0, "bn_apply8": 0, "bn_bwd8": 0,
+                             "bn_dx8": 0, "pool_code": 0, "pool_scatter": 0}
 
 
 def launch_counts() -> Dict[str, int]:

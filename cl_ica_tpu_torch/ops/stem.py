@@ -198,6 +198,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.clica_stem_bwd.restype = _I
     lib.clica_stem_dx.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _I, _P]
     lib.clica_stem_dx.restype = _I
+    # the argmax pool's two kernels (ops/pool_minres.py)
+    lib.clica_pool_code.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_pool_code.restype = _I
+    lib.clica_pool_scatter.argtypes = [_P] * 3 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_pool_scatter.restype = _I
     lib.clica_error_string.argtypes = [_I]
     lib.clica_error_string.restype = ctypes.c_char_p
     return lib

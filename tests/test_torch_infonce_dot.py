@@ -264,7 +264,8 @@ def test_launch_counters_stay_zero_on_the_cpu():
                                "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0,
                                "stem_fwd": 0, "stem_bwd": 0, "stem_dx": 0,
                                "bn_stats": 0, "bn_apply": 0, "bn_bwd": 0,
-                               "bn_dx": 0}
+                               "bn_dx": 0, "bn_apply8": 0, "bn_bwd8": 0,
+                               "bn_dx8": 0, "pool_code": 0, "pool_scatter": 0}
 
 
 @pytest.mark.parametrize("where", ["z1", "z3"])

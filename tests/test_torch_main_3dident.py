@@ -178,20 +178,44 @@ def test_conditionals_sample_at_the_requested_width(conditional):
     assert abs(float((zt - z)[inner].abs().mean()) / want - 1) < 0.05
 
 
-@pytest.mark.parametrize("argv, item", [
+@pytest.mark.parametrize("argv, says", [
     # --mesh is ported (A13): two gloo ranks on the CPU run to the end
     (["--mesh", "2", "--mode", "unsupervised", "--iterations", "2"], None),
-    (["--mesh", "2", "--mesh-model", "2"], "A13b"),
-    (["--profile-dir", "p"], "A14"),
-    (["--norm-kind", "minres8"], "A14"),
+    (["--mesh", "2", "--mesh-model", "2"], "ROADMAP.md item A13b"),
+    (["--profile-dir", "p"], "ROADMAP.md item A14"),
+    # --norm-kind minres8 is ported; the JAX driver's exit for it under the
+    # fused stem (which would ignore it) stays
+    (["--fused-stem", "--norm-kind", "minres8"], "float8 residuals"),
 ])
-def test_unported_flags_exit_naming_the_roadmap_item(argv, item, fixtures, capsys):
-    if item is None:
+def test_unported_flags_exit_naming_the_roadmap_item(argv, says, fixtures, capsys):
+    if says is None:
         out = main_3dident.main(_argv(fixtures[True], *argv), device="cpu")
         assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP.md item {item}"):
+    with pytest.raises(SystemExit, match=says):
         main_3dident.main(_argv(fixtures[True], *argv), device="cpu")
+
+
+def test_minres8_trains_eager_and_scan_alike(fixtures, monkeypatch, capsys):
+    """--norm-kind minres8 puts the float8-residual MinResBN2d in all
+    twenty norms; its first loss is the default minres path's (the forward
+    is bit for bit the same), and --scan (on the CPU the captured body run
+    eagerly) repeats the eager run loss for loss."""
+    built = []
+    build = main_3dident.build_encoder
+    monkeypatch.setattr(main_3dident, "build_encoder",
+                        lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+    argv = _argv(fixtures[True], "--mode", "unsupervised", "--iterations", "4")
+    minres = main_3dident.main(argv, device="cpu")
+    runs = [main_3dident.main(argv + ["--norm-kind", "minres8"] + extra, device="cpu")
+            for extra in ([], ["--scan"])]
+    f8 = [sum(isinstance(m, MinResBN2d) and m.residuals_f8 for m in model.modules())
+          for model in built]
+    assert f8 == [0, 20, 20]
+    eager, scan = runs[0]["losses"], runs[1]["losses"]
+    assert len(eager) == 4 and np.isfinite(eager).all()
+    assert eager[0] == minres["losses"][0] and eager != minres["losses"]
+    assert scan == eager
 
 
 def test_scan_matches_eager_and_resumes_exactly(fixtures, tmp_path, monkeypatch,

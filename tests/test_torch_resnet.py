@@ -35,6 +35,7 @@ from cl_ica_tpu_torch.models import (
     resnet_params_from_flax,
     resnet_params_to_flax,
 )
+from cl_ica_tpu_torch.models.layers import MinResBN2d
 from cl_ica_tpu_torch.models.resnet import _same_padding
 
 torch.set_num_threads(1)
@@ -73,7 +74,7 @@ def _init(jmodel, seed, like_init=False):
 
     def fill(path, leaf):
         name = path[-1].key
-        if name == "kernel":
+        if name in ("kernel", "conv_init_kernel"):
             std = np.sqrt((2.0 if len(leaf.shape) == 4 else 1.0)
                           / np.prod(leaf.shape[:-1]))
             return (std * rng.normal(size=leaf.shape)).astype(np.float32)
@@ -344,16 +345,190 @@ def _hold_bfloat16_backbone(variant):
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(norm_kind="minres8"), "A14"),
-    (dict(stem_pool="argmax", norm_kind="minres"), "A14"),
-    (dict(stem="s2d"), "A14"),
-    (dict(stem="s2d_exact"), "A14"),
-    (dict(remat=True), "A14"),
+    (dict(norm_kind="minres8", stem_pool="argmax"), "does not support"),
+    (dict(stem="s3d"), "unknown stem"),
+    (dict(stem_pool="select"), "unknown stem_pool"),
+    (dict(norm_kind="group"), "norm_kind must be"),
     (dict(norm_kind="none", fused_stem_pool=True), "cannot be combined"),
 ])
 def test_what_waits_raises_naming_the_roadmap_item(kwargs, match):
-    with pytest.raises((NotImplementedError, ValueError), match=match):
+    # every option of the JAX ResNet is ported; what stays refused is what
+    # the JAX model refuses (the argmax pool with float8 residuals, the
+    # fused stem without a norm) and names it knows nothing of
+    with pytest.raises(ValueError, match=match):
         ResNet18(num_classes=5, **kwargs)
+
+
+# The JAX model's options, each against the Flax model of the same options:
+# (Flax kwargs, port kwargs, the Flax norm name, the converter's stem and
+# remat). 'fast' norms for the stems, minres for the pool and remat
+OPTIONS = {
+    "minres8": (dict(norm_kind="minres8"), "MinResBN", "conv7", False),
+    "argmax": (dict(norm_kind="minres", stem_pool="argmax"), "MinResBN", "conv7",
+               False),
+    "s2d": (dict(norm_kind="fast", stem="s2d"), "FastBatchNorm", "s2d", False),
+    "s2d_exact": (dict(norm_kind="fast", stem="s2d_exact"), "FastBatchNorm",
+                  "s2d_exact", False),
+    "remat": (dict(norm_kind="minres", remat=True), "MinResBN", "conv7", True),
+}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_resnet18_option_matches_flax(option):
+    # one training step of each: the output, the running statistics and
+    # every parameter gradient at the bars of BARS, weights carried
+    # across by models/convert.py in both directions. minres8's gradients
+    # read e4m3fn x̂ in both packages, and their float32 x̂ differ by the
+    # statistics' rounding: where that crosses one of e4m3fn's rounding
+    # points, a relu gate at the kink can take the other branch and move a
+    # few gradient elements by their full size. Its gradients are held a
+    # leaf at a time in relative L2 at 0.05, a fifth of the JAX package's
+    # own bar for the quantization's whole effect against minres (0.25,
+    # tests/test_bn_minres8.py; measured here up to 0.014). The inputs are
+    # those of test_resnet18_parameter_gradients_match_flax: at some other
+    # seeds a window of the stem's max pool holds two values within the
+    # packages' rounding of each other, and the default minres net's
+    # gradient moves there as much as any option's does. The two stems
+    # change the stem's convolution alone and are held with the norms as
+    # Flax initialises them, at the "init" bars: with perturbed norms the
+    # last stage's four values a channel amplify the other summation order
+    # of the reformulated convolution to 2.9e-4 of the output (the bar
+    # there 2.8e-4), as they amplify the port's and JAX's conv7 apart
+    kwargs, norm_name, stem, remat = OPTIONS[option]
+    jmodel = JaxResNet18(num_classes=5, **kwargs)
+    like_init = stem != "conv7"
+    variables = _init(jmodel, 0, like_init=like_init)
+    x = _images(3)
+    key = (repr(jmodel), "value_and_grad")
+    if key not in _JITTED:
+        def loss(params, stats, x):
+            out, mut = jmodel.apply({"params": params, "batch_stats": stats}, x,
+                                    train=True, mutable=["batch_stats"])
+            return jnp.sum(jnp.square(out)), (out, mut["batch_stats"])
+
+        _JITTED[key] = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    (_, (want, want_stats)), want_grads = _JITTED[key](
+        variables["params"], variables["batch_stats"], jnp.asarray(x))
+    model = ResNet18(num_classes=5, **kwargs)
+    missing = model.load_state_dict(resnet_params_from_flax(variables))
+    assert not missing.missing_keys and not missing.unexpected_keys
+    model.train()
+    got = model(_nchw(x))
+    got.square().sum().backward()
+    (atol, rtol), stat_tol, (gatol, grtol) = BARS["init" if like_init else "perturbed"]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=atol,
+                               rtol=rtol)
+    back = resnet_params_to_flax(model.state_dict(), norm_name, stem=stem, remat=remat)
+    got_stats, want_stats = _flat(back["batch_stats"]), _flat(want_stats)
+    assert got_stats.keys() == want_stats.keys() and len(want_stats) == 40
+    for k, w in want_stats.items():
+        np.testing.assert_allclose(got_stats[k], w, atol=stat_tol, rtol=stat_tol,
+                                   err_msg=k)
+    grads = resnet_params_to_flax({k: p.grad for k, p in model.named_parameters()},
+                                  norm_name, stem=stem, remat=remat)["params"]
+    got_g, want_g = _flat(grads), _flat(want_grads)
+    assert got_g.keys() == want_g.keys() and len(want_g) == 62
+    for k, w in want_g.items():
+        if option == "minres8":
+            l2 = np.linalg.norm(got_g[k] - w) / (np.linalg.norm(w) + 1e-30)
+            assert l2 <= 0.05, k
+        else:
+            np.testing.assert_allclose(got_g[k], w, atol=gatol, rtol=grtol, err_msg=k)
+
+
+@pytest.mark.parametrize("option", ["s2d", "s2d_exact", "remat"])
+def test_round_trip_of_the_option_names(option):
+    # s2d_exact keeps conv7's kernel as the top-level conv_init_kernel,
+    # s2d a (4, 4, 12, 64) conv_init, remat names the blocks
+    # Checkpoint<class>_i: each maps onto the port's names and back
+    kwargs, norm_name, stem, remat = OPTIONS[option]
+    jmodel = JaxResNet18(num_classes=5, **kwargs)
+    variables = _init(jmodel, 6)
+    sd = resnet_params_from_flax(variables)
+    model = ResNet18(num_classes=5, **kwargs)
+    missing = model.load_state_dict(sd)
+    assert not missing.missing_keys and not missing.unexpected_keys
+    want_shape = {"s2d": (64, 12, 4, 4)}.get(option, (64, 3, 7, 7))
+    assert tuple(sd["conv_init.weight"].shape) == want_shape
+    back = resnet_params_to_flax(sd, norm_name, stem=stem, remat=remat)
+    want, got = _flat(variables), _flat(back)
+    assert got.keys() == want.keys()
+    assert all(np.array_equal(got[k], w) for k, w in want.items())
+    names = set(variables["params"])
+    assert ("conv_init_kernel" in names) == (option == "s2d_exact")
+    assert any(n.startswith("CheckpointBasicBlock_") for n in names) == remat
+
+
+def test_remat_updates_the_running_statistics_once():
+    # the recompute in the backward runs the norms again without touching
+    # their buffers: after a step the buffers, the output and every
+    # gradient are remat=False's, bit for bit, and the buffers moved once
+    x = _nchw(_images(12))
+    outs = []
+    for remat in (False, True):
+        model = ResNet18(num_classes=5, norm_kind="minres", remat=remat,
+                         generator=torch.Generator().manual_seed(0)).train()
+        out = model(x)
+        out.square().sum().backward()
+        outs.append((out.detach(), [p.grad for p in model.parameters()],
+                     [b.clone() for b in model.buffers()]))
+    (o0, g0, b0), (o1, g1, b1) = outs
+    assert torch.equal(o0, o1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert len(b0) == 40 and all(torch.equal(a, b) for a, b in zip(b0, b1))
+    fresh = ResNet18(num_classes=5, norm_kind="minres")
+    assert not torch.equal(fresh.blocks[0].norms[0].running_mean, b1[2])
+
+
+@pytest.mark.parametrize("kwargs", [dict(norm_kind="fast"), dict(norm_kind="batch"),
+                                    dict(norm_kind="none"),
+                                    dict(norm_kind="minres", fused_stem_pool=True)],
+                         ids=["fast", "batch", "none", "fused-stem"])
+def test_argmax_stem_pool_is_ignored_where_jax_ignores_it(kwargs):
+    # the JAX model takes stem_pool='argmax' only with 'minres'; with the
+    # other kinds and under the fused stem it builds its usual stem
+    x = _nchw(_images(13))
+    models = [ResNet18(num_classes=5, stem_pool=pool, **kwargs,
+                       generator=torch.Generator().manual_seed(1)).train()
+              for pool in ("argmax", "xla")]
+    assert type(models[0].bn_init) is type(models[1].bn_init)
+    assert models[0].state_dict().keys() == models[1].state_dict().keys()
+    assert torch.equal(models[0](x), models[1](x))
+
+
+def test_minres8_matches_minres():
+    # the JAX package's own check, in the port: the same parameter names,
+    # the forward and the running statistics bit for bit, the gradients
+    # within the float8 residual's noise (relative L2 0.25 a leaf)
+    x = _nchw(_images(14))
+    outs = {}
+    for kind in ("minres", "minres8"):
+        model = ResNet18(num_classes=5, norm_kind=kind,
+                         generator=torch.Generator().manual_seed(2)).train()
+        for m in model.modules():  # no block's last scale at its zero
+            if isinstance(m, MinResBN2d):
+                m.weight.data.fill_(1.0)
+        out = model(x)
+        torch.sin(out).sum().backward()
+        outs[kind] = (out.detach(), {k: p.grad for k, p in model.named_parameters()},
+                      dict(model.named_buffers()))
+    (o, g, b), (o8, g8, b8) = outs["minres"], outs["minres8"]
+    assert torch.equal(o, o8) and g.keys() == g8.keys() and b.keys() == b8.keys()
+    assert all(torch.equal(b[k], b8[k]) for k in b)
+    for k in g:
+        assert float(torch.linalg.norm(g8[k] - g[k]) / torch.linalg.norm(g[k])) < 0.25, k
+
+
+def test_s2d_exact_stem_equals_conv7():
+    # the JAX package's own check: the same (64, 3, 7, 7) weight computes
+    # conv7's function through the 4×4 kernel over the space-to-depth input
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3))
+    a = ResNet18(num_classes=4, generator=torch.Generator().manual_seed(1)).eval()
+    b = ResNet18(num_classes=4, stem="s2d_exact").eval()
+    b.load_state_dict(a.state_dict())
+    with torch.no_grad():
+        assert float((a(x) - b(x)).abs().max()) < 1e-5
+        assert ResNet18(num_classes=4, stem="s2d").eval()(x).shape == a(x).shape
 
 
 def test_initialisation_follows_the_generator_and_the_jax_initialisers():

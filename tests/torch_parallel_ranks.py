@@ -35,6 +35,7 @@ from cl_ica_tpu_torch.models.layers import (
     BatchNorm1d,
     FastBatchNorm2d,
     MinResBN2d,
+    MinResBNPool,
     StemBNReLUPool,
 )
 from cl_ica_tpu_torch.train import make_optimizer
@@ -129,16 +130,20 @@ def losses(z1: np.ndarray, z2: np.ndarray, names, device):
 # the norms
 # ---------------------------------------------------------------------------
 
-NORMS = ("fast", "minres_relu", "minres_add_relu", "minres_only", "stem", "bn1d")
+NORMS = ("fast", "minres_relu", "minres_add_relu", "minres_only", "stem", "bn1d",
+         "minres8_relu", "minres8_add_relu", "minres8_only", "argmax")
 
 
 def make_norm(kind: str, c: int):
     if kind == "fast":
         return FastBatchNorm2d(c)
     if kind.startswith("minres"):
-        return MinResBN2d(c, act="none" if kind == "minres_only" else "relu")
+        return MinResBN2d(c, act="none" if kind.endswith("_only") else "relu",
+                          residuals_f8=kind.startswith("minres8"))
     if kind == "stem":
         return StemBNReLUPool(c)
+    if kind == "argmax":
+        return MinResBNPool(c)
     return BatchNorm1d(c, eps=1e-5, momentum=0.01)
 
 
@@ -152,7 +157,7 @@ def norm_outputs(kind: str, x, res, ct, group=None) -> dict:
         norm.weight.copy_(torch.linspace(0.5, 1.5, c))
         norm.bias.copy_(torch.linspace(-0.2, 0.3, c))
     x = torch.tensor(x, requires_grad=True)
-    r = torch.tensor(res, requires_grad=True) if kind == "minres_add_relu" else None
+    r = torch.tensor(res, requires_grad=True) if kind.endswith("add_relu") else None
     with data_group(group):
         y = norm(x, res=r) if r is not None else norm(x)
         (y * torch.tensor(ct)).sum().backward()
@@ -300,11 +305,12 @@ def quick_kitti_evaluation():
 
 
 def run_drivers(argv: dict, device) -> dict:
-    """main_mlp, main_kitti, and main_3dident in its three modes, each with
-    its argv; what each ``main`` returns (main_kitti: None)."""
+    """main_mlp, main_kitti, and main_3dident in its three modes and with
+    --norm-kind minres8, each with its argv; what each ``main`` returns
+    (main_kitti: None)."""
     mains = {"mlp": main_mlp.main, "kitti": main_kitti.main,
              "unsupervised": main_3dident.main, "supervised": main_3dident.main,
-             "test": main_3dident.main}
+             "test": main_3dident.main, "minres8": main_3dident.main}
     return {k: mains[k](v, device=device) for k, v in argv.items()}
 
 

@@ -19,8 +19,9 @@ it writes under runs/profile_3dident/ (or the one given with --fixture).
 The phases there: sampling + matching, gather + normalise, the stem (conv7,
 norm, relu, pool), the rest of the encoder, the loss, backward, Adam.
 --norm-kind minres (the default, every norm through the ops.bn_minres
-kernels) or fast (the plain norm under autograd) picks main_3dident's
-norm; --fused-stem takes the stem tail through the ops.stem kernels (and
+kernels), minres8 (their float8 modes, ops.bn_minres8) or fast (the plain
+norm under autograd) picks main_3dident's norm; --stem-pool argmax puts the
+argmax-code pool (ops.pool_minres) at the stem of the minres backbone; --fused-stem takes the stem tail through the ops.stem kernels (and
 the other norms through 'fast', as main_3dident forces), --bf16 computes
 the backbone in bfloat16, --tf32 lets float32 convolutions and products
 use TF32. --over-budget traces the same step fed from the store kept on
@@ -44,7 +45,8 @@ replays), device ms a step between two CUDA events, the kernels a replay
 launches, and a trace of the replays (device time by kernel, busy share).
 
 Usage: python3 tools/profile_torch_step.py [--box | --p 0] [--steps N]
-       python3 tools/profile_torch_step.py --3dident [--norm-kind {minres,fast}]
+       python3 tools/profile_torch_step.py --3dident
+               [--norm-kind {minres,minres8,fast}] [--stem-pool {xla,argmax}]
                [--fused-stem] [--bf16] [--over-budget [--workers 1,4,0]]
        python3 tools/profile_torch_step.py --kitti [--augment] [--fixture DIR]
 Prints the card's name and power limit beside every number.
@@ -221,12 +223,14 @@ def profile_3dident(cli, card: str) -> None:
                                       device="cuda")
     model = main_3dident.build_encoder(
         args, n_non_ang + n_ang, n_non_ang,
-        torch.Generator().manual_seed(0)).cuda().train()
+        torch.Generator().manual_seed(0), stem_pool=cli.stem_pool).cuda().train()
     loss = main_3dident.build_split_loss(args, n_non_ang)
     opt, _ = make_optimizer(model.parameters(), args.lr)
     gen = torch.Generator(device="cuda").manual_seed(0)
     tag = (f"3DIdent ResNet18 B={args.batch_size} "
            f"{'fused stem, fast' if cli.fused_stem else cli.norm_kind} norms, "
+           f"{'argmax-code' if cli.stem_pool == 'argmax' else 'max_pool2d'} "
+           f"stem pool, "
            f"{'bfloat16' if cli.bf16 else 'float32'}"
            f"{', TF32' if cli.tf32 else ''}")
 
@@ -403,8 +407,12 @@ def main() -> int:
     ap.add_argument("--3dident", dest="threedident", action="store_true",
                     help="main_3dident's unsupervised step instead of main_mlp's")
     ap.add_argument("--fused-stem", action="store_true")
-    ap.add_argument("--norm-kind", choices=("minres", "fast"), default="minres",
+    ap.add_argument("--norm-kind", choices=("minres", "minres8", "fast"),
+                    default="minres",
                     help="with --3dident: main_3dident's --norm-kind")
+    ap.add_argument("--stem-pool", choices=("xla", "argmax"), default="xla",
+                    help="with --3dident: the backbone's stem_pool (argmax: "
+                         "the argmax-code pool of the minres norm)")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--tf32", action="store_true")
     ap.add_argument("--kitti", action="store_true",
