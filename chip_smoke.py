@@ -158,10 +158,37 @@ use) and no network, and it exits non-zero on any failure. Phases:
              on the same weights, remat=True against none bit for bit with
              the running buffers (cudnn.deterministic), stem='s2d' finite.
              12d step ms and peak GiB, minres against minres8 and the xla
-             stem pool against argmax, in turns, float32 and --bf16
+             stem pool against argmax, in turns, float32 and --bf16; 12a
+             also times PyTorch's calls for the code (eval-mode batch_norm,
+             relu, max_pool2d with indices), its pooled values held to the
+             plain version's first
+ 13 rest     the rest of the JAX package. 13a each driver at full width
+             with and without --profile-dir (main_mlp 4b for 201 steps at
+             --n-log-steps 100, main_kitti default for 200 steps,
+             main_3dident's default path for 5 eager steps), under
+             cudnn.deterministic: losses (KITTI: logs and final parameters)
+             bit for bit, the trace parsed and its CUDA kernel events
+             counted against the launch counters (each counter's launch is
+             one main kernel, graph replays included), its size; then the
+             profiler's cost a step on the three lanes in turns. 13b
+             CL_ICA_TPU_DEBUG=1: main_mlp 4b's captured lane for 200 steps
+             bit for bit against the flag off, its replays under sync debug
+             mode "error"; a NaN encoder weight raises ValueError at the
+             first window boundary (main_mlp, main_kitti, captured) and at
+             the first step (main_3dident, eager); main_3dident --scan
+             exits naming the flag. 13c GIN and GLOW CouplingFlow (n = 10,
+             8 blocks, B = 6144), SlowVAELoss at main_mlp's width, the
+             same noise, ConvDecoder64 (batch 64, nc 1, (64, 1, 34, 34)),
+             PositionalEncoding2D on 1024 images of 224x224x3 and
+             generate_3dident_latents --n-points 1000000, each against the
+             CPU: float64 equal to 1e-5, float32 no further from float64
+             than 4x the CPU's (the flows at 8 blocks and SlowVAE's
+             kl_normal keep fewer float32 digits than 1e-5 on either
+             device), gradients to 1e-4, the encoding exactly, the latents'
+             contracts
 
 ``--only a,b`` runs a subset of {mlp, stem, bn, 3dident, times, kitti,
-capture, prefetch, mesh, options} (the build
+capture, prefetch, mesh, options, rest} (the build
 always runs) for a short look at one part. Such a run is no pass: it
 prints {"ok": false, "partial": [...]} and exits 1; the kernels line and
 the ok line are printed by the full run only.
@@ -173,6 +200,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
 import functools
@@ -2919,14 +2947,26 @@ def _bn8_bounds(shape, dtype) -> dict:
 OPTIONS_TIMED = BN8 + POOL
 
 
+def _library_pool(x4, scale, bias, mean, var):
+    """PyTorch's calls for the code kernel's function: the norm with the
+    batch's statistics, the relu and the 3x3/2 max pool with its argmax
+    (int64 indices where the kernel keeps an int8 code), on the logical
+    NCHW view of the NHWC tensor."""
+    z = F.relu(F.batch_norm(x4, mean, var, scale, bias, False, 0.0, EPS))
+    return F.max_pool2d(z, 3, 2, 1, return_indices=True)
+
+
 def _time_options(dtype, smi: str) -> dict:
     """ms of the five kernels at STEM_FULL (the f8 modes in bn_relu's mode)
-    against their plain versions and, for the scatter, PyTorch's
-    max_pool2d_with_indices_backward (held to it in _hold_pool), in turns.
-    No single PyTorch call computes the f8 modes or the code."""
+    against their plain versions and PyTorch's own calls, in turns: for the
+    code, batch_norm + relu + max_pool2d with indices (its pooled values
+    held to the plain version's first); for the scatter,
+    max_pool2d_with_indices_backward (held to it in _hold_pool). No single
+    PyTorch call computes the f8 modes: PyTorch's e4m3 cast saturates where
+    the JAX package's gives NaN (C9)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     x, _, dy, scale, bias = _bn_inputs(STEM_FULL, dtype, gen)
-    mean, _, rstd = bn_minres.channel_stats(x, EPS)
+    mean, var, rstd = bn_minres.channel_stats(x, EPS)
     a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
     s, t = scale.to(dtype), bias.to(dtype)
     xq = bn_minres8.quantize_reference(x, mean, rstd)
@@ -2938,6 +2978,16 @@ def _time_options(dtype, smi: str) -> dict:
     z = bn_minres.bn_apply_reference(x, a, b).permute(0, 3, 1, 2)
     _, idx = F.max_pool2d(z, 3, 2, 1, return_indices=True)
     g4 = g.permute(0, 3, 1, 2)
+    x4 = x.permute(0, 3, 1, 2)
+    lib_pooled = _library_pool(x4, scale, bias, mean, var)[0].permute(0, 2, 3, 1)
+    plain_pooled = pool_minres.pool_code_reference(x, a, b)[0]
+    pool_err = rel_err(lib_pooled.float(), plain_pooled.float())
+    # the library folds the norm as (x - mean)·rstd·scale + bias, the plain
+    # version as x·a + b: a rounding apart (a bfloat16 ulp is 2^-8)
+    if pool_err > (1e-5 if dtype == torch.float32 else 2.0 ** -7):
+        raise AssertionError(f"12a: PyTorch's pool of {dtype} is {pool_err} from "
+                             f"the plain version's")
+    del lib_pooled, plain_pooled
     cases = {
         "kernel": {
             "bn_apply8": lambda: bn_minres8.launch_apply8(x, a, b, mean, rstd),
@@ -2952,6 +3002,7 @@ def _time_options(dtype, smi: str) -> dict:
             "pool_code": lambda: pool_minres.pool_code_reference(x, a, b),
             "pool_scatter": lambda: pool_minres.pool_scatter_reference(g, code, h, w)},
         "library": {
+            "pool_code": lambda: _library_pool(x4, scale, bias, mean, var),
             "pool_scatter": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 g4, z, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)},
     }
@@ -3206,14 +3257,557 @@ def phase_options(worst: dict, smi: str) -> tuple[dict, dict]:
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest (--profile-dir, the CL_ICA_TPU_DEBUG=1 guards, the
+# coupling flows, the SlowVAE loss and its decoder, the positional encoding,
+# the latents tool)
+# ---------------------------------------------------------------------------
+
+REST_DIR = os.path.join(OUT_DIR, "13_rest")
+# the symbols of each launch counter's main kernel (its reduce kernels
+# aside): the tiled kernel or the first version, whichever the library runs
+TRACE_SYMBOLS = {
+    "fwd": ("neg_lse_fwd_tiled", "neg_lse_fwd_kernel"),
+    "dz1": ("neg_lse_grad_kernel", "neg_lse_dz1_kernel"),
+    "dz3": ("neg_lse_grad_kernel", "neg_lse_dz3_kernel"),
+    "dot_fwd": ("dot_lse_fwd_tiled", "dot_lse_fwd_kernel"),
+    "dot_dz1": ("dot_lse_grad_kernel", "dot_lse_dz1_kernel"),
+    "dot_dz3": ("dot_lse_grad_kernel", "dot_lse_dz3_kernel"),
+    "stem_fwd": ("stem_fwd_kernel",), "stem_bwd": ("stem_bwd_kernel",),
+    "stem_dx": ("stem_dx_kernel",), "bn_stats": ("bn_stats_kernel",),
+    "bn_apply": ("bn_apply_kernel",), "bn_bwd": ("bn_bwd_kernel",),
+    "bn_dx": ("bn_dx_kernel",),
+}
+MAIN_SYMBOLS = sorted({sym for syms in TRACE_SYMBOLS.values() for sym in syms})
+REST_MLP = BOX + ["--n-steps", "201", "--more-unsupervised", "1", "--n-log-steps",
+                  "100", "--save-every", "201"]
+REST_KITTI_STEPS = 200
+REST_3D_STEPS = 5
+
+
+@contextlib.contextmanager
+def _debug_flag(value):
+    """CL_ICA_TPU_DEBUG set to ``value`` (None: unset) within."""
+    was = os.environ.pop("CL_ICA_TPU_DEBUG", None)
+    if value is not None:
+        os.environ["CL_ICA_TPU_DEBUG"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("CL_ICA_TPU_DEBUG", None)
+        if was is not None:
+            os.environ["CL_ICA_TPU_DEBUG"] = was
+
+
+def _trace_kernels(prof_dir: str) -> tuple[dict, int, int]:
+    """The one trace under ``prof_dir``, parsed: (count of each main kernel
+    symbol among its CUDA kernel events, its kernel events, its bytes)."""
+    paths = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)
+             if f.endswith(".pt.trace.json")]
+    if len(paths) != 1:
+        raise AssertionError(f"13a: {len(paths)} traces under {prof_dir}")
+    with open(paths[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {sym: sum(sym in name for name in kernels) for sym in MAIN_SYMBOLS}
+    return found, len(kernels), os.path.getsize(paths[0])
+
+
+def _hold_trace(tag: str, prof_dir: str, grew: dict) -> int:
+    """The trace's kernel events name every hand-written kernel the run
+    launched, as many times as the launch counters counted (each counter's
+    launch is one main kernel). Returns the trace's bytes."""
+    found, n_kernels, size = _trace_kernels(prof_dir)
+    seen = {sym: n for sym, n in found.items() if n}
+    launched = {k: v for k, v in grew.items() if v}
+    print(f"[13 rest] 13a {tag}: trace {size / 1e6:.1f} MB, {n_kernels} CUDA "
+          f"kernel events; hand-written kernels in it {seen}; launch counters "
+          f"{launched}")
+    missing = [k for k in launched
+               if not any(found[sym] for sym in TRACE_SYMBOLS[k])]
+    if missing or sum(found.values()) != sum(launched.values()):
+        raise AssertionError(
+            f"13a {tag}: the trace's kernel events {seen} do not account for the "
+            f"launches {launched} (missing {missing}); the trace holds "
+            f"{n_kernels} kernel events in all")
+    return size
+
+
+def _overhead(tag: str, step, steps: int, prof_dir: str, smi: str) -> None:
+    """ms a step of ``step`` (a warmed-up lane), without and with the
+    profiler (utils.profiling.trace_context), in turns."""
+    from cl_ica_tpu_torch.utils import trace_context
+
+    ms = {"plain": [], "profiled": []}
+    export = []
+    for kind in ("plain", "profiled", "profiled", "plain"):
+        ctx = (trace_context(os.path.join(prof_dir, f"turn{len(export)}"), "cuda")
+               if kind == "profiled" else contextlib.nullcontext())
+        t_enter = time.perf_counter()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3 / steps)
+            t_loop = time.perf_counter()
+        if kind == "profiled":
+            export.append(time.perf_counter() - t_loop)
+    _say_time(f"[13 times] {tag}, {steps} steps a turn (plain, profiled, "
+              f"profiled, plain), ms a step: plain "
+              + ", ".join(f"{v:.4f}" for v in ms["plain"]) + "; profiled "
+              + ", ".join(f"{v:.4f}" for v in ms["profiled"])
+              + "; the trace's stop and export " + ", ".join(f"{v:.2f}" for v in export)
+              + f" s; on {smi}")
+
+
+def _rest_mlp(smi: str) -> dict:
+    """13a's main_mlp 4b (box + Laplace p=1, B=6144), 201 steps at
+    --n-log-steps 100, with and without --profile-dir: the lane's losses
+    (its phase-boundary checkpoint) and scores bit-equal, the trace."""
+    runs = {}
+    for tag in ("plain", "profiled"):
+        save = os.path.join(REST_DIR, f"mlp_{tag}")
+        prof = os.path.join(REST_DIR, f"mlp_{tag}_trace")
+        shutil.rmtree(save, ignore_errors=True)
+        shutil.rmtree(prof, ignore_errors=True)
+        argv = REST_MLP + ["--save-dir", save] + (
+            ["--profile-dir", prof] if tag == "profiled" else [])
+        infonce.reset_launch_counts()
+        t0 = time.perf_counter()
+        scores = main_mlp.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grew = infonce.launch_counts()
+        _, state = checkpoint.load_resume_state(os.path.join(save, "resume"))
+        runs[tag] = (state["lane"]["losses"], scores, grew, secs, prof)
+    (lp, sp, gp, tp, _), (lq, sq, gq, tq, prof) = runs["plain"], runs["profiled"]
+    size = _hold_trace("main_mlp 4b (box p=1) B=6144, 201 steps", prof, gq)
+    print(f"[13 rest] 13a main_mlp 4b: {len(lq)} losses "
+          f"{'bit-equal' if lq == lp else 'DIFFER'} with and without the "
+          f"profiler, scores {sq} / {sp}; run {tq:.1f} s / {tp:.1f} s; trace "
+          f"{size / 1e6:.1f} MB on {smi}")
+    want = {k: 201 if k in LP else 0 for k in KERNELS}
+    if gq != want or gp != want:
+        raise AssertionError(f"13a main_mlp: launches {gq} / {gp}, expected {want}")
+    if lq != lp or sq != sp or len(lq) != 201:
+        raise AssertionError("13a main_mlp: the profiled run differs")
+    return gq
+
+
+def _rest_kitti(smi: str) -> dict:
+    """13a's main_kitti default (ConvEncoder64, batch 64, z_dim 10, p=1),
+    200 steps, with and without --profile-dir, under cudnn.deterministic:
+    the logs and the final checkpoint's parameters bit-equal, the trace."""
+    if not os.path.exists(os.path.join(KITTI_CORPUS, kitti.FNAME)):
+        phase_kitti_corpus()
+    runs = {}
+    for tag in ("plain", "profiled"):
+        out = os.path.join(REST_DIR, f"kitti_{tag}")
+        prof = os.path.join(REST_DIR, f"kitti_{tag}_trace")
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(prof, ignore_errors=True)
+        argv = _RUNK + ["--max-iter", str(REST_KITTI_STEPS), "--log-step", "100",
+                        "--output-dir", os.path.join(out, "out"),
+                        "--ckpt-dir", os.path.join(out, "ck")] + (
+            ["--profile-dir", prof] if tag == "profiled" else [])
+        infonce.reset_launch_counts()
+        main_kitti.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        grew = infonce.launch_counts()
+        run = os.path.join(out, "out", "kittimasks_1", "1_0", "0")
+        with open(os.path.join(run, "log.csv")) as fh:
+            log = fh.read()
+        ckpt = kitti_solver.load_checkpoint_file(
+            os.path.join(out, "ck", "kittimasks_1", "1_0", "0", "last"))
+        runs[tag] = (log, ckpt["model_states"]["net"], grew, prof)
+    (lp, np_, gp, _), (lq, nq, gq, prof) = runs["plain"], runs["profiled"]
+    same = all(torch.equal(nq[k], np_[k]) for k in np_)
+    size = _hold_trace("main_kitti default B=64, 200 steps", prof, gq)
+    print(f"[13 rest] 13a main_kitti: log.csv {'equal' if lq == lp else 'DIFFERS'}, "
+          f"final parameters {'bit-equal' if same else 'DIFFER'} with and "
+          f"without the profiler; trace {size / 1e6:.1f} MB on {smi}")
+    want = {k: REST_KITTI_STEPS if k in LP else 0 for k in KERNELS}
+    if gq != want or gp != want:
+        raise AssertionError(f"13a main_kitti: launches {gq} / {gp}, expected {want}")
+    if lq != lp or not same:
+        raise AssertionError("13a main_kitti: the profiled run differs")
+    return gq
+
+
+def _rest_3dident(smi: str) -> dict:
+    """13a's main_3dident default path (ResNet18 minres, B=512, phase 6's
+    fixture), 5 eager steps, with and without --profile-dir, under
+    cudnn.deterministic: losses and evaluation bit-equal, the trace."""
+    if not os.path.exists(os.path.join(FIXTURE, "raw_latents.npy")):
+        phase_fixture()
+    runs = {}
+    for tag in ("plain", "profiled"):
+        prof = os.path.join(REST_DIR, f"3dident_{tag}_trace")
+        shutil.rmtree(prof, ignore_errors=True)
+        argv = ["--mode", "unsupervised", "--iterations", str(REST_3D_STEPS),
+                "--n-log-steps", str(REST_3D_STEPS), "--n-eval-samples", "1024"] + (
+            ["--profile-dir", prof] if tag == "profiled" else [])
+        out, grew, secs = _run_3dident(f"13a {tag}", argv)
+        runs[tag] = (out, grew, secs, prof)
+    (op, gp, tp, _), (oq, gq, tq, prof) = runs["plain"], runs["profiled"]
+    size = _hold_trace("main_3dident default ResNet18 B=512, 5 steps", prof, gq)
+    same = oq["losses"] == op["losses"] and oq["mcc"] == op["mcc"]
+    print(f"[13 rest] 13a main_3dident: losses {oq['losses']} "
+          f"{'bit-equal' if same else 'DIFFER'} with and without the profiler "
+          f"(MCC {oq['mcc']} / {op['mcc']}); run {tq:.1f} s / {tp:.1f} s; trace "
+          f"{size / 1e6:.1f} MB on {smi}")
+    want = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(LP + DOT, REST_3D_STEPS),
+            **dict.fromkeys(BN, BN_NORMS_A_STEP * REST_3D_STEPS)}
+    if gq != want or gp != want:
+        raise AssertionError(f"13a main_3dident: launches {gq} / {gp}, expected {want}")
+    if not same:
+        raise AssertionError("13a main_3dident: the profiled run differs")
+    return gq
+
+
+def _rest_overheads(smi: str) -> None:
+    """The profiler's cost a step: the captured main_mlp and main_kitti
+    lanes and the eager main_3dident step, each without and with a trace,
+    in turns."""
+    prof = os.path.join(REST_DIR, "overhead_traces")
+    shutil.rmtree(prof, ignore_errors=True)
+    step, _ = _mlp_capture_lane("box")
+    for _ in range(WARMUP_STEPS + 1):
+        step()
+    _overhead(f"main_mlp 4b captured step B={BATCH}", step, 200,
+              os.path.join(prof, "mlp"), smi)
+    step, _ = _kitti_capture_lane()
+    for _ in range(WARMUP_STEPS + 1):
+        step()
+    _overhead("main_kitti default captured step B=64", step, 200,
+              os.path.join(prof, "kitti"), smi)
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    sampler = ThreeDIdentBatchSampler(
+        FIXTURE, main_3dident.setup_latent_space(args)[0], 512, device="cuda")
+    step, _ = _3dident_capture_lane(sampler)
+    for _ in range(2):
+        _eager(step)
+    _overhead("main_3dident default eager step ResNet18 B=512",
+              lambda: _eager(step), 5, os.path.join(prof, "3dident"), smi)
+    del sampler, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mlp_rest_lane(nan: bool = False):
+    """A main_mlp 4b lane at seed 0 in its unsupervised phase, its encoder's
+    first weight NaN with ``nan``."""
+    args = main_mlp.parse_args(CONFIGS["box"])
+    dev = torch.device("cuda")
+    lane = main_mlp.Lane(args, 0, dev, main_mlp.build_latent_space(args, dev),
+                         main_mlp.make_loss(args))
+    lane.start_phase(False, args.n_steps)
+    if nan:
+        with torch.no_grad():
+            lane.f.linears[0].weight.fill_(float("nan"))
+    return lane
+
+
+def _raises(tag: str, fn, error, needle: str) -> None:
+    try:
+        fn()
+    except error as err:
+        if needle not in str(err):
+            raise AssertionError(f"13b {tag}: {type(err).__name__} {err!r} does not "
+                                 f"name {needle!r}") from err
+        print(f"[13 rest] 13b {tag}: {type(err).__name__}: {err}")
+        return
+    raise AssertionError(f"13b {tag}: no {error.__name__}")
+
+
+def _rest_guards() -> None:
+    """13b: CL_ICA_TPU_DEBUG=1 on the card. main_mlp 4b's captured lane, 200
+    steps in windows of 100, with the flag against without: losses and
+    parameters bit-equal and the same launches a replay, every replay under
+    sync debug mode "error" (the guard reads the window after it); then a
+    NaN encoder weight raises at the first window boundary in main_mlp
+    (captured) and main_kitti (captured), at the first step in main_3dident
+    (eager), and main_3dident --scan exits naming the flag."""
+    lanes = {}
+    for flag in (None, "1"):
+        with _debug_flag(flag):
+            lane = _mlp_rest_lane()
+            captured = lane.step
+
+            def strict(captured=captured):
+                torch.cuda.set_sync_debug_mode("error" if captured.captured else 0)
+                try:
+                    return captured()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            lane.step = strict
+            for n in (WARMUP_STEPS + 1, 100, 100 - WARMUP_STEPS - 1):
+                main_mlp.train_steps([lane], n)
+            lanes[flag] = (lane, captured)
+    (off, cap_off), (on, cap_on) = lanes[None], lanes["1"]
+    pairs = list(zip(off.f.parameters(), on.f.parameters()))
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    print(f"[13 rest] 13b main_mlp 4b captured lane, 200 steps: losses "
+          f"{'bit-equal' if off.losses == on.losses else 'DIFFER'} and {same} of "
+          f"{len(pairs)} parameters bit-equal with CL_ICA_TPU_DEBUG=1 and without; "
+          f"launches a replay {cap_on.per_replay} / {cap_off.per_replay}; replays "
+          f"under sync debug mode 'error'")
+    if (off.losses != on.losses or same != len(pairs) or len(on.losses) != 200
+            or cap_on.per_replay != cap_off.per_replay or not cap_on.captured):
+        raise AssertionError("13b: the flag changed the captured main_mlp lane")
+    del lanes, off, on, pairs
+    with _debug_flag("1"):
+        lane = _mlp_rest_lane(nan=True)
+        _raises("main_mlp 4b captured, NaN weight",
+                lambda: main_mlp.train_steps([lane], 10), ValueError,
+                "non-finite values in loss")
+        if not lane.step.captured or lane.losses:
+            raise AssertionError("13b main_mlp: the NaN window was not the captured "
+                                 "one, or a loss was kept")
+        build = kitti_solver.ConvEncoder64
+
+        def nan_encoder(*a, **kw):
+            net = build(*a, **kw)
+            with torch.no_grad():
+                net.convs[0].weight.fill_(float("nan"))
+            return net
+
+        kitti_solver.ConvEncoder64 = nan_encoder
+        try:
+            args = _kitti_args("13b_nan", "--max-iter", "20", "--log-step", "10")
+            solver = kitti_solver.Solver(args, kitti.return_data(args)[0], "cuda")
+            _raises("main_kitti default captured, NaN weight", solver.train,
+                    ValueError, "non-finite values in loss")
+        finally:
+            kitti_solver.ConvEncoder64 = build
+        if not solver.steps[0].captured or solver.global_iter != 10:
+            raise AssertionError(f"13b main_kitti: raised at step "
+                                 f"{solver.global_iter}, not at the window's end")
+        build3 = main_3dident.build_encoder
+        forwards = [0]
+
+        def nan_model(*a, **kw):
+            model = build3(*a, **kw)
+            with torch.no_grad():
+                model.dense.weight.fill_(float("nan"))
+            model.register_forward_pre_hook(
+                lambda m, i: forwards.__setitem__(0, forwards[0] + torch.is_grad_enabled()))
+            return model
+
+        main_3dident.build_encoder = nan_model
+        try:
+            _raises("main_3dident default eager, NaN weight",
+                    lambda: main_3dident.main(_RUN3D + ["--mode", "unsupervised",
+                                                        "--iterations", "3"],
+                                              device="cuda"),
+                    ValueError, "non-finite values in unsupervised loss")
+        finally:
+            main_3dident.build_encoder = build3
+        if forwards[0] != 1:
+            raise AssertionError(f"13b main_3dident: {forwards[0]} steps ran")
+        _raises("main_3dident --scan",
+                lambda: main_3dident.main(_RUN3D + ["--mode", "unsupervised",
+                                                    "--scan"], device="cuda"),
+                SystemExit, "CL_ICA_TPU_DEBUG")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rest_modules(smi: str) -> None:
+    """13c: the new modules on the card, each against the same call on the
+    CPU."""
+    from cl_ica_tpu_torch.losses import SlowVAELoss
+    from cl_ica_tpu_torch.models import (
+        ConvDecoder64,
+        PositionalEncoding2D,
+        get_flow,
+    )
+    from cl_ica_tpu_torch.tools import generate_3dident_latents
+
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    x = torch.randn(BATCH, N_FEAT, generator=gen(1))
+    for coupling in ("gin", "glow"):
+        flow = get_flow(N_FEAT, N_FEAT, coupling_block=coupling, generator=gen(0))
+        out = {}
+        with torch.no_grad():
+            for dtype in (torch.float32, torch.float64):
+                for key, device in (("cpu", "cpu"), ("card", "cuda")):
+                    f = copy.deepcopy(flow).to(device=device, dtype=dtype)
+                    y, ld = f.forward_with_logdet(x.to(device=device, dtype=dtype))
+                    out[key, dtype] = (y.cpu().double(), ld.cpu().double(),
+                                       f.inverse(y).cpu().double())
+        (y64, ld64, back64), x64 = out["card", torch.float64], x.double()
+        # the same function: float64 on the card against float64 on the CPU
+        # (GIN's log-det is 0 up to rounding: its difference, absolute)
+        y64_cpu, ld64_cpu, back64_cpu = out["cpu", torch.float64]
+        same = max(rel_err(y64, y64_cpu), rel_err(back64, back64_cpu),
+                   rel_err(ld64, ld64_cpu) if coupling == "glow"
+                   else float((ld64 - ld64_cpu).abs().max()))
+        rt64 = rel_err(back64, x64)
+        # float32 on each device against float64: at 8 blocks the flow's
+        # outputs reach 1e5 and float32 keeps fewer digits than 1e-5 of them
+        # on either device, so the card is held to the CPU's float32 accuracy
+        # (within a factor 4: two roundings of one ill-conditioned sample)
+        acc = {dev: (rel_err(out[dev, torch.float32][0], y64),
+                     rel_err(out[dev, torch.float32][1], ld64)
+                     if coupling == "glow" else
+                     float(out[dev, torch.float32][1].abs().max()))
+               for dev in ("cpu", "card")}
+        y32, ld32 = out["card", torch.float32][:2]
+        cross = (rel_err(y32, out["cpu", torch.float32][0]),
+                 rel_err(ld32, out["cpu", torch.float32][1]) if coupling == "glow"
+                 else float(ld32.abs().max()))
+        rt32 = rel_err(out["card", torch.float32][2], x64)
+        print(f"[13 rest] 13c {coupling.upper()} CouplingFlow n={N_FEAT}, 8 blocks, "
+              f"B={BATCH}, max |y| {float(y64.abs().max()):.3g}: float64 card vs CPU "
+              f"{same:.2e}, inverse∘forward {rt64:.2e}; float32 against float64, "
+              f"forward / log-det{' (max |.|)' if coupling == 'gin' else ''}: card "
+              f"{acc['card'][0]:.2e} / {acc['card'][1]:.2e}, CPU {acc['cpu'][0]:.2e} / "
+              f"{acc['cpu'][1]:.2e}; float32 card vs CPU {cross[0]:.2e} / "
+              f"{cross[1]:.2e}; float32 inverse∘forward {rt32:.2e}")
+        worse = [acc["card"][i] > max(4 * acc["cpu"][i], VALUE_BAR) for i in (0, 1)]
+        if same > VALUE_BAR or rt64 > VALUE_BAR or any(worse):
+            raise AssertionError(f"13c {coupling}: {same}, {rt64}, {acc}")
+
+    # SlowVAE at main_mlp's width: get_mlp encoders with 2n outputs, an MLP
+    # decoder, the frozen mixing, the same noise on both devices
+    class FixedNoise(SlowVAELoss):
+        def _reparametrize(self, generator, mu, logvar):
+            return mu + torch.exp(logvar / 2.0) * self.noise.to(mu.device, mu.dtype)
+
+    widths = [N_FEAT * 10, N_FEAT * 50, N_FEAT * 50, N_FEAT * 50, N_FEAT * 50,
+              N_FEAT * 10]
+    enc = get_mlp(N_FEAT, 2 * N_FEAT, widths, generator=gen(2))
+    dec = get_mlp(N_FEAT, N_FEAT, widths, generator=gen(3))
+    g = construct_invertible_mlp(n=N_FEAT, n_layers=3, cond_thresh_ratio=0.0,
+                                 n_iter_cond_thresh=1000, rng=np.random.default_rng(0))
+    z1 = torch.rand(BATCH, N_FEAT, generator=gen(4)) * 2 - 1
+    z2 = (z1 + 0.1 * torch.randn(BATCH, N_FEAT, generator=gen(5))).clamp(-1, 1)
+    noise = torch.randn(2 * BATCH, N_FEAT, generator=gen(6))
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for key, device in (("cpu", "cpu"), ("card", "cuda")):
+            e, d, gg = (copy.deepcopy(m).to(device=device, dtype=dtype)
+                        for m in (enc, dec, g))
+            loss = FixedNoise(dec_h=d, g=gg, n=N_FEAT, decoder_dist="gaussian")
+            loss.noise = noise
+            a, b = z1.to(device, dtype), z2.to(device, dtype)
+            total, _, comps = loss(a, b, None, e(gg(a)), e(gg(b)), None,
+                                   generator=torch.Generator(device=device))
+            total.backward()
+            res[key, dtype] = ([v.detach().cpu().double() for v in [total, *comps]],
+                               [p.grad.cpu().double() for p in e.parameters()])
+    values64, grads64 = res["card", torch.float64]
+    same = max(rel_err(a, b) for a, b in zip(values64 + grads64,
+                                             sum(res["cpu", torch.float64], [])))
+    # float32 against float64: kl_normal is a difference of two sums of
+    # order 10 that leaves 0.025, so float32 keeps about 3e-5 of it on
+    # either device; the card is held to the CPU's float32 accuracy, as the
+    # flows are
+    acc = {dev: [rel_err(a, b) for a, b in zip(res[dev, torch.float32][0], values64)]
+           for dev in ("cpu", "card")}
+    value_err = max(rel_err(a, b) for a, b in zip(res["card", torch.float32][0],
+                                                  res["cpu", torch.float32][0]))
+    grad_err = max(rel_err(a, b) for a, b in zip(res["card", torch.float32][1],
+                                                 res["cpu", torch.float32][1]))
+    print(f"[13 rest] 13c SlowVAELoss (gaussian, MLP encoder 2n and decoder, "
+          f"n={N_FEAT}, B={BATCH}): float64 card vs CPU {same:.2e}; float32 "
+          f"[loss, recon, kl_normal, kl_laplace] against float64, card "
+          + ", ".join(f"{v:.2e}" for v in acc["card"]) + "; CPU "
+          + ", ".join(f"{v:.2e}" for v in acc["cpu"])
+          + f"; float32 card vs CPU: values {value_err:.2e}, encoder gradients "
+          f"{grad_err:.2e}")
+    worse = [c > max(4 * p, VALUE_BAR) for c, p in zip(acc["card"], acc["cpu"])]
+    if same > VALUE_BAR or any(worse) or grad_err > GRAD_BAR:
+        raise AssertionError(f"13c SlowVAE: {same}, {acc}, {grad_err}")
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        decoder = ConvDecoder64(z_dim=KITTI_Z, nc=1, generator=gen(7))
+        z = torch.randn(2 * KITTI_PAIRS, KITTI_Z, generator=gen(8))
+        with torch.no_grad():
+            want = decoder(z)
+            got = copy.deepcopy(decoder).cuda()(z.cuda())
+    finally:
+        torch.backends.cudnn.deterministic = was
+    err = rel_err(got.cpu(), want)
+    print(f"[13 rest] 13c ConvDecoder64 batch {2 * KITTI_PAIRS}: output "
+          f"{tuple(got.shape)}, card vs CPU {err:.2e}")
+    if tuple(got.shape) != (2 * KITTI_PAIRS, 1, 34, 34) or err > VALUE_BAR:
+        raise AssertionError(f"13c ConvDecoder64: {tuple(got.shape)}, {err}")
+
+    images = torch.randint(0, 256, (1024, 224, 224, 3), dtype=torch.uint8,
+                           generator=torch.Generator(device="cuda").manual_seed(9),
+                           device="cuda")
+    x_card = normalize_3dident(images)
+    pe = PositionalEncoding2D()
+    got = pe(x_card)
+    want = pe(x_card.cpu())
+    equal = torch.equal(got.cpu(), want)
+    print(f"[13 rest] 13c PositionalEncoding2D on 1024 images of 224x224x3: "
+          f"output {tuple(got.shape)}, card {'equal to' if equal else 'DIFFERS from'} "
+          f"the CPU's, channels_last {got.is_contiguous(memory_format=torch.channels_last)}")
+    if not equal or tuple(got.shape) != (1024, 5, 224, 224):
+        raise AssertionError("13c PositionalEncoding2D differs")
+    del images, x_card, got, want
+
+    out = os.path.join(REST_DIR, "latents")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_3dident_latents.main(["--n-points", "1000000", "--output-folder", out],
+                                  device="cuda")
+    secs = time.perf_counter() - t0
+    raw = np.load(os.path.join(out, "raw_latents.npy"))
+    ren = np.load(os.path.join(out, "latents.npy"))
+    norms = np.linalg.norm(raw[:, 3:], axis=1)
+    print(f"[13 rest] 13c generate_3dident_latents --n-points 1000000 on the card: "
+          f"{secs:.1f} s, raw {raw.shape}, renderer {ren.shape}, sphere norms "
+          f"{norms.min():.6f}-{norms.max():.6f}, angles {ren[:, 3:9].min():.4f}-"
+          f"{ren[:, 3:9].max():.4f}, positions |x|,|y| <= {abs(ren[:, :2]).max():.4f},"
+          f" z {ren[:, 2].min():.4f}-{ren[:, 2].max():.4f}")
+    ok = (raw.shape == (1000000, 11) and ren.shape == (1000000, 10)
+          and np.allclose(norms, 1.0, rtol=1e-5)
+          and ren[:, 3:9].min() >= 0.0 and ren[:, 3:9].max() <= 2 * np.pi + 1e-5
+          and abs(ren[:, :2]).max() <= 3.0 + 1e-6
+          and ren[:, 2].min() >= 0.0 and ren[:, 2].max() <= 3.0 + 1e-6)
+    if not ok:
+        raise AssertionError("13c generate_3dident_latents: a contract fails")
+
+
+def phase_rest(smi: str) -> dict:
+    """Phase 13. Returns the launches of 13a's profiled driver runs."""
+    t0 = time.perf_counter()
+    os.makedirs(REST_DIR, exist_ok=True)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = _rest_mlp(smi)
+        for k, v in _rest_kitti(smi).items():
+            launches[k] += v
+        for k, v in _rest_3dident(smi).items():
+            launches[k] += v
+    finally:
+        torch.backends.cudnn.deterministic = was
+    _rest_overheads(smi)
+    _rest_guards()
+    _rest_modules(smi)
+    shutil.rmtree(REST_DIR, ignore_errors=True)
+    print(f"[13 rest] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma-separated subset of mlp,stem,bn,3dident,times,"
-                         "kitti,capture,prefetch,mesh,options")
+                         "kitti,capture,prefetch,mesh,options,rest")
     only = set(filter(None, ap.parse_args().only.split(",")))
     unknown = only - {"mlp", "stem", "bn", "3dident", "times", "kitti", "capture",
-                      "prefetch", "mesh", "options"}
+                      "prefetch", "mesh", "options", "rest"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown --only parts {sorted(unknown)}")
     run = lambda part: not only or part in only
@@ -3258,6 +3852,9 @@ def main() -> int:
     if run("options"):
         grew, times_options = phase_options(worst, smi)
         for k, v in grew.items():
+            launches[k] += v
+    if run("rest"):
+        for k, v in phase_rest(smi).items():
             launches[k] += v
     if only:
         print(json.dumps({"ok": False, "partial": sorted(only)}))

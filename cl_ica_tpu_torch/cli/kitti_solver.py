@@ -15,7 +15,9 @@ loss and the update, with no host sync. The JAX package scans log_step
 such steps per device call; here each lane's step is captured once as a
 CUDA graph and replayed (train/capture.py), and the losses and norms stay
 on the device until a log or checkpoint boundary, where they reach the
-host in one transfer, are checked for non-finite values and written.
+host in one transfer, are checked for non-finite values and written
+(under CL_ICA_TPU_DEBUG=1 the losses first by utils.debug.nan_check, as
+the JAX package's checked chunk; the mesh's eager steps check each step).
 Every step samples on the device: with no scanned chunk there is no
 ragged tail for the host to feed.
 
@@ -48,6 +50,7 @@ from ..losses import LpSimCLRLoss
 from ..models import ConvEncoder64
 from ..parallel import data_rows, make_sharded_data_train_step
 from ..train import CapturedStep, make_optimizer
+from ..utils import nan_check
 
 NUMBERED_EVERY = 50000  # a numbered checkpoint every this many steps
 
@@ -224,7 +227,9 @@ class EnsembleSolver:
     def train(self) -> None:
         """Step to max_iter; losses and norms stay on the device until a
         log or checkpoint boundary. A non-finite loss or norm raises
-        FloatingPointError there."""
+        FloatingPointError there; under CL_ICA_TPU_DEBUG=1 a non-finite loss
+        raises ValueError there first, where the JAX package's checked scan
+        chunk returns."""
         files = []
         for d in self.out_dirs if self.lead else ():
             # append for resumed runs; the header only in a fresh file
@@ -259,6 +264,7 @@ class EnsembleSolver:
             window = torch.stack(pending).cpu().numpy().astype(np.float64)
             window = window.reshape(-1, n_lanes, 2)
             pending.clear()
+            nan_check(window[..., 0], "loss")
             if not np.isfinite(window).all():
                 step, lane = np.argwhere(~np.isfinite(window))[0][:2]
                 raise FloatingPointError(

@@ -28,7 +28,10 @@ CUDA graph and replays it between the log and save boundaries, where the
 JAX package scans the steps of each segment (train/capture.py).
 ``--save-every``/``--resume`` checkpoint the whole state (model,
 optimizer, scheduler, generators, step, loss history), so a resumed run
-repeats the uninterrupted one step for step.
+repeats the uninterrupted one step for step. ``--profile-dir`` traces the
+training loop (utils.profiling). Under CL_ICA_TPU_DEBUG=1 each eager step
+(and each --mesh step) raises ValueError when its loss is not finite, as
+the JAX package's checked steps do; --scan refuses the flag, as there.
 
 ``--mesh N`` trains data-parallel over N ranks (parallel/; rank r on
 cuda:r over NCCL, or gloo with device="cpu"), in all three modes. Every
@@ -93,11 +96,9 @@ from ..train import (
     checkpoint,
     make_optimizer,
 )
+from ..utils import nan_check, trace_context
+from ..utils.debug import DEBUG_ENV, debug_enabled
 from .main_mlp import resolve_device
-
-# The JAX package's debug switch (cl_ica_tpu/utils/debug.py): "1" turns on
-# per-step NaN guards, which --scan refuses there and here.
-DEBUG_ENV = "CL_ICA_TPU_DEBUG"
 
 
 def parse_args(argv=None):
@@ -197,8 +198,10 @@ def parse_args(argv=None):
                              "boundaries: one launch from the host per step "
                              "and no host wait inside a segment.")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="Profiler trace directory (not ported yet: "
-                             "ROADMAP A14).")
+                        help="Write a torch.profiler trace of the training "
+                             "loop (--mode unsupervised or supervised; "
+                             "*.pt.trace.json, for Perfetto or "
+                             "chrome://tracing) into this directory.")
     parser.add_argument("--log-dir", type=str, default=None,
                         help="Write structured metrics (log.csv + args.json) "
                              "into this directory.")
@@ -269,10 +272,13 @@ def parse_args(argv=None):
             raise SystemExit("--scan: the --mesh path has its own "
                              "sharded per-step program; scanned mesh "
                              "segments are not implemented — drop one")
-        if os.environ.get(DEBUG_ENV, "0") == "1":
-            raise SystemExit(f"--scan: debug mode's NaN guards check every "
-                             f"step on the host, which a captured step "
-                             f"cannot; unset {DEBUG_ENV} or drop --scan")
+        # The JAX package checks its per-step jits and its scans alike, but
+        # its --scan body is a plain jit that a checkify guard inside cannot
+        # run in, so --scan refuses the flag there, and here as well.
+        if debug_enabled():
+            raise SystemExit(f"--scan: the CL_ICA_TPU_DEBUG=1 NaN guards check "
+                             f"this driver's eager steps, not its captured "
+                             f"--scan step; unset {DEBUG_ENV} or drop --scan")
     if args.fused_stem and args.norm_kind == "batch":
         raise SystemExit(
             "--fused-stem forces the FastBatchNorm module naming, so it "
@@ -296,7 +302,6 @@ def refuse_unported(args) -> None:
     unported = [
         (args.mesh_model and args.mesh_model > 1,
          "--mesh-model (tensor parallelism)", "A13b"),
-        (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -935,93 +940,100 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         lambda: train_step(model, split_loss, optimizer, scheduler, sampler,
                            train_gen, g),
         [train_gen], device) if args.scan else None
-    if args.mode == "unsupervised":
-        for step in range(start_step, args.iterations):
-            if args.identity_mixing_and_solution:
-                z1, _, z2, _ = draw_views(sampler, train_gen)
-                with torch.no_grad():
-                    total = split_loss(
-                        z1 * identity_scale, z2 * identity_scale,
-                        torch.roll(z1 * identity_scale, 1, dims=0))[0]
+    # --profile-dir: the training modes' loops, the region the JAX
+    # package traces
+    profiled = args.profile_dir if args.mode != "test" else None
+    with trace_context(profiled, device):
+        if args.mode == "unsupervised":
+            for step in range(start_step, args.iterations):
+                if args.identity_mixing_and_solution:
+                    z1, _, z2, _ = draw_views(sampler, train_gen)
+                    with torch.no_grad():
+                        total = split_loss(
+                            z1 * identity_scale, z2 * identity_scale,
+                            torch.roll(z1 * identity_scale, 1, dims=0))[0]
+                    pending.append(torch.stack((total, torch.zeros_like(total))))
+                elif captured is not None:
+                    pending.append(captured())
+                else:  # eager: CL_ICA_TPU_DEBUG=1 checks each step's loss
+                    if mesh_step is not None:
+                        _, x1, _, x2 = draw_rank_views(batches, train_gen, rows)
+                        total, sigma = mesh_step(x1, x2)
+                    else:
+                        total, sigma = train_step(model, split_loss, optimizer,
+                                                  scheduler, batches, train_gen, g)
+                    pending.append(torch.stack(
+                        (nan_check(total, "unsupervised loss"), sigma)))
+                log_step = step % args.n_log_steps == 0 or step == args.iterations
+                if log_step:
+                    flush()
+                if log_step and lead:  # rank 0 alone evaluates under --mesh
+                    throughput.update(args.batch_size * min(args.n_log_steps, step + 1))
+                    mcc, lin, mse, lin_mse = evaluate()
+                    pps = throughput.pairs_per_sec
+                    print(
+                        f"[{now()}] \t",
+                        f"Step: {step + 1} \t",
+                        f"Loss: {losses[-1]:.6f} \t",
+                        f"sigma(loss): {last['sigma']} \t",
+                        f"<Loss>: {np.mean(losses[-args.n_log_steps:]):.6f} \t",
+                        f"Lin. Disentanglement: {lin:.6f} \t",
+                        f"Perm. Disentanglement (MCC): {mcc:.4f}",
+                        f"L2: {mse}",
+                        f"lin. L2: {lin_mse}",
+                        (f"pairs/s: {pps:.0f}" if pps else ""),
+                        flush=True,
+                    )
+                    logger.log(step + 1, {
+                        "loss": losses[-1],
+                        "mean_loss": float(np.mean(losses[-args.n_log_steps:])),
+                        "linear_disentanglement": lin,
+                        "perm_disentanglement": mcc,
+                        "pairs_per_sec": pps or 0.0,
+                        "mean_znorm": last["mean_znorm"],
+                    })
+                    if args.identity_mixing_and_solution and sys.stdin.isatty():
+                        identity_scale = float(input("scale?: "))
+                        print("scale:", identity_scale)
+                if args.save_every is not None and (step + 1) % args.save_every == 0:
+                    save_model(args.save_model + f".iteration_{step + 1}")
+                    save_train_state(step + 1)
+        elif args.mode == "supervised":
+            for step in range(start_step, args.iterations):
+                if (step % args.n_log_steps == 0 or step == args.iterations) and lead:
+                    flush()
+                    mcc, lin, mse, lin_mse = evaluate()
+                    print(
+                        f"[{now()}] \t"
+                        f"Step: {step} \t",
+                        f"Loss: {losses[-1] if losses else np.inf:.6f} \t",
+                        f"Lin. Disentanglement: {lin:.6f} \t",
+                        f"L2: {mse}",
+                        f"lin. L2: {lin_mse}",
+                        flush=True,
+                    )
+                    logger.log(step, {
+                        "loss": losses[-1] if losses else float("inf"),
+                        "linear_disentanglement": lin,
+                    })
+                if mesh is not None:
+                    z1, x1, _, _ = draw_rank_views(sampler, train_gen, rows)
+                else:
+                    z1, x1, _, _ = draw_views(sampler, train_gen, g)
+                if mesh_sup_step is not None:
+                    total = nan_check(mesh_sup_step(x1, z1), "supervised loss")
+                elif optimizer is not None:
+                    total = nan_check(sup_step(x1, z1), "supervised loss")
+                else:  # --identity-solution: nothing to train
+                    total = torch.full((), float("inf"), device=device)
                 pending.append(torch.stack((total, torch.zeros_like(total))))
-            elif captured is not None:
-                pending.append(captured())
-            elif mesh_step is not None:
-                _, x1, _, x2 = draw_rank_views(batches, train_gen, rows)
-                pending.append(torch.stack(mesh_step(x1, x2)))
-            else:
-                pending.append(torch.stack(train_step(
-                    model, split_loss, optimizer, scheduler, batches, train_gen, g)))
-            log_step = step % args.n_log_steps == 0 or step == args.iterations
-            if log_step:
-                flush()
-            if log_step and lead:  # rank 0 alone evaluates under --mesh
-                throughput.update(args.batch_size * min(args.n_log_steps, step + 1))
-                mcc, lin, mse, lin_mse = evaluate()
-                pps = throughput.pairs_per_sec
-                print(
-                    f"[{now()}] \t",
-                    f"Step: {step + 1} \t",
-                    f"Loss: {losses[-1]:.6f} \t",
-                    f"sigma(loss): {last['sigma']} \t",
-                    f"<Loss>: {np.mean(losses[-args.n_log_steps:]):.6f} \t",
-                    f"Lin. Disentanglement: {lin:.6f} \t",
-                    f"Perm. Disentanglement (MCC): {mcc:.4f}",
-                    f"L2: {mse}",
-                    f"lin. L2: {lin_mse}",
-                    (f"pairs/s: {pps:.0f}" if pps else ""),
-                    flush=True,
-                )
-                logger.log(step + 1, {
-                    "loss": losses[-1],
-                    "mean_loss": float(np.mean(losses[-args.n_log_steps:])),
-                    "linear_disentanglement": lin,
-                    "perm_disentanglement": mcc,
-                    "pairs_per_sec": pps or 0.0,
-                    "mean_znorm": last["mean_znorm"],
-                })
-                if args.identity_mixing_and_solution and sys.stdin.isatty():
-                    identity_scale = float(input("scale?: "))
-                    print("scale:", identity_scale)
-            if args.save_every is not None and (step + 1) % args.save_every == 0:
-                save_model(args.save_model + f".iteration_{step + 1}")
-                save_train_state(step + 1)
-    elif args.mode == "supervised":
-        for step in range(start_step, args.iterations):
-            if (step % args.n_log_steps == 0 or step == args.iterations) and lead:
-                flush()
-                mcc, lin, mse, lin_mse = evaluate()
-                print(
-                    f"[{now()}] \t"
-                    f"Step: {step} \t",
-                    f"Loss: {losses[-1] if losses else np.inf:.6f} \t",
-                    f"Lin. Disentanglement: {lin:.6f} \t",
-                    f"L2: {mse}",
-                    f"lin. L2: {lin_mse}",
-                    flush=True,
-                )
-                logger.log(step, {
-                    "loss": losses[-1] if losses else float("inf"),
-                    "linear_disentanglement": lin,
-                })
-            if mesh is not None:
-                z1, x1, _, _ = draw_rank_views(sampler, train_gen, rows)
-            else:
-                z1, x1, _, _ = draw_views(sampler, train_gen, g)
-            if mesh_sup_step is not None:
-                total = mesh_sup_step(x1, z1)
-            elif optimizer is not None:
-                total = sup_step(x1, z1)
-            else:  # --identity-solution: nothing to train
-                total = torch.full((), float("inf"), device=device)
-            pending.append(torch.stack((total, torch.zeros_like(total))))
-            if args.save_every is not None and (step + 1) % args.save_every == 0:
-                save_model(args.save_model + f".iteration_{step + 1}")
-                save_train_state(step + 1)
-    elif lead:  # test: rank 0's evaluation under --mesh
-        mcc, lin, mse, lin_mse = evaluate(eval_perm=not args.identity_solution)
-        print(f"Lin. Disentanglement: {lin}, MCC: {mcc}, MSE: {mse}, "
-              f"lin. fit MSE: {lin_mse}")
+                if args.save_every is not None and (step + 1) % args.save_every == 0:
+                    save_model(args.save_model + f".iteration_{step + 1}")
+                    save_train_state(step + 1)
+        elif lead:  # test: rank 0's evaluation under --mesh
+            mcc, lin, mse, lin_mse = evaluate(eval_perm=not args.identity_solution)
+            print(f"Lin. Disentanglement: {lin}, MCC: {mcc}, MSE: {mse}, "
+                  f"lin. fit MSE: {lin_mse}")
 
     flush()
     logger.close()

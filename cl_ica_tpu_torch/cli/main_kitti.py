@@ -13,9 +13,10 @@ The run is on CUDA: ``main(argv, device=None)`` resolves to "cuda" and
 raises when there is none; the CPU is used only when a caller passes
 device="cpu" explicitly. float32 stays float32 for the run (cuDNN's TF32
 is off while it runs). The corpus is never downloaded: a missing pickle
-raises, naming the Zenodo record and tools.make_synthetic_kitti. Flags
-whose machinery is not ported exit with the ROADMAP item that ports them;
---num-workers and --cuda are accepted and do nothing.
+raises, naming the Zenodo record and tools.make_synthetic_kitti.
+--num-workers and --cuda are accepted and do nothing. ``--profile-dir``
+traces the training loop (utils.profiling); CL_ICA_TPU_DEBUG=1 checks each
+window's losses where they reach the host (kitti_solver).
 
 ``--mesh N`` trains data-parallel over N ranks (parallel/; rank r on
 cuda:r over NCCL, or gloo with device="cpu"): each rank draws and
@@ -42,6 +43,7 @@ import torch.distributed as dist
 from ..data.kitti import return_data
 from ..parallel import make_mesh, run_mesh
 from ..train import MetricsLogger
+from ..utils import trace_context
 from . import kitti_evaluate
 from .kitti_solver import EnsembleSolver, Solver
 from .main_mlp import resolve_device
@@ -119,8 +121,9 @@ def build_parser():
     parser.add_argument("--log-step", default=1000, type=int,
                         help="numer of iterations after which data is logged")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="Profiler trace directory (not ported yet: "
-                             "ROADMAP A14).")
+                        help="Write a torch.profiler trace of the training "
+                             "loop (*.pt.trace.json, for Perfetto or "
+                             "chrome://tracing) into this directory.")
     parser.add_argument("--mesh", type=int, default=0,
                         help="Train data-parallel over N ranks, one a GPU "
                              "(rows of the batch sharded, negatives "
@@ -178,18 +181,6 @@ def uniform(low, high):
     return float(np.random.uniform(low, high, 1)[0])
 
 
-def refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP item, on a flag this port does not run yet."""
-    unported = [
-        (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise SystemExit(
-                f"{what} is not ported to cl_ica_tpu_torch yet "
-                f"(ROADMAP.md item {item})")
-
-
 def experiment_dir_of(args) -> str:
     if "kitti" in args.dataset:
         dataset_param = args.kitti_max_delta_t
@@ -225,7 +216,9 @@ def run_ensemble_experiment(args, dataset, device):
         out_dirs.append(od)
         ckpt_dirs.append(cd)
     print(f"Ensemble over seeds: {seeds}")
-    EnsembleSolver(args, dataset, seeds, out_dirs, ckpt_dirs, device).train()
+    solver = EnsembleSolver(args, dataset, seeds, out_dirs, ckpt_dirs, device)
+    with trace_context(args.profile_dir, device):
+        solver.train()
     for s, od, cd in zip(seeds, out_dirs, ckpt_dirs):
         a = copy.copy(args)
         a.seed, a.output_dir, a.ckpt_dir = s, od, cd
@@ -269,7 +262,9 @@ def run_experiment(args, dataset, device, mesh=None):
     if args.evaluate:
         kitti_evaluate.main(args, dataset, device)
     else:
-        Solver(args, dataset, device, mesh).train()
+        solver = Solver(args, dataset, device, mesh)
+        with trace_context(args.profile_dir, device):
+            solver.train()
         if lead:
             evaluate(args, device)
         print("done in %.2fs" % (time.time() - t0))
@@ -314,7 +309,6 @@ def check_args(args) -> None:
 
 def main(argv=None, device=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     check_args(args)
     if args.mesh and args.mesh > 1 and not dist.is_initialized():
         return run_mesh(main, argv, args.mesh, device)

@@ -39,7 +39,6 @@ Usage: python -m cl_ica_tpu_torch.cli.main_mlp [flags]
 from __future__ import annotations
 
 import argparse
-import functools
 import os
 import pickle
 import time
@@ -62,6 +61,7 @@ from ..train import (
     make_optimizer,
     make_synthetic_train_step,
 )
+from ..utils import nan_check, trace_context
 
 
 def parse_args(argv=None):
@@ -150,8 +150,9 @@ def parse_args(argv=None):
                         help="bfloat16 compute in the encoder's Linear stack "
                              "(parameters, head and loss stay float32).")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="Profiler trace directory (not ported yet: "
-                             "ROADMAP A14).")
+                        help="Write a torch.profiler trace of each training "
+                             "phase's loop (*.pt.trace.json, for Perfetto or "
+                             "chrome://tracing) into this directory.")
     parser.add_argument("--mesh", type=int, default=0,
                         help="Train data-parallel over N ranks, one a GPU "
                              "(rows of the batch sharded, negatives and "
@@ -209,7 +210,6 @@ def refuse_unported(args) -> None:
     unported = [
         (args.mesh_model and args.mesh_model > 1,
          "--mesh-model (tensor parallelism)", "A13b"),
-        (args.profile_dir, "--profile-dir (profiler traces)", "A14"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -368,12 +368,17 @@ class Lane:
         self.optimizer, self.scheduler = make_optimizer(
             self.f.parameters(), args.lr, args.weight_decay,
             cosine_steps=n_steps if args.lr_cosine else None)
-        make = make_synthetic_train_step
-        if self.mesh is not None:
-            make = functools.partial(make_sharded_synthetic_train_step, self.mesh)
-        body = make(self.latent_space.sample_pair, self.g, self.f, self.loss,
-                    self.optimizer, args.batch_size, supervised=supervised,
-                    scheduler=self.scheduler)
+        parts = (self.latent_space.sample_pair, self.g, self.f, self.loss,
+                 self.optimizer, args.batch_size)
+        if self.mesh is None:
+            # captured: train_steps checks the window's losses instead
+            body = make_synthetic_train_step(
+                *parts, supervised=supervised, scheduler=self.scheduler,
+                nan_guard=False)
+        else:
+            body = make_sharded_synthetic_train_step(
+                self.mesh, *parts, supervised=supervised,
+                scheduler=self.scheduler)
         run = lambda: tuple(body(self.train_gen).values())
         self.step = (CapturedStep(run, [self.train_gen], self.device)
                      if self.mesh is None else lambda: torch.stack(run()))
@@ -432,13 +437,18 @@ class Lane:
 
 def train_steps(lanes, n: int) -> None:
     """n optimizer steps of every lane, in lockstep, with one device
-    synchronisation at the end of the window."""
+    synchronisation at the end of the window. Under CL_ICA_TPU_DEBUG=1 a
+    non-finite loss of any lane raises ValueError there, before any lane's
+    history takes the window: the boundary where the JAX package's checked
+    scan returns (the captured steps cannot read the device)."""
     window = [[] for _ in lanes]
     for _ in range(n):
         for lane, out in zip(lanes, window):
             out.append(lane.step())  # (loss, loss_pos, loss_neg)
-    for lane, out in zip(lanes, window):
-        lane.losses.extend(torch.stack(out)[:, 0].tolist())
+    losses = [torch.stack(out)[:, 0].tolist() for out in window]
+    nan_check(losses, "loss")
+    for lane, values in zip(lanes, losses):
+        lane.losses.extend(values)
 
 
 def run_ensemble(args, device):
@@ -553,15 +563,16 @@ def run_ensemble(args, device):
                 )
 
         phase_done_on_restore = n_done() >= n_steps
-        if not n_done():
-            run_chunk(1)
-            do_eval()
-        while n_done() + args.n_log_steps <= n_steps:
-            run_chunk(args.n_log_steps)
-            do_eval()
-            save_resume()
-        while n_done() < n_steps:
-            run_chunk(1)
+        with trace_context(args.profile_dir, device):
+            if not n_done():
+                run_chunk(1)
+                do_eval()
+            while n_done() + args.n_log_steps <= n_steps:
+                run_chunk(args.n_log_steps)
+                do_eval()
+                save_resume()
+            while n_done() < n_steps:
+                run_chunk(1)
         if n_done() % args.n_log_steps != 1 and not phase_done_on_restore:
             do_eval()
         save_resume(force=True)
@@ -724,18 +735,20 @@ def main(argv=None, device=None):
         # each (evaluations at step ≡ 1 mod n_log_steps), then the rest.
         # Under --resume-training the carried losses count toward n_steps,
         # as in the JAX package.
-        if not lane.losses:  # a fresh phase, not a mid-phase resume
-            run_chunk(1)
-            do_eval()
-        while len(lane.losses) + args.n_log_steps <= n_steps:
-            run_chunk(args.n_log_steps)
-            do_eval()
-            if (args.save_every
-                    and len(lane.losses) // args.save_every > last_saved):
-                last_saved = len(lane.losses) // args.save_every
-                save_resume(phase_idx, len(lane.losses))
-        while len(lane.losses) < n_steps:
-            run_chunk(1)
+        # --profile-dir: one trace of this region a phase (and a rank)
+        with trace_context(args.profile_dir, device):
+            if not lane.losses:  # a fresh phase, not a mid-phase resume
+                run_chunk(1)
+                do_eval()
+            while len(lane.losses) + args.n_log_steps <= n_steps:
+                run_chunk(args.n_log_steps)
+                do_eval()
+                if (args.save_every
+                        and len(lane.losses) // args.save_every > last_saved):
+                    last_saved = len(lane.losses) // args.save_every
+                    save_resume(phase_idx, len(lane.losses))
+            while len(lane.losses) < n_steps:
+                run_chunk(1)
         if len(lane.losses) % args.n_log_steps != 1:
             do_eval()
         if args.save_every:

@@ -4,7 +4,11 @@ threedident    ← cl_ica_tpu/data/threedident.py
 kitti          ← cl_ica_tpu/data/kitti.py
 kitti_analysis ← cl_ica_tpu/data/kitti_analysis.py (numpy + scipy; pandas,
                  scikit-learn and matplotlib imported where used)
+infinite_iterator, simple_image_dataset ← the same names there (PIL
+                 imported where images are read)
 """
+
+from .infinite_iterator import InfiniteIterator
 
 from .kitti import (
     KittiDeviceSampler,
@@ -14,6 +18,7 @@ from .kitti import (
     interleave_pairs,
     return_data,
 )
+from .simple_image_dataset import SimpleImageDataset
 from .threedident import (
     BUDGET_ENV,
     THREEDIDENT_MEAN,
@@ -27,6 +32,8 @@ from .threedident import (
 )
 
 __all__ = [
+    "InfiniteIterator",
+    "SimpleImageDataset",
     "KittiDeviceSampler",
     "KittiMasks",
     "augment_mask_pairs",

@@ -1,5 +1,6 @@
 """Flax variables <-> the port's state dicts: ``MLPEncoder``, ``ResNet``,
-the KITTI ``ConvEncoder64`` and the 3DIdent encoder.
+the KITTI ``ConvEncoder64`` and ``ConvDecoder64``, the coupling flows and
+the 3DIdent encoder.
 
 The JAX package's encoder variables (as numpy arrays) map onto the port's
 parameters by name:
@@ -32,6 +33,18 @@ the KITTI conv encoder (``conv_encoder_params_from_flax`` / ``..._to_flax``):
     params/Conv_k/kernel  HWIO -> convs.k.weight OIHW;  Conv_k/bias -> convs.k.bias
     params/Dense_0/{kernel,bias}                  -> fc.{weight,bias}
     params/SoftclipLayer_0/max_abs_bound          -> head.max_abs_bound
+
+the coupling flows (``flow_params_from_flax``):
+
+    params/blocks_i/subnet{1,2}/Dense_k/kernel (fan_in, out)
+                                   -> blocks.i.subnet{1,2}.denses.k.weight (out, fan_in)
+
+the KITTI decoder (``conv_decoder_params_from_flax``):
+
+    params/Dense_0/{kernel,bias}                  -> fc.{weight,bias}
+    params/ConvTranspose_k/kernel (kh, kw, in, out)
+                 -> deconvs.k.weight (in, out, kh, kw), both spatial axes
+                    flipped (Flax's transpose does not flip, torch's does)
 
 and the 3DIdent encoder (``threedident_params_from_flax`` / ``..._to_flax``):
 ``ResNet_0`` (or ``MLPEncoder_0`` under --dummy-mixing) -> ``backbone``,
@@ -355,3 +368,49 @@ def conv_encoder_params_to_flax(state_dict) -> dict:
         else:
             raise KeyError(f"unknown ConvEncoder64 state {key}")
     return {"params": params}
+
+
+def _dense_from_flax(sd, key, leaves, where):
+    if set(leaves) != {"kernel", "bias"}:
+        raise KeyError(f"unknown parameter in {where}: {sorted(leaves)}")
+    sd[f"{key}.weight"] = _f32(np.asarray(leaves["kernel"]).T)
+    sd[f"{key}.bias"] = _f32(leaves["bias"])
+
+
+def flow_params_from_flax(flax_vars) -> Dict[str, torch.Tensor]:
+    """Flax ``CouplingFlow`` variables ({'params': ...}, or the bare
+    'params' tree) -> a state dict for the port's ``CouplingFlow``."""
+    params = flax_vars.get("params", flax_vars)
+    sd: Dict[str, torch.Tensor] = {}
+    for block, subnets in params.items():
+        prefix, _, i = block.rpartition("_")
+        if prefix != "blocks":
+            raise KeyError(f"unknown CouplingFlow module {block}")
+        for subnet, denses in subnets.items():
+            if subnet not in ("subnet1", "subnet2"):
+                raise KeyError(f"unknown CouplingFlow module {block}/{subnet}")
+            for dense, leaves in denses.items():
+                dprefix, _, k = dense.rpartition("_")
+                where = f"{block}/{subnet}/{dense}"
+                if dprefix != "Dense":
+                    raise KeyError(f"unknown CouplingFlow module {where}")
+                _dense_from_flax(sd, f"blocks.{i}.{subnet}.denses.{k}", leaves, where)
+    return sd
+
+
+def conv_decoder_params_from_flax(flax_vars) -> Dict[str, torch.Tensor]:
+    """Flax ``ConvDecoder64`` variables ({'params': ...}, or the bare
+    'params' tree) -> a state dict for the port's ``ConvDecoder64``."""
+    params = flax_vars.get("params", flax_vars)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaves in params.items():
+        prefix, _, k = name.rpartition("_")
+        if name == "Dense_0":
+            _dense_from_flax(sd, "fc", leaves, name)
+        elif prefix == "ConvTranspose" and set(leaves) == {"kernel", "bias"}:
+            kernel = np.asarray(leaves["kernel"])[::-1, ::-1]
+            sd[f"deconvs.{k}.weight"] = _f32(kernel.transpose(2, 3, 0, 1))
+            sd[f"deconvs.{k}.bias"] = _f32(leaves["bias"])
+        else:
+            raise KeyError(f"unknown ConvDecoder64 parameter {name}/{sorted(leaves)}")
+    return sd

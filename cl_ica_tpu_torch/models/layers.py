@@ -1,6 +1,7 @@
 """Constraint heads, activations, and the ResNet's batch norm.
 
-Port of cl_ica_tpu/models/layers.py:14-60 (heads), :96-152
+Port of cl_ica_tpu/models/layers.py:14-60 (heads), :63-93 (the two
+positional encodings), :96-152
 (``FastBatchNorm``), :155-232 (``MinResBN``), :235-280 (``MinResBNPool``)
 and :283-335 (``StemBNReLUPool``), and the MLP's ``BatchNorm1d``. Parameter names and
 shapes follow the Flax modules so that models/convert.py maps them by
@@ -107,6 +108,49 @@ class SoftclipLayer(nn.Module):
         if self.fixed_abs_bound:
             return torch.sigmoid(x) * self.init_abs_bound
         return torch.sigmoid(x) * self.max_abs_bound[None, :]
+
+
+def _coordinates(h: int, w: int, dtype, device) -> torch.Tensor:
+    """(2, h, w): the row and column indices, divided by their largest
+    (plus 1e-12, so that a 1×1 map gives zeros), as the JAX package does."""
+    rows = torch.arange(h, dtype=dtype, device=device)[:, None] * torch.ones(
+        (1, w), dtype=dtype, device=device)
+    cols = torch.ones((h, 1), dtype=dtype, device=device) * torch.arange(
+        w, dtype=dtype, device=device)[None, :]
+    pos = torch.stack([rows, cols], dim=0)
+    return pos / (torch.max(pos) + 1e-12)
+
+
+class PositionalEncoding(nn.Module):
+    """The reference's PositionalEncoding, channel-first as the JAX
+    package's (cl_ica_tpu/models/layers.py:63): (B, C, H, W) → (B, 2 + C,
+    H, W), the two normalised coordinate channels (row, column) first."""
+
+    def forward(self, x):
+        h, w = x.shape[-2], x.shape[-1]
+        pos = _coordinates(h, w, x.dtype, x.device)
+        return torch.cat([pos[None].expand(x.shape[0], 2, h, w), x], dim=1)
+
+
+class PositionalEncoding2D(nn.Module):
+    """Port of cl_ica_tpu/models/layers.py:81 on the port's image layout:
+    logical (B, C, H, W) images (the JAX module takes NHWC) gain the two
+    normalised coordinate channels (row, column) first on the channel axis,
+    dim 1: (B, 2 + C, H, W). The output keeps the input's memory format
+    (channels_last for normalize_3dident's images), so it is the JAX
+    module's NHWC array in memory."""
+
+    def forward(self, x):
+        h, w = x.shape[-2], x.shape[-1]
+        pos = _coordinates(h, w, x.dtype, x.device)
+        fmt = (torch.channels_last
+               if x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        out = torch.empty((x.shape[0], 2 + x.shape[1], h, w), dtype=x.dtype,
+                          device=x.device, memory_format=fmt)
+        out[:, :2] = pos
+        out[:, 2:] = x
+        return out
 
 
 class FastBatchNorm2d(nn.Module):

@@ -14,7 +14,11 @@ to the order of floating-point sums; at W = 1 it is that step exactly.
 The reported values are averaged over the ranks.
 
 The steps run eagerly: capturing a step that calls NCCL into a CUDA graph
-is ROADMAP A13b.
+is ROADMAP A13b. Under CL_ICA_TPU_DEBUG=1 the synthetic and KITTI steps
+raise ValueError after a step whose loss, averaged over the ranks, is not
+finite (utils.debug.nan_check, on every rank alike, as the JAX package's
+checked mesh step does); main_3dident checks its two steps' values itself,
+under the JAX package's names for them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.collectives import all_reduce_mean_, data_group, gather_rows
+from ..utils.debug import nan_check
 from .collective import global_negatives, gspmd_safe_loss
 from .mesh import Mesh, data_rows
 
@@ -97,6 +102,7 @@ def make_sharded_synthetic_train_step(
                                                z3_rec)
             update(optimizer, scheduler, total, mesh)
         loss, pos, neg = ranks_mean(torch.stack([total, pos, neg]), mesh)
+        nan_check(loss, "loss")
         return {"loss": loss, "loss_pos": pos, "loss_neg": neg}
 
     return step
@@ -118,7 +124,8 @@ def make_sharded_data_train_step(mesh: Mesh, encoder: torch.nn.Module, loss_fn,
                             global_negatives(mesh, z1))[0]
             znorm = torch.linalg.norm(z1.detach(), dim=1).mean()
             update(optimizer, scheduler, total, mesh)
-        return tuple(ranks_mean(torch.stack([total, znorm]), mesh))
+        loss, znorm = ranks_mean(torch.stack([total, znorm]), mesh)
+        return nan_check(loss, "loss"), znorm
 
     return step
 

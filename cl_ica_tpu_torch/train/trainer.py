@@ -20,6 +20,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..utils.debug import nan_check
+
 
 class CosineLR:
     """optax.cosine_decay_schedule's closed form, base·0.5·(1 + cos(π·min(t,
@@ -106,12 +108,20 @@ def make_synthetic_train_step(
     batch_size: int,
     supervised: bool = False,
     scheduler: Optional[CosineLR] = None,
+    nan_guard: bool = True,
 ):
     """Returns step(generator) -> {'loss', 'loss_pos', 'loss_neg'}, 0-d
     tensors on the device, after one optimizer update of ``encoder``.
 
     supervised=True swaps the contrastive loss for MSE against the
     ground-truth latents (the upper-bound baseline).
+
+    Under CL_ICA_TPU_DEBUG=1 the step raises ValueError after its update
+    if the loss or a gradient is not finite (utils.debug.nan_check, as the
+    JAX package's checked step does when it returns). A body to be
+    captured (train/capture.py) cannot read the device: build it with
+    ``nan_guard=False`` and check the window's losses where they reach the
+    host.
     """
 
     def step(generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -132,6 +142,11 @@ def make_synthetic_train_step(
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
+        if nan_guard:
+            nan_check(total, "loss")
+            for p in encoder.parameters():
+                if p.grad is not None:
+                    nan_check(p.grad, "grads")
         return {"loss": total.detach(), "loss_pos": pos.detach(),
                 "loss_neg": neg.detach()}
 

@@ -5,6 +5,7 @@ same weights, the driver's flags, files and exits, and the exact resume
 and lane-equals-serial of the port's own solvers on the CPU."""
 
 import functools
+import glob
 import json
 import os
 import types
@@ -24,6 +25,7 @@ from cl_ica_tpu.ops import infonce_pallas
 from cl_ica_tpu_torch.cli import kitti_evaluate, kitti_solver, main_kitti
 from cl_ica_tpu_torch.data import kitti
 from cl_ica_tpu_torch.models import (
+    ConvDecoder64,
     ConvEncoder64,
     conv_encoder_params_from_flax,
     conv_encoder_params_to_flax,
@@ -173,11 +175,13 @@ def test_the_jax_decoder_gives_34_by_34_c7():
     """ROADMAP C7: the JAX package's ConvDecoder64 claims 64×64×nc but
     returns (B, 34, 34, nc): Flax's ConvTranspose with padding ((1, 1),
     (1, 1)) gives 2·in − 2 a stride-2 layer, not torch's 2·in. The port
-    has no decoder yet (A14 decides)."""
+    follows it (C7 followed): its decoder returns (B, nc, 34, 34)
+    (tests/test_torch_slowvae.py holds the values)."""
     dec = jax_conv.ConvDecoder64(z_dim=10, nc=1)
     z = jnp.zeros((2, 10))
     out = jax.eval_shape(lambda: dec.apply(dec.init(jax.random.PRNGKey(0), z), z))
     assert out.shape == (2, 34, 34, 1)
+    assert ConvDecoder64(z_dim=10, nc=1)(torch.zeros(2, 10)).shape == (2, 1, 34, 34)
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +364,6 @@ def test_driver_runs_on_cuda_unless_told_otherwise(root, tmp_path):
     with pytest.raises(SystemExit, match=f"--mesh 2 needs 2 GPUs, one a rank; "
                                          f"{visible} visible"):
         main_kitti.main(["--dset-dir", root, "--mesh", "2"])
-    with pytest.raises(SystemExit, match="A14"):
-        main_kitti.main(["--dset-dir", root, "--profile-dir", str(tmp_path)])
     with pytest.raises(FileNotFoundError, match="make_synthetic_kitti"):
         main_kitti.main(["--dset-dir", str(tmp_path / "none")], device="cpu")
     with pytest.raises(SystemExit, match="mutually exclusive"):
@@ -482,3 +484,64 @@ def test_host_fed_steps_and_a_non_finite_loss(root, tmp_path, monkeypatch):
     args = _solver_args(root, str(tmp_path / "nan"), 0, "--max-iter", "4")
     with pytest.raises(FloatingPointError, match="step 1 of seed 0"):
         kitti_solver.Solver(args, ds, "cpu").train()
+
+
+# ---------------------------------------------------------------------------
+# --profile-dir and the CL_ICA_TPU_DEBUG=1 guard
+# ---------------------------------------------------------------------------
+
+
+def test_profile_dir_traces_the_training_loop(root, tmp_path, quick_eval):
+    """--profile-dir writes one parseable trace of solver.train(), and the
+    run's logged losses and norms are the same seed's without it."""
+    _run(root, str(tmp_path / "plain"))
+    _run(root, str(tmp_path / "traced"), "--profile-dir", str(tmp_path / "prof"))
+    run = os.path.join("out", "kittimasks_1", "1_0", "0")
+    for name in ("log.csv", "norms.csv"):
+        assert ((tmp_path / "traced" / run / name).read_text()
+                == (tmp_path / "plain" / run / name).read_text())
+    (path,) = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+    with open(path) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert "aten::convolution" in names
+
+
+@pytest.mark.parametrize("seeds", [(0,), (0, 1)])
+def test_nan_weight_raises_at_the_window_boundary(root, tmp_path, monkeypatch, seeds):
+    """An encoder with a NaN weight: under CL_ICA_TPU_DEBUG=1 ValueError at
+    the first log boundary (step 2 of --log-step 2), where the window's
+    losses reach the host and the JAX package's checked chunk returns, with
+    nothing logged; without the flag the solver's own FloatingPointError
+    there, as before."""
+    build = kitti_solver.ConvEncoder64
+
+    def nan_encoder(*a, **kw):
+        net = build(*a, **kw)
+        with torch.no_grad():
+            net.convs[0].weight.fill_(float("nan"))
+        return net
+
+    steps = [0]
+    step = kitti_solver.train_step
+
+    def counted(*a):
+        steps[0] += 1
+        return step(*a)
+
+    monkeypatch.setattr(kitti_solver, "ConvEncoder64", nan_encoder)
+    monkeypatch.setattr(kitti_solver, "train_step", counted)
+    for flag, error, match in (("1", ValueError, "non-finite values in loss"),
+                               ("0", FloatingPointError, "step 1 of seed 0")):
+        monkeypatch.setenv("CL_ICA_TPU_DEBUG", flag)
+        lanes = [_solver_args(root, str(tmp_path / flag), s, "--max-iter", "4")
+                 for s in seeds]
+        ds = kitti.return_data(lanes[0])[0]
+        steps[0] = 0
+        with pytest.raises(error, match=match):
+            kitti_solver.EnsembleSolver(
+                lanes[0], ds, list(seeds), [a.output_dir for a in lanes],
+                [a.ckpt_dir for a in lanes], "cpu").train()
+        assert steps[0] == 2 * len(seeds)
+        for a in lanes:
+            with open(os.path.join(a.output_dir, "log.csv")) as fh:
+                assert fh.read() == "Total Loss\n"

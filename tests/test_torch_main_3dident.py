@@ -6,7 +6,9 @@ modes with --fused-stem, a saved and reloaded model, and an exact resume."""
 
 import argparse
 import functools
+import glob
 import itertools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -182,7 +184,6 @@ def test_conditionals_sample_at_the_requested_width(conditional):
     # --mesh is ported (A13): two gloo ranks on the CPU run to the end
     (["--mesh", "2", "--mode", "unsupervised", "--iterations", "2"], None),
     (["--mesh", "2", "--mesh-model", "2"], "ROADMAP.md item A13b"),
-    (["--profile-dir", "p"], "ROADMAP.md item A14"),
     # --norm-kind minres8 is ported; the JAX driver's exit for it under the
     # fused stem (which would ignore it) stays
     (["--fused-stem", "--norm-kind", "minres8"], "float8 residuals"),
@@ -820,3 +821,60 @@ def test_test_mode_without_an_image_store_fails_as_in_jax(fixtures, capsys):
         jax_main.main(argv)
     with pytest.raises(TypeError, match="NoneType"):
         main_3dident.main(argv, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# --profile-dir and the CL_ICA_TPU_DEBUG=1 guards
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["unsupervised", "supervised", "test"])
+def test_profile_dir_traces_the_training_modes(mode, fixtures, tmp_path, capsys):
+    """--profile-dir traces the training loop of --mode unsupervised and
+    supervised (one parseable trace, the losses of the same seed's run
+    without it) and, as the JAX driver, nothing in --mode test."""
+    argv = _argv(fixtures[True], "--mode", mode, "--iterations", "3")
+    plain = main_3dident.main(argv, device="cpu")
+    prof = tmp_path / "prof"
+    traced = main_3dident.main(argv + ["--profile-dir", str(prof)], device="cpu")
+    assert traced["losses"] == plain["losses"]
+    assert traced["mcc"] == plain["mcc"] or np.isnan(plain["mcc"])
+    paths = glob.glob(str(prof / "*.pt.trace.json"))
+    if mode == "test":
+        assert paths == []
+        return
+    (path,) = paths
+    with open(path) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert "aten::convolution" in names
+
+
+@pytest.mark.parametrize("mode, name", [("unsupervised", "unsupervised loss"),
+                                        ("supervised", "supervised loss")])
+def test_nan_weight_raises_at_the_step(mode, name, fixtures, monkeypatch, capsys):
+    """An encoder whose weight turns NaN at its first training forward
+    (after --mode supervised's evaluation at step 0): under
+    CL_ICA_TPU_DEBUG=1 that step raises ValueError naming the JAX driver's
+    guard, where its checked step returns; the eager steps read each
+    loss."""
+    forwards = [0]
+    build = main_3dident.build_encoder
+
+    def nan_encoder(*a, **kw):
+        model = build(*a, **kw)
+
+        def count(module, inputs):
+            if torch.is_grad_enabled():
+                forwards[0] += 1
+                with torch.no_grad():
+                    module.dense.weight.fill_(float("nan"))
+
+        model.register_forward_pre_hook(count)
+        return model
+
+    monkeypatch.setattr(main_3dident, "build_encoder", nan_encoder)
+    monkeypatch.setenv("CL_ICA_TPU_DEBUG", "1")
+    with pytest.raises(ValueError, match=f"non-finite values in {name}"):
+        main_3dident.main(_argv(fixtures[True], "--mode", mode, "--iterations", "3"),
+                          device="cpu")
+    assert forwards[0] == 1

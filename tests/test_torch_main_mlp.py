@@ -6,6 +6,8 @@ resume, the --seeds ensemble, the refused flags, and the import boundary
 
 import argparse
 import csv
+import glob
+import json
 import os
 import pickle
 import subprocess
@@ -95,7 +97,6 @@ def test_parser_checks_match(argv, capsys):
       "--n-log-steps", "2", "--num-eval-batches", "1", "--seed", "0",
       "--only-unsupervised"], None),
     (["--mesh", "2", "--mesh-model", "2"], "A13b"),
-    (["--profile-dir", "SAVE"], "A14"),
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(argv, item, tmp_path, capsys):
     argv = [str(tmp_path) if a == "SAVE" else a for a in argv]
@@ -255,6 +256,10 @@ def test_port_imports_no_jax():
         "import cl_ica_tpu_torch.tools.make_synthetic_3dident\n"
         "import cl_ica_tpu_torch.cli.main_kitti, cl_ica_tpu_torch.data.kitti, cl_ica_tpu_torch.tools.make_synthetic_kitti\n"
         "import cl_ica_tpu_torch.parallel\n"
+        "import cl_ica_tpu_torch.utils, cl_ica_tpu_torch.models.flows\n"
+        "import cl_ica_tpu_torch.losses.slowvae, cl_ica_tpu_torch.tools.get_mean_std\n"
+        "import cl_ica_tpu_torch.tools.generate_3dident_latents\n"
+        "import cl_ica_tpu_torch.tools.render_3dident, cl_ica_tpu_torch.tools.blender_scene\n"
         "import chip_smoke\n"
         "import tools.profile_torch_step\n"
         "import tools.compare_lse_kernels\n"
@@ -642,3 +647,97 @@ def test_optimizer_matches_optax(weight_decay, cosine):
     ulp = np.spacing(np.abs(np.asarray(jx)).max().astype(np.float32))
     np.testing.assert_allclose(tx.detach().numpy(), np.asarray(jx), rtol=0,
                                atol=2 * steps * ulp)
+
+
+# ---------------------------------------------------------------------------
+# --profile-dir and the CL_ICA_TPU_DEBUG=1 guards
+# ---------------------------------------------------------------------------
+
+AUX = ("--space-type sphere --n 3 --batch-size 64 --n-steps 12 --n-log-steps 6 "
+       "--only-unsupervised --more-unsupervised 1 --c-p 0 --c-param 20 --p 2 "
+       "--seed 0 --num-eval-batches 2 --save-every 12").split()
+
+
+def _traces(prof_dir):
+    """The parsed *.pt.trace.json files under ``prof_dir``."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))):
+        with open(path) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def test_main_mlp_aux_subsystems(tmp_path, monkeypatch, capsys):
+    """The port's tests/test_cli_integration.py::test_main_mlp_aux_subsystems:
+    --save-dir, --profile-dir and CL_ICA_TPU_DEBUG=1 in one small run. Its
+    artifacts, one parseable trace of the training loop, and the losses and
+    scores of the same seed's run without the profiler or the flag."""
+    plain = main_mlp.main(AUX + ["--save-dir", str(tmp_path / "plain")], device="cpu")
+    monkeypatch.setenv("CL_ICA_TPU_DEBUG", "1")
+    save, prof = tmp_path / "run", tmp_path / "prof"
+    got = main_mlp.main(AUX + ["--save-dir", str(save), "--profile-dir", str(prof)],
+                        device="cpu")
+    assert got == plain
+    for name in ("log.csv", "args.json", "g.npz", "unsup_f.pkl"):
+        assert (save / name).exists(), name
+    with open(save / "log.csv") as fh:
+        assert "perm_disentanglement" in fh.readline()
+    assert (_history(str(save))["lane"]["losses"]
+            == _history(str(tmp_path / "plain"))["lane"]["losses"])
+    (trace,) = _traces(prof)
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "aten::addmm" in names or "aten::mm" in names
+
+
+def test_profile_dir_traces_each_phase(tmp_path, capsys):
+    """Supervised then unsupervised: one trace a phase, as the JAX driver
+    wraps each phase's loop."""
+    argv = [a for a in AUX if a != "--only-unsupervised"]
+    main_mlp.main(argv + ["--save-dir", str(tmp_path / "s"), "--profile-dir",
+                          str(tmp_path / "prof")], device="cpu")
+    assert len(_traces(tmp_path / "prof")) == 2
+
+
+def _nan_at_step(monkeypatch, step):
+    """Every encoder get_mlp builds gets its first weight set to NaN just
+    before the forward of its ``step``-th training step (the evaluations
+    run under no_grad and are not counted); returns the per-encoder counts
+    of training forwards (two a step)."""
+    counts = []
+    build = main_mlp.get_mlp
+
+    def get_mlp_with_nan(*args, **kw):
+        f = build(*args, **kw)
+        seen = [0]
+        counts.append(seen)
+
+        def pre_hook(module, inputs):
+            if torch.is_grad_enabled():
+                seen[0] += 1
+                if seen[0] == 2 * step - 1:
+                    with torch.no_grad():
+                        module.linears[0].weight.fill_(float("nan"))
+
+        f.register_forward_pre_hook(pre_hook)
+        return f
+
+    monkeypatch.setattr(main_mlp, "get_mlp", get_mlp_with_nan)
+    return counts
+
+
+@pytest.mark.parametrize("extra", [[], ["--seeds", "2"]])
+def test_nan_weight_raises_at_the_window_boundary(extra, monkeypatch, capsys):
+    """Under CL_ICA_TPU_DEBUG=1 a non-finite loss raises ValueError where the
+    window's losses reach the host: the encoder turns NaN in step 3, inside
+    the window of steps 2-7, and the run stops after step 7 (the JAX
+    package's checked scan raises when its window returns), before any
+    evaluation of that window; the serial lane and the ensemble's alike."""
+    counts = _nan_at_step(monkeypatch, 3)
+    monkeypatch.setenv("CL_ICA_TPU_DEBUG", "1")
+    argv = AUX[:-2]  # no --save-every: there is no --save-dir
+    assert argv[-1] == "2"
+    with pytest.raises(ValueError, match="non-finite values in loss"):
+        main_mlp.main(argv + extra, device="cpu")
+    assert [c[0] for c in counts] == [14] * (2 if extra else 1)
+    out = capsys.readouterr().out
+    assert "Step: 1 " in out and "Step: 7 " not in out

@@ -491,6 +491,15 @@ def test_3dident_step_matches_the_jax_sharded_step(w2, references):
     assert set(flat) == {"params", "batch_stats"}
 
 
+def test_mesh_steps_raise_on_a_non_finite_loss(w2):
+    """CL_ICA_TPU_DEBUG=1 on the mesh: the synthetic and the KITTI step with a
+    NaN weight raise ValueError after the step, on every rank alike (the
+    ranks' averaged loss is checked, as the JAX package's checked mesh step
+    checks the global one), so no rank waits on another in a collective."""
+    want = ["non-finite values in loss"] * 2
+    assert w2["nan_guards"] == [want, want]
+
+
 def test_ranks_import_no_jax(w2):
     assert w2["foreign"] == [[], []]
 

@@ -29,7 +29,7 @@ from cl_ica_tpu_torch.losses import (
     SplitCombinedCLLoss,
     UniformityLoss,
 )
-from cl_ica_tpu_torch.models import ResNet18, get_mlp
+from cl_ica_tpu_torch.models import ConvEncoder64, ResNet18, get_mlp
 from cl_ica_tpu_torch.ops.collectives import data_group
 from cl_ica_tpu_torch.models.layers import (
     BatchNorm1d,
@@ -270,6 +270,46 @@ def threedident(state: dict, store: np.ndarray, indices, n: int, lr: float,
     return _everyone((got, {k: _np(v) for k, v in model.state_dict().items()}))
 
 
+def nan_guards(state: dict, z1: np.ndarray, z2: np.ndarray, n: int, device):
+    """Under CL_ICA_TPU_DEBUG=1, one step of make_sharded_synthetic_train_step
+    (the MLP of ``state``) and of make_sharded_data_train_step (a
+    ConvEncoder64 on four 64×64 pairs), each with a NaN weight: what each
+    raised on this rank (its ValueError's message, or None), everyone's."""
+    mesh = _mesh(device)
+    f = get_mlp(n, n, [16, 16])
+    f.load_state_dict(state)
+    conv = ConvEncoder64(z_dim=n, nc=1, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        f.linears[0].weight.fill_(float("nan"))
+        conv.convs[0].weight.fill_(float("nan"))
+    loss = LpSimCLRLoss(p=2.0, simclr_compatibility_mode=True)
+    synthetic_step = parallel.make_sharded_synthetic_train_step(
+        mesh, lambda gen, size: (torch.tensor(z1), torch.tensor(z2)),
+        lambda z: z, f, loss, make_optimizer(f.parameters(), 0.1, kind="sgd")[0],
+        z1.shape[0])
+    data_step = parallel.make_sharded_data_train_step(
+        mesh, conv, loss, make_optimizer(conv.parameters(), 0.1, kind="sgd")[0])
+    rows = parallel.data_rows(mesh.rank, mesh.world, 4)
+    x = torch.rand((8, 64, 64), generator=torch.Generator().manual_seed(1))
+    said = []
+    old = os.environ.get("CL_ICA_TPU_DEBUG")
+    os.environ["CL_ICA_TPU_DEBUG"] = "1"
+    try:
+        for call in (lambda: synthetic_step(None),
+                     lambda: data_step(x[:4][rows], x[4:][rows])):
+            try:
+                call()
+                said.append(None)
+            except ValueError as err:
+                said.append(str(err))
+    finally:
+        if old is None:
+            del os.environ["CL_ICA_TPU_DEBUG"]
+        else:
+            os.environ["CL_ICA_TPU_DEBUG"] = old
+    return _everyone(said)
+
+
 def units(loss_inputs, norm_inputs, rule_inputs, synthetic_inputs,
           threedident_inputs, driver_argv, device):
     """Everything of the W = 2 file in one launch (each launch costs the
@@ -278,6 +318,7 @@ def units(loss_inputs, norm_inputs, rule_inputs, synthetic_inputs,
            "norms": norms(norm_inputs, device=device),
            "rule": rule(*rule_inputs, device=device),
            "synthetic": synthetic(*synthetic_inputs, device=device),
+           "nan_guards": nan_guards(*synthetic_inputs[:4], device=device),
            "threedident": threedident(*threedident_inputs, device=device),
            "foreign": _everyone(foreign_modules())}
     out["drivers"] = drivers(driver_argv, device=device)

@@ -456,7 +456,7 @@ def main() -> int:
     args, latent, g, f, loss, opt = build(argv)
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = make_synthetic_train_step(latent.sample_pair, g, f, loss, opt,
-                                     args.batch_size)
+                                     args.batch_size, nan_guard=False)
     captured(lambda: tuple(step(gen).values()), [gen], cli.steps,
              f"{tag} B={args.batch_size}", card)
     for _ in range(5):
