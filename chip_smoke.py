@@ -143,11 +143,15 @@ use) and no network, and it exits non-zero on any failure. Phases:
              bn_only, against their plain versions: xq byte-equal (also past
              e4m3fn's range, where it is NaN), y bit-equal to the minres
              apply kernel's, the sums and dx at the bn bars; xhat at 448,
-             464, 465, 500, inf and -500 (C9); the argmax pool's code mode
-             and scatter (pool_code, pool_scatter; ops/pool_minres.py) at
-             (1024, 112, 112, 64), tied and ragged shapes: pooled and codes
-             equal, dz equal to the plain version's and within a rounding of
-             max_pool2d_with_indices_backward's; their times and bounds.
+             464, 465, 500, inf and -500 (C9); the argmax pool's code and
+             scatter kernels (pool_code, pool_scatter; ops/pool_minres.py)
+             at (1024, 112, 112, 64), one image, one window, a W/2 that no
+             strip divides, C of 256 vectors, tied inputs and all-zero
+             windows (a < 0): pooled and codes equal, a second code launch
+             bit-equal, dz equal to the plain version's and within a
+             rounding of max_pool2d_with_indices_backward's; the code
+             kernel's plan, blocks an SM and shared memory; their times and
+             bounds, and stem_fwd's (row 7) in the same turns.
              12b cli.main_3dident --norm-kind minres8 at full width (ResNet18,
              B=512, phase 6's fixture), 10 steps, step 1 bit-equal to
              minres's, finite and falling, the float8 modes 20 times a step;
@@ -340,7 +344,7 @@ KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
     "bn_dx8": ("bn_dx_kernel<T, M, true>", "cl_ica_tpu_torch/ops/csrc/bn_minres.cu",
                "cl_ica_tpu/ops/bn_minres8.py:106 (_bwd_core8's dx; XLA pass, "
                "not a pallas_call)"),
-    "pool_code": ("stem_fwd_kernel<T, true>",
+    "pool_code": ("pool_code_kernel<T>",
                   "cl_ica_tpu_torch/ops/csrc/stem_pool.cu",
                   "cl_ica_tpu/ops/pool_minres.py:48 (_pool_fwd_core; XLA "
                   "reduce_window, not a pallas_call)"),
@@ -2874,23 +2878,33 @@ def _hold_e4m3_edges() -> None:
         raise AssertionError(f"12a e4m3 edges: {got}")
 
 
-def _hold_pool(shape, dtype, gen, worst: dict, tied: bool = False) -> None:
-    """The code mode and the scatter at one shape: pooled equal to the plain
+def _hold_pool(shape, dtype, gen, worst: dict, mode: str = "normal") -> None:
+    """The code and the scatter at one shape: pooled equal to the plain
     version's and to F.max_pool2d of the minres apply kernel's output, the
-    codes byte-equal; dz of the scatter equal to the plain version's (the
-    same additions in the same order) and to the library's
-    max_pool2d_with_indices_backward within a rounding (it adds in float32
-    and rounds once)."""
-    x, scale, bias, g = _stem_inputs(shape, dtype, gen, tied)
+    codes byte-equal, a second launch of the code bit-equal to the first; dz
+    of the scatter equal to the plain version's (the same additions in the
+    same order) and to the library's max_pool2d_with_indices_backward within
+    a rounding (it adds in float32 and rounds once). ``mode`` "tied": x on
+    five levels; "neg": x >= 0, a < 0 and b <= 0, so that every window is
+    all zeros and each code names its window's first position in the
+    image."""
+    x, scale, bias, g = _stem_inputs(shape, dtype, gen, mode == "tied")
     mean, _, rstd = bn_minres.channel_stats(x, EPS)
     a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
+    if mode == "neg":
+        x, a, b = x.abs(), -a.abs(), -b.abs()
     pooled, code = pool_minres.launch_pool_code(x, a, b)
+    again = pool_minres.launch_pool_code(x, a, b)
+    torch.cuda.synchronize()
+    repeats = torch.equal(pooled, again[0]) and torch.equal(code, again[1])
+    del again
     pooled_p, code_p = pool_minres.pool_code_reference(x, a, b)
     z = bn_minres.launch_apply(x, a, b).permute(0, 3, 1, 2)
     lib_pooled, idx = F.max_pool2d(z, 3, 2, 1, return_indices=True)
     same_p = torch.equal(pooled, pooled_p)
     same_lib = torch.equal(pooled, lib_pooled.permute(0, 2, 3, 1))
     same_c = torch.equal(code, code_p)
+    zeros = mode != "neg" or not bool(pooled.any())
     worst["pool_code"] = max(worst.get("pool_code", 0.0),
                              float((pooled.float() - pooled_p.float()).abs().max()))
     del pooled_p, lib_pooled, code_p
@@ -2912,14 +2926,44 @@ def _hold_pool(shape, dtype, gen, worst: dict, tied: bool = False) -> None:
         2 * BF16_ULP if dtype == torch.bfloat16 else STEM_MAP_BAR)
     del z, idx, lib, dz_p
     name = str(dtype).removeprefix("torch.")
-    print(f"[12 options] pool {tuple(shape)} {name}{' tied' if tied else ''}: "
-          f"pooled {'equal' if same_p else 'DIFFER'} to plain, "
-          f"{'equal' if same_lib else 'DIFFER'} to max_pool2d(bn_relu); codes "
-          f"{'byte-equal' if same_c else 'DIFFER'}; dz "
+    print(f"[12 options] pool {tuple(shape)} {name} {mode}: pooled "
+          f"{'equal' if same_p else 'DIFFER'} to plain, "
+          f"{'equal' if same_lib else 'DIFFER'} to max_pool2d(bn_relu)"
+          f"{'' if zeros else ', NOT ALL ZERO'}; codes "
+          f"{'byte-equal' if same_c else 'DIFFER'}; two launches "
+          f"{'bit-equal' if repeats else 'DIFFER'}; dz "
           f"{'equal' if same_dz else 'DIFFER'} to plain, {e_lib:.2e} from the "
           f"library's backward (over bar {o_lib:.2f})")
-    if not (same_p and same_lib and same_c and same_dz) or o_lib > 1.0:
-        raise AssertionError(f"12a argmax pool kernels, {shape} {name}")
+    if not (same_p and same_lib and same_c and repeats and zeros and same_dz) \
+            or o_lib > 1.0:
+        raise AssertionError(f"12a argmax pool kernels, {shape} {name} {mode}")
+
+
+# 12a's shapes of the argmax pool's kernels, (shape, mode), C a number of
+# channels or "256v", 256 vectors of the dtype (the widest the kernels take):
+# the main path's, one image, one window, a W/2 that no strip divides, the
+# widest C, more vectors than a block's slice, ties, all-zero windows
+POOL_SHAPES = ((STEM_FULL, "normal"), ((1, 112, 112, 64), "normal"),
+               ((1, 2, 2, 64), "normal"), ((2, 10, 70, 64), "tied"),
+               ((1, 14, 18, "256v"), "normal"), ((3, 4, 8, 1024), "normal"),
+               ((2, 6, 10, 16), "tied"), ((2, 6, 10, 16), "neg"),
+               ((4, 20, 22, 64), "neg"))
+
+
+def _pool_code_report(smi: str) -> None:
+    """The code kernel's plan at STEM_FULL, its blocks an SM and its dynamic
+    shared memory a block (ptxas's registers are phase 1's)."""
+    lib = stem.load_kernels()
+    for dtype in (torch.float32, torch.bfloat16):
+        cv, _, ws, _ = stem.tile_geometry(STEM_FULL[2], STEM_FULL[3], dtype)
+        slots = stem._slots(0, "pool_code", cv, ws, int(dtype == torch.bfloat16))
+        plan = pool_minres.pool_code_plan(*STEM_FULL, dtype, slots)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"[12 options] pool_code_kernel {str(dtype).removeprefix('torch.')} "
+              f"at {STEM_FULL}: plan {tuple(plan)} (cv, slices, ws, strips, ks, "
+              f"segs, tiles, grid), {slots // sms} blocks an SM of {sms}, "
+              f"{lib.clica_pool_code_smem(cv, ws)} bytes of dynamic shared "
+              f"memory a block, on {smi}")
 
 
 def _bn8_bounds(shape, dtype) -> dict:
@@ -2994,7 +3038,10 @@ def _time_options(dtype, smi: str) -> dict:
             "bn_bwd8": lambda: bn_minres8.launch_bwd8(xq, dy, s, t),
             "bn_dx8": lambda: bn_minres8.launch_dx8(xq, dy, k, s, t),
             "pool_code": lambda: pool_minres.launch_pool_code(x, a, b),
-            "pool_scatter": lambda: pool_minres.launch_pool_scatter(g, code, h, w)},
+            "pool_scatter": lambda: pool_minres.launch_pool_scatter(g, code, h, w),
+            # row 7, the stem's forward, beside the code kernel it shared
+            # its thread a window with
+            "stem_fwd": lambda: stem.launch_stem_fwd(x, a, b)},
         "plain": {
             "bn_apply8": lambda: bn_minres8.apply8_reference(x, a, b, mean, rstd),
             "bn_bwd8": lambda: bn_minres8.bwd8_reference(xq, dy, s, t),
@@ -3011,14 +3058,17 @@ def _time_options(dtype, smi: str) -> dict:
     for who in order + order[::-1]:
         times = {key: _median_ms(f, reps=7, warmup=2) for key, f in cases[who].items()}
         out[who] = {key: min(v, out.get(who, {}).get(key, v)) for key, v in times.items()}
+    row7 = out["kernel"]["stem_fwd"]
     for who in order:
         out[who] = {key: out[who].get(key) for key in OPTIONS_TIMED}
+    out["kernel"]["stem_fwd"] = row7
     name = str(dtype).removeprefix("torch.")
     ms = lambda v: "-" if v is None else f"{v:.3f}"
     _say_time(f"[12 times] {STEM_FULL} {name}, ms (kernel / plain / library), "
               f"median of 7 after warm-up, better of two turns, on {smi}: "
               + "; ".join(f"{key} {ms(out['kernel'][key])} / {ms(out['plain'][key])}"
-                          f" / {ms(out['library'][key])}" for key in OPTIONS_TIMED))
+                          f" / {ms(out['library'][key])}" for key in OPTIONS_TIMED)
+              + f"; stem_fwd (row 7, kernel) {row7:.3f}")
     for key, (tb, by) in _bn8_bounds(STEM_FULL, dtype).items():
         _say_time(f"[12 times] bound {key} {name}: {tb:.3f} ms, set by {by} "
                   f"(3.35 TB/s, 67 TFLOP/s fp32)")
@@ -3034,10 +3084,12 @@ def _options_kernels(worst: dict, smi: str) -> dict:
         for shape in RN18_NORMS + ((3, 5, 7, 2064), (2, 3, 5, 24)):
             _hold_bn8(shape, dtype, gen, worst)
             torch.cuda.empty_cache()
-        for shape, tied in ((STEM_FULL, False), ((2, 6, 10, 16), True),
-                            ((3, 4, 8, 1024), False)):
-            _hold_pool(shape, dtype, gen, worst, tied)
+        for (n, h, w, c), mode in POOL_SHAPES:
+            if c == "256v":
+                c = 256 * stem.vector_width(dtype)
+            _hold_pool((n, h, w, c), dtype, gen, worst, mode)
             torch.cuda.empty_cache()
+    _pool_code_report(smi)
     _hold_e4m3_edges()
     # the scatter and the code refuse what they cannot take
     for bad in (lambda: pool_minres.launch_pool_code(
@@ -3276,7 +3328,8 @@ TRACE_SYMBOLS = {
     "stem_fwd": ("stem_fwd_kernel",), "stem_bwd": ("stem_bwd_kernel",),
     "stem_dx": ("stem_dx_kernel",), "bn_stats": ("bn_stats_kernel",),
     "bn_apply": ("bn_apply_kernel",), "bn_bwd": ("bn_bwd_kernel",),
-    "bn_dx": ("bn_dx_kernel",),
+    "bn_dx": ("bn_dx_kernel",), "pool_code": ("pool_code_kernel",),
+    "pool_scatter": ("pool_scatter_kernel",),
 }
 MAIN_SYMBOLS = sorted({sym for syms in TRACE_SYMBOLS.values() for sym in syms})
 REST_MLP = BOX + ["--n-steps", "201", "--more-unsupervised", "1", "--n-log-steps",
@@ -3913,6 +3966,10 @@ def main() -> int:
                 "ms_bf16": t16["kernel"][k], "plain_ms_bf16": t16["plain"][k],
                 "bound_ms_bf16": stem_bounds16[key][0],
                 "library_ms_bf16": t16["library"][k]})
+            if key == "stem_fwd":  # timed again in 12a's turns
+                entry.update({
+                    "ms_12a": times_options[torch.float32]["kernel"]["stem_fwd"],
+                    "ms_12a_bf16": times_options[torch.bfloat16]["kernel"]["stem_fwd"]})
             if key == "stem_bwd":
                 entry["sums_max_rel_err"] = worst["stem_sums_rel"]
             if key == "stem_dx":

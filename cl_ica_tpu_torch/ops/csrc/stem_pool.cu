@@ -43,13 +43,14 @@
 // Two more for ResNet(stem_pool='argmax') (ops/pool_minres.py, the JAX
 // package's cl_ica_tpu/ops/pool_minres.py, an XLA custom VJP there):
 //
-//   code      stem_fwd_kernel<T, true>: the forward's pass, with
-//             z = relu(x*a + b) rounded to T after each operation (the
-//             minres norm's arithmetic, bn_minres.cu), which also writes a
-//             byte a value: the row-major position 0..8 in the padded 3x3
-//             window of the first maximum (positions outside the image
-//             never win; a 0 after the relu is a value, so an all-zero
-//             window's code is its first position inside the image).
+//   code      pool_code_kernel: the forward's function with z = relu(x*a +
+//             b) rounded to T after each operation (the minres norm's
+//             arithmetic, bn_minres.cu), which also writes a byte a value:
+//             the row-major position 0..8 in the padded 3x3 window of the
+//             first maximum (positions outside the image never win; a 0
+//             after the relu is a value, so an all-zero window's code is
+//             its first position inside the image). Staged and walked as
+//             the backward is (below): z is computed once an input element.
 //   scatter   pool_scatter_kernel: dz (N, H, W, C) from the pooled gradient
 //             and the codes, a gather: a thread owns a quad (2m..2m+1,
 //             2j..2j+1) and a channel vector and reads the four windows
@@ -69,7 +70,12 @@
 // few tens per element, are below the bytes at 67 TFLOP/s, but not by much
 // in bfloat16: the backward's code has to stay lean, and a thread works on
 // its vector four lanes at a time, so that bfloat16's eight lanes do not
-// hold twice float32's registers (at 128 a thread, two blocks an SM).
+// hold twice float32's registers (at 128 a thread, two blocks an SM). The
+// code must read x and write a quarter of it and a byte a pooled value. In
+// bfloat16 the forward's shape, a thread a window with nine z's a value
+// each rounded twice, is bound by its instruction rate, not by bytes
+// (about 90 instructions an output value, 1.47 ms against 0.675 at the
+// main path's shape): so the code kernel computes each z once (below).
 //
 // The backward's design. A block owns a tile, one strip of ws window
 // columns of one image, a slice of cv channel vectors and a segment of ks
@@ -99,6 +105,26 @@
 // the dx grid is the wrapper's too. The edges of the image are masked by
 // index, never by what a slot holds.
 //
+// The code kernel's design. It walks the backward's kind of tiles on the
+// backward's kind of persistent grid (the wrapper's pool_code_plan, checked
+// the same way), one stage a step: a stage holds x rows 2s and 2s+1
+// across the strip, with the one halo column on the left that its windows
+// reach, and step k takes stage k, the two rows of window row k below its
+// top row; a tile's first step takes only row 2 k0 - 1 of stage k0 - 1. A
+// thread owns a window column j and a channel vector: it turns its columns
+// 2j and 2j+1 of each row into z once (in bfloat16 one cvt.rn.bf16x2.f32
+// rounds two lanes) and hands column 2j+1 to the thread of window j+1
+// through shared memory (one more row of threads turns the halo column);
+// then each row's first maximum over columns 2j-1..2j+1 and its column,
+// and the window's from its rows, as the backward finds its winner. The
+// window's bottom row is the next window's top row: a thread carries its
+// maximum and column from step to step. Values are compared in T, two
+// bfloat16 lanes a compare (set.gt.u32.bf16x2), and values and codes are
+// selected by the compare's mask, so that a word of two bfloat16 lanes
+// costs what one float lane does. One barrier a step: the hand-over
+// buffer alternates between two halves. x is read from device memory once
+// (the halo columns and a segment's row above aside).
+//
 // Shapes: any N; H and W even; C a multiple of the vector width (4 float32,
 // 8 bfloat16) with at most 256 vectors. Index arithmetic is 64-bit.
 
@@ -117,7 +143,9 @@ using clica::mbar_init_fence;
 using clica::mbar_wait;
 
 constexpr int kThreads = 256;
-constexpr int kStages = 4;   // slots of the backward's ring: 2 in use, 2 in flight
+// slots of a ring: the backward's 2 in use and 2 in flight, the code
+// kernel's 1 in use and 3 in flight (4 once its barrier has passed)
+constexpr int kStages = 4;
 constexpr int kUnroll = 8;   // positions a dx thread loads before it computes
 // A step waits for its two loads before the barrier after which the slot
 // the step before it read may be refilled. After a tile's last step the
@@ -218,21 +246,7 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// V bytes (the codes of a vector) to and from memory as 32-bit words.
-template <int V>
-__device__ __forceinline__ void store_codes(unsigned char* p,
-                                            const unsigned char (&k)[V]) {
-  unsigned int w[V / 4];
-#pragma unroll
-  for (int i = 0; i < V / 4; ++i)
-    w[i] = k[4 * i] | (k[4 * i + 1] << 8) | (k[4 * i + 2] << 16) |
-           ((unsigned int)k[4 * i + 3] << 24);
-  if constexpr (V == 8)
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  else
-    *reinterpret_cast<unsigned int*>(p) = w[0];
-}
-
+// V bytes (the codes of a vector) from memory as 32-bit words.
 template <int V>
 __device__ __forceinline__ void load_codes(const unsigned char* p,
                                            unsigned char (&k)[V]) {
@@ -273,14 +287,11 @@ __device__ __forceinline__ void load_winners(const unsigned char* src,
   }
 }
 
-// With kCode, z is rounded to T after each operation and each value's
-// window code is written to codes (one byte a value, laid out as out).
-template <typename T, bool kCode>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
-                const T* __restrict__ b, T* __restrict__ out,
-                unsigned char* __restrict__ codes, long long total, int H,
-                int W, int C) {
+                const T* __restrict__ b, T* __restrict__ out, long long total,
+                int H, int W, int C) {
   constexpr int V = Pack<T>::V;
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= total) return;
@@ -293,16 +304,10 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
   const long long n = rest / Ho;
 
   float av[V], bv[V], m[V];
-  unsigned char code[V];
   Pack<T>::load(a + c0, av);
   Pack<T>::load(b + c0, bv);
 #pragma unroll
-  for (int l = 0; l < V; ++l) {
-    // below every relu'd value with kCode, so that the first position in
-    // the image is taken; else the zero padding, exact after the relu
-    m[l] = kCode ? -1.f : 0.f;
-    code[l] = 0;
-  }
+  for (int l = 0; l < V; ++l) m[l] = 0.f;  // the zero padding, exact after the relu
   const T* xn = x + n * H * W * C;
 #pragma unroll
   for (int dh = 0; dh < 3; ++dh) {
@@ -315,24 +320,10 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
       float xv[V];
       Pack<T>::load(xn + ((long long)h * W + w) * C + c0, xv);
 #pragma unroll
-      for (int l = 0; l < V; ++l) {
-        if (kCode) {
-          const float z = fmaxf(
-              round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(xv[l], av[l])), bv[l])),
-              0.f);
-          if (z > m[l]) {  // strict: a tie keeps the earlier position
-            m[l] = z;
-            code[l] = (unsigned char)(dh * 3 + dw);
-          }
-        } else {
-          m[l] = fmaxf(m[l], affine(xv[l], av[l], bv[l]));
-        }
-      }
+      for (int l = 0; l < V; ++l) m[l] = fmaxf(m[l], affine(xv[l], av[l], bv[l]));
     }
   }
-  const long long o = ((n * Ho + ho) * Wo + wo) * C + c0;
-  Pack<T>::store(out + o, m);
-  if (kCode) store_codes<V>(codes + o, code);
+  Pack<T>::store(out + ((n * Ho + ho) * Wo + wo) * C + c0, m);
 }
 
 // dz of the argmax pool from the pooled gradient dp and the codes (both
@@ -390,16 +381,17 @@ pool_scatter_kernel(const T* __restrict__ dp,
   Pack<T>::store(base + (long long)W * C + C, q11);
 }
 
-// The backward's geometry, the same for every block (see the note above).
-struct BwdShape {
+// The geometry of the backward's or the code kernel's walk, the same for
+// every block (see the notes above).
+struct TileShape {
   int H, W, C, Ho, Wo;
   int cv;           // channel vectors of a block's slice
   int ws;           // window columns of a strip whose quads it owns
-  int ks;           // quad rows of a segment
+  int ks;           // quad (window) rows of a segment
   int strips, segs;
   long long tiles;  // N * segs * strips, strip fastest
   int col_bytes;    // one column of a slot: cv 16-byte vectors
-  int row_bytes;    // one x row of a slot: 2 ws + 3 columns
+  int row_bytes;    // one x row of a slot: 2 ws + 3 columns (code: 2 ws + 1)
   int slot_bytes;   // a slot: two x rows, then g's row of ws + 1 columns
 };
 
@@ -409,7 +401,7 @@ struct Tile {
   int j0;      // first window column
 };
 
-__device__ __forceinline__ Tile tile_at(const BwdShape& s, long long t) {
+__device__ __forceinline__ Tile tile_at(const TileShape& s, long long t) {
   Tile r;
   r.j0 = (int)(t % s.strips) * s.ws;
   const long long rest = t / s.strips;
@@ -423,19 +415,22 @@ __device__ __forceinline__ Tile tile_at(const BwdShape& s, long long t) {
 // 2st+1, columns 2 j0 - 1 .. 2 j0 + 2 ws + 1, and g row st, columns j0 ..
 // j0 + ws, whatever of them lies inside the image. The first stage of a
 // tile (st = k0 - 1) serves only window row k0: its x row 2st+1 alone.
-template <typename T>
-__device__ void issue_stage(const BwdShape& s, const T* __restrict__ x,
+// Without kGrad (the code kernel) no g, and x's columns stop at 2 j0 +
+// 2 ws - 1, the last that the strip's windows reach.
+template <typename T, bool kGrad>
+__device__ void issue_stage(const TileShape& s, const T* __restrict__ x,
                             const T* __restrict__ g, const Tile& tl, int st,
                             bool first, int v0, int nvec, bool dense,
                             unsigned char* slot, uint64_t* bar, int lane) {
   constexpr int V = Pack<T>::V;
   const int wbeg = 2 * tl.j0 - 1;  // the image column of the slot's column 0
-  const int wlo = max(0, wbeg), whi = min(s.W, wbeg + 2 * s.ws + 3);
+  const int wlo = max(0, wbeg);
+  const int whi = min(s.W, wbeg + 2 * s.ws + (kGrad ? 3 : 1));
   const int jhi = min(s.Wo, tl.j0 + s.ws + 1);
-  const int nx = whi - wlo, ng = jhi - tl.j0;
+  const int nx = whi - wlo, ng = kGrad ? jhi - tl.j0 : 0;
   const bool r0 = !first && st >= 0 && st < s.Ho;
   const bool r1 = st >= 0 && st < s.Ho;
-  const bool rg = !first && st >= 0 && st < s.Ho;
+  const bool rg = kGrad && !first && st >= 0 && st < s.Ho;
   const uint32_t vbytes = nvec * 16;
   if (lane == 0) mbar_expect(bar, ((r0 + r1) * nx + rg * ng) * vbytes);
   __syncwarp();
@@ -514,7 +509,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 stem_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                 const T* __restrict__ a, const T* __restrict__ b,
                 const float* __restrict__ mean, const float* __restrict__ rstd,
-                T* __restrict__ dy, float* __restrict__ partial, BwdShape s) {
+                T* __restrict__ dy, float* __restrict__ partial, TileShape s) {
   constexpr int V = Pack<T>::V;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
@@ -563,7 +558,7 @@ stem_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     if (threadIdx.x >= 32) return;
     while (issued < upto && pt < s.tiles) {
       const int slot = (int)(issued % kStages);
-      issue_stage<T>(s, x, g, pl, pl.k0 - 1 + ps, ps == 0, v0, nvec, dense,
+      issue_stage<T, true>(s, x, g, pl, pl.k0 - 1 + ps, ps == 0, v0, nvec, dense,
                      ring + slot * s.slot_bytes, &bars[slot], lane);
       ++issued;
       if (++ps == pl.k1 - pl.k0 + 2) {
@@ -747,6 +742,252 @@ stem_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// The code kernel's lanes. A channel vector is four 32-bit words: four
+// float lanes, one a word, or eight bfloat16 lanes, two a word, the low half
+// the lower channel. z, the maxima and the codes are kept word by word; a
+// lane's code is its lane's bits of the code word (a float lane's word, a
+// bfloat16 lane's half). sel(mask, u, v) takes u where the mask is set.
+__device__ __forceinline__ uint32_t sel(uint32_t mask, uint32_t u, uint32_t v) {
+  return (u & mask) | (v & ~mask);
+}
+
+template <typename T>
+struct Words;
+
+template <>
+struct Words<float> {
+  static constexpr int L = 1;                      // lanes a word
+  static constexpr uint32_t kBelow = 0xbf800000u;  // -1: below every relu'd value
+  static constexpr uint32_t kCode1 = 1u;           // code 1 in every lane of a word
+  // z = relu(x*a + b) of the word's lane; a, b its factors
+  static __device__ __forceinline__ uint32_t z(uint32_t x, const float* a,
+                                               const float* b) {
+    return __float_as_uint(fmaxf(affine(__uint_as_float(x), a[0], b[0]), 0.f));
+  }
+  // all ones in each lane where u > v (strict: a tie keeps v)
+  static __device__ __forceinline__ uint32_t gt(uint32_t u, uint32_t v) {
+    return __uint_as_float(u) > __uint_as_float(v) ? ~0u : 0u;
+  }
+  // the four lanes' codes, a byte each, to memory
+  static __device__ __forceinline__ void store_codes(unsigned char* p,
+                                                     const uint32_t (&d)[4]) {
+    *reinterpret_cast<uint32_t*>(p) = __byte_perm(
+        __byte_perm(d[0], d[1], 0x40), __byte_perm(d[2], d[3], 0x40), 0x5410);
+  }
+};
+
+template <>
+struct Words<__nv_bfloat16> {
+  static constexpr int L = 2;
+  static constexpr uint32_t kBelow = 0xbf80bf80u;
+  static constexpr uint32_t kCode1 = 0x00010001u;
+  static __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ __nv_bfloat162 pair(uint32_t w) {
+    return *reinterpret_cast<const __nv_bfloat162*>(&w);
+  }
+  // z of both lanes, each product and sum rounded to bfloat16, the two
+  // lanes by one conversion
+  static __device__ __forceinline__ uint32_t z(uint32_t x, const float* a,
+                                               const float* b) {
+    const uint32_t p = bits(__floats2bfloat162_rn(
+        __fmul_rn(__uint_as_float(x << 16), a[0]),
+        __fmul_rn(__uint_as_float(x & 0xffff0000u), a[1])));
+    const __nv_bfloat162 y = __floats2bfloat162_rn(
+        __fadd_rn(__uint_as_float(p << 16), b[0]),
+        __fadd_rn(__uint_as_float(p & 0xffff0000u), b[1]));
+    return bits(__hmax2(y, pair(0u)));
+  }
+  static __device__ __forceinline__ uint32_t gt(uint32_t u, uint32_t v) {
+    return __hgt2_mask(pair(u), pair(v));  // set.gt.u32.bf16x2
+  }
+  static __device__ __forceinline__ void store_codes(unsigned char* p,
+                                                     const uint32_t (&d)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(__byte_perm(d[0], d[1], 0x6420),
+                                              __byte_perm(d[2], d[3], 0x6420));
+  }
+};
+
+// z of the four words of the vector at p.
+template <typename T>
+__device__ __forceinline__ void z_vector(const unsigned char* p,
+                                         const float (&av)[Pack<T>::V],
+                                         const float (&bv)[Pack<T>::V],
+                                         uint32_t (&z)[4]) {
+  constexpr int L = Words<T>::L;
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  z[0] = Words<T>::z(q.x, av, bv);
+  z[1] = Words<T>::z(q.y, av + L, bv + L);
+  z[2] = Words<T>::z(q.z, av + 2 * L, bv + 2 * L);
+  z[3] = Words<T>::z(q.w, av + 3 * L, bv + 3 * L);
+}
+
+__device__ __forceinline__ void store_words(unsigned char* p,
+                                            const uint32_t (&w)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One row's first maximum over the window's columns 2j-1 (left: kBelow
+// when j = 0, outside the image), 2j and 2j+1 (mid, right), and the
+// column 0..2 that reaches it.
+template <typename T>
+__device__ __forceinline__ void row_code(const uint32_t (&left)[4],
+                                         const uint32_t (&mid)[4],
+                                         const uint32_t (&right)[4],
+                                         uint32_t (&m)[4], uint32_t (&d)[4]) {
+  using W = Words<T>;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t mask = W::gt(mid[i], left[i]);
+    m[i] = sel(mask, mid[i], left[i]);
+    d[i] = mask & W::kCode1;
+    mask = W::gt(right[i], m[i]);
+    m[i] = sel(mask, right[i], m[i]);
+    d[i] = sel(mask, 2 * W::kCode1, d[i]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+pool_code_kernel(const T* __restrict__ x, const T* __restrict__ a,
+                 const T* __restrict__ b, T* __restrict__ out,
+                 unsigned char* __restrict__ codes, TileShape s) {
+  using W = Words<T>;
+  constexpr int V = Pack<T>::V;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  // the hand-over of z at column 2j+1 from the thread of window j to that
+  // of window j+1: [2 halves][2 rows][ws + 1][cv] vectors, index 0 the
+  // halo column's, index jl + 1 thread jl's
+  unsigned char* hand = smem + kStages * s.slot_bytes;
+  const int hand_row = (s.ws + 1) * s.col_bytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(hand + 4 * hand_row);
+
+  const int cvs = s.C / V;
+  const int v0 = blockIdx.y * s.cv;  // this block's slice of vectors
+  const int nvec = min(s.cv, cvs - v0);
+  const int cvi = threadIdx.x % s.cv, jl = threadIdx.x / s.cv;
+  const bool active = jl <= s.ws && cvi < nvec;
+  const int c0 = (v0 + cvi) * V;  // this thread's first channel
+  const int tv = cvi * 16;        // this thread's bytes in a column
+  const int lane = threadIdx.x % 32;
+  const bool dense = gridDim.y == 1;
+
+  float av[V], bv[V];
+  if (active) {
+    Pack<T>::load(a + c0, av);
+    Pack<T>::load(b + c0, bv);
+  }
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < kStages; ++r) mbar_init(&bars[r]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // The producer, warp 0: the loads of the block's tiles in order, a tile
+  // of k1 - k0 + 1 steps taking its stages k0 - 1 .. k1 - 1, each load into
+  // slot (its index mod kStages) once the step that read that slot is over.
+  long long issued = 0, pt = blockIdx.x;
+  int ps = 0;
+  Tile pl;
+  if (pt < s.tiles) pl = tile_at(s, pt);
+  auto produce = [&](long long upto) {
+    if (threadIdx.x >= 32) return;
+    while (issued < upto && pt < s.tiles) {
+      const int slot = (int)(issued % kStages);
+      issue_stage<T, false>(s, x, nullptr, pl, pl.k0 - 1 + ps, ps == 0, v0,
+                            nvec, dense, ring + slot * s.slot_bytes, &bars[slot],
+                            lane);
+      ++issued;
+      if (++ps == pl.k1 - pl.k0 + 1) {
+        ps = 0;
+        pt += gridDim.x;
+        if (pt < s.tiles) pl = tile_at(s, pt);
+      }
+    }
+  };
+  produce(kStages);
+
+  long long c = 0;  // step c uses load c
+  for (long long t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+    const Tile tl = tile_at(s, t);
+    const int j = tl.j0 + jl;
+    const bool owner = active && jl < s.ws && j < s.Wo;  // of window column j
+    const bool halo = active && jl == s.ws && tl.j0 > 0;  // turns column 2 j0 - 1
+    const long long orow = tl.n * s.Ho;  // the image's first pooled row
+    // carried from step to step: x row 2k-1's maximum and column, the top
+    // row of window row k
+    uint32_t top_m[4], top_d[4];
+    for (int k = tl.k0 - 1; k < tl.k1; ++k, ++c) {
+      mbar_wait(&bars[c % kStages], (uint32_t)((c / kStages) & 1));
+      const unsigned char* slot = ring + (c % kStages) * s.slot_bytes;
+      unsigned char* h = hand + (c & 1) * 2 * hand_row;
+      const int r0 = k < tl.k0 ? 1 : 0;  // the first step has row 2 k0 - 1 alone
+      uint32_t zm[2][4], zr[2][4];  // z at columns 2j, 2j+1 of rows 2k, 2k+1
+      if (k >= 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (r < r0) continue;
+          const unsigned char* row = slot + r * s.row_bytes + tv;
+          if (owner) {
+            z_vector<T>(row + (2 * jl + 1) * s.col_bytes, av, bv, zm[r]);
+            z_vector<T>(row + (2 * jl + 2) * s.col_bytes, av, bv, zr[r]);
+            store_words(h + r * hand_row + (jl + 1) * s.col_bytes + tv, zr[r]);
+          } else if (halo) {
+            uint32_t zh[4];
+            z_vector<T>(row, av, bv, zh);
+            store_words(h + r * hand_row + tv, zh);
+          }
+        }
+      }
+      __syncthreads();  // the slot is read and the hand-over is in
+      if (threadIdx.x < 32) fence_proxy_async();
+      produce(c + kStages + 1);
+      if (!owner) continue;
+      if (k < 0) {  // the image's first window row has no top row
+#pragma unroll
+        for (int i = 0; i < 4; ++i) top_m[i] = W::kBelow, top_d[i] = 0;
+        continue;
+      }
+      uint32_t rm[2][4], rd[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r < r0) continue;
+        uint32_t left[4];
+        if (j > 0) {
+          const uint4 q = *reinterpret_cast<const uint4*>(
+              h + r * hand_row + jl * s.col_bytes + tv);
+          left[0] = q.x, left[1] = q.y, left[2] = q.z, left[3] = q.w;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) left[i] = W::kBelow;
+        }
+        row_code<T>(left, zm[r], zr[r], rm[r], rd[r]);
+      }
+      if (k >= tl.k0) {
+        // the window's maximum from its rows in order: the first row that
+        // reaches it, the row-major scan's first maximum
+        uint32_t m[4], d[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t mask = W::gt(rm[0][i], top_m[i]);
+          m[i] = sel(mask, rm[0][i], top_m[i]);
+          d[i] = sel(mask, rd[0][i] + 3 * W::kCode1, top_d[i]);
+          mask = W::gt(rm[1][i], m[i]);
+          m[i] = sel(mask, rm[1][i], m[i]);
+          d[i] = sel(mask, rd[1][i] + 6 * W::kCode1, d[i]);
+        }
+        const long long o = ((orow + k) * s.Wo + j) * s.C + c0;
+        store_words(reinterpret_cast<unsigned char*>(out + o), m);
+        W::store_codes(codes + o, d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) top_m[i] = rm[1][i], top_d[i] = rd[1][i];
+    }
+  }
+}
+
 // sums[s][c] = the rows of partial[s] added in a fixed order (in double):
 // eight threads per channel take every eighth row, then their eight totals
 // are added in order.
@@ -862,15 +1103,55 @@ int bwd_blocks_per_sm(int cv, int ws, int* out) {
       out, stem_bwd_kernel<T>, kThreads, smem);
 }
 
-template <typename T, bool kCode>
+template <typename T>
 int launch_fwd(const void* x, const void* a, const void* b, void* out,
-               void* codes, long long n, int h, int w, int c, cudaStream_t st) {
+               long long n, int h, int w, int c, cudaStream_t st) {
   const long long total = n * (h / 2) * (w / 2) * (c / Pack<T>::V);
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  stem_fwd_kernel<T, kCode><<<(unsigned)blocks, kThreads, 0, st>>>(
-      (const T*)x, (const T*)a, (const T*)b, (T*)out, (unsigned char*)codes,
-      total, h, w, c);
+  stem_fwd_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
+      (const T*)x, (const T*)a, (const T*)b, (T*)out, total, h, w, c);
+  return (int)cudaGetLastError();
+}
+
+// The code kernel's ring of two-row slots, its two halves of hand-over
+// vectors and its barriers.
+inline size_t code_smem(int cv, int ws) {
+  const size_t slot = (size_t)2 * (2 * ws + 1) * cv * 16;
+  const size_t hand = (size_t)4 * (ws + 1) * cv * 16;
+  return kStages * slot + hand + kStages * sizeof(uint64_t);
+}
+
+template <typename T>
+int code_blocks_per_sm(int cv, int ws, int* out) {
+  const size_t smem = code_smem(cv, ws);
+  int rc = (int)cudaFuncSetAttribute(
+      pool_code_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != 0) return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, pool_code_kernel<T>, kThreads, smem);
+}
+
+template <typename T>
+int launch_code(const void* x, const void* a, const void* b, void* out,
+                void* codes, int h, int w, int c, int cv, int slices, int ws,
+                int strips, int ks, int segs, long long tiles, int grid,
+                cudaStream_t st) {
+  TileShape s;
+  s.H = h; s.W = w; s.C = c; s.Ho = h / 2; s.Wo = w / 2;
+  s.cv = cv; s.ws = ws; s.ks = ks;
+  s.strips = strips;
+  s.segs = segs;
+  s.tiles = tiles;
+  s.col_bytes = cv * 16;
+  s.row_bytes = (2 * ws + 1) * s.col_bytes;
+  s.slot_bytes = 2 * s.row_bytes;
+  const size_t smem = code_smem(cv, ws);
+  int rc = (int)cudaFuncSetAttribute(
+      pool_code_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != 0) return rc;
+  pool_code_kernel<T><<<dim3(grid, slices), kThreads, smem, st>>>(
+      (const T*)x, (const T*)a, (const T*)b, (T*)out, (unsigned char*)codes, s);
   return (int)cudaGetLastError();
 }
 
@@ -891,7 +1172,7 @@ int launch_bwd(const void* x, const void* g, const void* a, const void* b,
                float* sums, int h, int w, int c, int cv, int slices, int ws,
                int strips, int ks, int segs, long long tiles, int grid,
                cudaStream_t st) {
-  BwdShape s;
+  TileShape s;
   s.H = h; s.W = w; s.C = c; s.Ho = h / 2; s.Wo = w / 2;
   s.cv = cv; s.ws = ws; s.ks = ks;
   s.strips = strips;
@@ -949,23 +1230,42 @@ int clica_stem_fwd(const void* x, const void* a, const void* b, void* out,
   const int vec = is_bf16 ? Pack<__nv_bfloat16>::V : Pack<float>::V;
   if (bad_shape(n, h, w, c, vec)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch_fwd<__nv_bfloat16, false>(x, a, b, out, nullptr, n, h,
-                                                   w, c, st)
-                 : launch_fwd<float, false>(x, a, b, out, nullptr, n, h, w, c, st);
+  return is_bf16 ? launch_fwd<__nv_bfloat16>(x, a, b, out, n, h, w, c, st)
+                 : launch_fwd<float>(x, a, b, out, n, h, w, c, st);
+}
+
+// Resident blocks of pool_code_kernel on one SM for a plan's slice of cv
+// vectors and strip of ws columns (its shared memory), into *out.
+int clica_pool_code_blocks_per_sm(int cv, int ws, int is_bf16, int* out) {
+  if (bad_slice(cv, ws)) return (int)cudaErrorInvalidValue;
+  return is_bf16 ? code_blocks_per_sm<__nv_bfloat16>(cv, ws, out)
+                 : code_blocks_per_sm<float>(cv, ws, out);
+}
+
+// The dynamic shared memory of a pool_code_kernel block, in bytes.
+long long clica_pool_code_smem(int cv, int ws) {
+  return (long long)code_smem(cv, ws);
 }
 
 // The argmax pool's forward: out as clica_stem_fwd's with z rounded to x's
 // type after each operation, and codes (n, h/2, w/2, c) bytes, each the
-// window position 0..8 of its value's first maximum.
+// window position 0..8 of its value's first maximum, for the plan (cv,
+// slices, ws, strips, ks, segs, tiles, grid) of ops/pool_minres.py
+// pool_code_plan.
 int clica_pool_code(const void* x, const void* a, const void* b, void* out,
                     void* codes, long long n, int h, int w, int c, int is_bf16,
-                    void* stream) {
+                    int cv, int slices, int ws, int strips, int ks, int segs,
+                    long long tiles, int grid, void* stream) {
   const int vec = is_bf16 ? Pack<__nv_bfloat16>::V : Pack<float>::V;
-  if (bad_shape(n, h, w, c, vec)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n, h, w, c, vec) ||
+      bad_plan(n, h, w, c / vec, cv, slices, ws, strips, ks, segs, tiles, grid))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch_fwd<__nv_bfloat16, true>(x, a, b, out, codes, n, h,
-                                                   w, c, st)
-                 : launch_fwd<float, true>(x, a, b, out, codes, n, h, w, c, st);
+  return is_bf16 ? launch_code<__nv_bfloat16>(x, a, b, out, codes, h, w, c, cv,
+                                              slices, ws, strips, ks, segs,
+                                              tiles, grid, st)
+                 : launch_code<float>(x, a, b, out, codes, h, w, c, cv, slices,
+                                      ws, strips, ks, segs, tiles, grid, st);
 }
 
 // dz (n, h, w, c) of the argmax pool from dp and codes (n, h/2, w/2, c).

@@ -21,12 +21,13 @@ takes bn_relu's backward on (x, dz): the relu mask from x·a + b > 0, the
 two channel sums and dx.
 
 The kernels: the statistics are ops/bn_minres.py's ``bn_stats``; the
-forward is a mode of the stem's forward kernel that writes the codes
-(``pool_code``, csrc/stem_pool.cu); the scatter is ``pool_scatter`` (same
-file); the backward sums and dx are ``bn_bwd`` and ``bn_dx`` in bn_relu's
-mode. Launches are counted (``ops.launch_counts``). Under a data-parallel
-mesh (``group``) the statistics and the backward sums are the whole
-batch's, as in ops/bn_minres.py.
+forward is ``pool_code`` (csrc/stem_pool.cu ``pool_code_kernel``: x staged
+by bulk copies, z once an input element, on the persistent grid that
+``pool_code_plan`` plans); the scatter is ``pool_scatter`` (same file);
+the backward sums and dx are ``bn_bwd`` and ``bn_dx`` in bn_relu's mode.
+Launches are counted (``ops.launch_counts``). Under a data-parallel mesh
+(``group``) the statistics and the backward sums are the whole batch's, as
+in ops/bn_minres.py.
 
 Layout: (N, H, W, C) dense, H and W even (otherwise it raises, as the JAX
 function does), C a multiple of the 16-byte vector, at most 256 vectors.
@@ -55,7 +56,17 @@ from .bn_minres import (
 )
 from .collectives import all_reduce_sum_, world_of
 from .infonce import _check_launch, _launches, _stream
-from .stem import _check_map, _check_shape, _check_vec, _pool_views, load_kernels
+from .stem import (
+    TilePlan,
+    _check_map,
+    _check_shape,
+    _check_vec,
+    _pool_views,
+    _slots,
+    load_kernels,
+    tile_geometry,
+    tile_plan,
+)
 
 NO_WINDOW = 9  # a code that names no position (outside the pooled map)
 
@@ -111,6 +122,15 @@ def pool_scatter_reference(dp, code, h: int, w: int):
 # ---------------------------------------------------------------------------
 
 
+def pool_code_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+                   slots: int) -> TilePlan:
+    """The code kernel's plan for x = (n, h, w, c) on a card that holds
+    ``slots`` of its blocks at once (stem.tile_plan): a tile of ks window
+    rows reads 2·ks rows of x, and one more, the row above, unless its
+    segment is its image's only one."""
+    return tile_plan(n, h, w, c, dtype, slots, lambda ks, segs: 2 * ks + (segs > 1))
+
+
 def launch_pool_code(x, a, b):
     """The code kernel on dense NHWC x; a, b (C,) in x's dtype: (pooled,
     code)."""
@@ -120,12 +140,16 @@ def launch_pool_code(x, a, b):
     _check_vec("a", a, c, x.dtype, x.device)
     _check_vec("b", b, c, x.dtype, x.device)
     lib = load_kernels()
+    bf16 = int(x.dtype == torch.bfloat16)
+    cv, _, ws, _ = tile_geometry(w, c, x.dtype)
+    plan = pool_code_plan(n, h, w, c, x.dtype,
+                          _slots(x.device.index, "pool_code", cv, ws, bf16))
     out = torch.empty((n, h // 2, w // 2, c), device=x.device, dtype=x.dtype)
     code = torch.empty(out.shape, device=x.device, dtype=torch.uint8)
     with torch.cuda.device(x.device):
         rc = lib.clica_pool_code(x.data_ptr(), a.data_ptr(), b.data_ptr(),
                                  out.data_ptr(), code.data_ptr(), n, h, w, c,
-                                 int(x.dtype == torch.bfloat16), _stream(x))
+                                 bf16, *plan, _stream(x))
     _check_launch(lib, rc, "pool code")
     _launches["pool_code"] += 1
     return out, code

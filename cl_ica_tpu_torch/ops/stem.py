@@ -199,7 +199,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.clica_stem_dx.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _I, _P]
     lib.clica_stem_dx.restype = _I
     # the argmax pool's two kernels (ops/pool_minres.py)
-    lib.clica_pool_code.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_pool_code_blocks_per_sm.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.clica_pool_code_blocks_per_sm.restype = _I
+    lib.clica_pool_code_smem.argtypes = [_I, _I]
+    lib.clica_pool_code_smem.restype = _LL
+    lib.clica_pool_code.argtypes = [_P] * 5 + [_LL] + [_I] * 10 + [_LL, _I, _P]
     lib.clica_pool_code.restype = _I
     lib.clica_pool_scatter.argtypes = [_P] * 3 + [_LL, _I, _I, _I, _I, _P]
     lib.clica_pool_scatter.restype = _I
@@ -208,13 +212,15 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-class BwdPlan(NamedTuple):
-    """The backward's persistent grid (csrc/stem_pool.cu): a block takes a
-    slice of ``cv`` channel vectors (``slices`` of them cover C), and walks
-    tiles of one image, a strip of ``ws`` window columns (``strips`` of
-    them) and a segment of ``ks`` quad rows (``segs``); ``tiles`` = N ·
-    segs · strips, strip fastest. ``grid`` blocks a slice: block b takes
-    tiles b, b + grid, ... The kernel takes the plan whole, in this order."""
+class TilePlan(NamedTuple):
+    """A persistent grid over tiles (csrc/stem_pool.cu), the backward's
+    (``bwd_plan``) and the argmax pool's code kernel's
+    (``pool_minres.pool_code_plan``): a block takes a slice of ``cv``
+    channel vectors (``slices`` of them cover C), and walks tiles of one
+    image, a strip of ``ws`` window columns (``strips`` of them) and a
+    segment of ``ks`` quad (window) rows (``segs``); ``tiles`` = N · segs ·
+    strips, strip fastest. ``grid`` blocks a slice: block b takes tiles b, b
+    + grid, ... The kernel takes the plan whole, in this order."""
     cv: int
     slices: int
     ws: int
@@ -225,10 +231,12 @@ class BwdPlan(NamedTuple):
     grid: int
 
 
-def bwd_geometry(w: int, c: int, dtype: torch.dtype) -> Tuple[int, int, int, int]:
+def tile_geometry(w: int, c: int, dtype: torch.dtype) -> Tuple[int, int, int, int]:
     """(cv, slices, ws, strips): C's vectors in the fewest slices of at most
     MAX_SLICE, evened out; then the widest strip that a block's threads
-    cover, a thread per window column and vector, evened out over W/2."""
+    cover, a thread per window column and vector and one more row of them
+    (the backward's last window column, the code kernel's halo column),
+    evened out over W/2."""
     cvs = c // vector_width(dtype)
     slices = -(-cvs // MAX_SLICE)
     cv = -(-cvs // slices)
@@ -237,26 +245,33 @@ def bwd_geometry(w: int, c: int, dtype: torch.dtype) -> Tuple[int, int, int, int
     return cv, slices, -(-wo // strips), strips
 
 
-def bwd_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
-             slots: int) -> BwdPlan:
-    """The plan for x = (n, h, w, c) on a card that holds ``slots`` backward
-    blocks at once: the geometry, then the segment length that finishes
-    soonest, each block taking ceil(tiles / grid) tiles of ks + 2 steps
-    (a segment's first step recomputes one window row, and its stages
-    reach one row past it); ties go to the longer segment."""
-    cv, slices, ws, strips = bwd_geometry(w, c, dtype)
+def tile_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype, slots: int,
+              tile_cost) -> TilePlan:
+    """The plan for x = (n, h, w, c) on a card that holds ``slots`` blocks
+    at once: the geometry, then the segment length that finishes soonest,
+    each block taking ceil(tiles / grid) tiles of ``tile_cost(ks, segs)``;
+    ties go to the longer segment."""
+    cv, slices, ws, strips = tile_geometry(w, c, dtype)
     ho = h // 2
     grid = max(1, slots // slices)
     best = None
     for want in range(1, ho + 1):
         ks = -(-ho // want)
         segs = -(-ho // ks)
-        cost = -(-(n * segs * strips) // grid) * (ks + 2)
+        cost = -(-(n * segs * strips) // grid) * tile_cost(ks, segs)
         if best is None or cost < best[0]:
             best = (cost, ks, segs)
     _, ks, segs = best
     tiles = n * segs * strips
-    return BwdPlan(cv, slices, ws, strips, ks, segs, tiles, min(grid, tiles))
+    return TilePlan(cv, slices, ws, strips, ks, segs, tiles, min(grid, tiles))
+
+
+def bwd_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+             slots: int) -> TilePlan:
+    """The backward's plan: a tile of ks quad rows takes ks + 2 steps (a
+    segment's first step recomputes one window row, and its stages reach
+    one row past it)."""
+    return tile_plan(n, h, w, c, dtype, slots, lambda ks, segs: ks + 2)
 
 
 def _check_map(name: str, t: torch.Tensor, like: torch.Tensor = None) -> None:
@@ -321,15 +336,16 @@ def launch_stem_fwd(x, a, b) -> torch.Tensor:
 
 @functools.cache
 def _slots(device_index: int, kernel: str, *args: int) -> int:
-    """Blocks of one kernel that the card holds at once: "bwd" for a slice
-    and strip (args cv, ws, bf16), "dx" (args bf16)."""
+    """Blocks of one kernel that the card holds at once: "stem_bwd" and
+    "pool_code" for a slice and strip (args cv, ws, bf16), "stem_dx" (args
+    bf16)."""
     lib = load_kernels()
     per_sm = _I()
-    rc = getattr(lib, f"clica_stem_{kernel}_blocks_per_sm")(
+    rc = getattr(lib, f"clica_{kernel}_blocks_per_sm")(
         *args, ctypes.byref(per_sm))
-    _check_launch(lib, rc, f"stem {kernel} occupancy")
+    _check_launch(lib, rc, f"{kernel} occupancy")
     if per_sm.value < 1:
-        raise RuntimeError(f"stem {kernel}: no block fits an SM at {args}")
+        raise RuntimeError(f"{kernel}: no block fits an SM at {args}")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return sms * per_sm.value
 
@@ -349,8 +365,9 @@ def launch_stem_bwd(x, g, a, b, mean, rstd):
     _check_vec("rstd", rstd, c, torch.float32, x.device)
     lib = load_kernels()
     bf16 = int(x.dtype == torch.bfloat16)
-    cv, _, ws, _ = bwd_geometry(w, c, x.dtype)
-    plan = bwd_plan(n, h, w, c, x.dtype, _slots(x.device.index, "bwd", cv, ws, bf16))
+    cv, _, ws, _ = tile_geometry(w, c, x.dtype)
+    plan = bwd_plan(n, h, w, c, x.dtype,
+                    _slots(x.device.index, "stem_bwd", cv, ws, bf16))
     dy = torch.empty_like(x)
     partial = torch.empty((2, plan.grid, c), device=x.device, dtype=torch.float32)
     sums = torch.empty((2, c), device=x.device, dtype=torch.float32)
@@ -381,7 +398,7 @@ def launch_stem_dx(x, dy, k1, nk2, nk3, mean) -> torch.Tensor:
     # a block takes THREADS // vectors positions a pass: no more blocks than
     # the positions need, nor than the card holds at once
     per = THREADS // (c // vector_width(x.dtype))
-    grid = min(-(-n * h * w // per), _slots(x.device.index, "dx", bf16))
+    grid = min(-(-n * h * w // per), _slots(x.device.index, "stem_dx", bf16))
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = lib.clica_stem_dx(x.data_ptr(), dy.data_ptr(), k1.data_ptr(),

@@ -14,6 +14,7 @@ output and the running buffers bit for bit, gradients at float32's
 rounding (1e-5 of the largest, the JAX package's own test holds 3e-5).
 """
 
+import contextlib
 import functools
 
 import jax
@@ -28,6 +29,7 @@ from cl_ica_tpu_torch.models.layers import MinResBN2d, MinResBNPool
 from cl_ica_tpu_torch.ops import bn_minres as bm
 from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts
 from cl_ica_tpu_torch.ops import pool_minres as pm
+from cl_ica_tpu_torch.ops import stem
 
 torch.set_num_threads(1)
 
@@ -252,3 +254,229 @@ def test_module_eval_is_the_plain_composition():
     norm.eval(), plain.eval()
     x = torch.randn(2, 4, 6, 6)
     assert torch.equal(norm(x), F.max_pool2d(plain(x), 3, 2, 1))
+
+
+# ---------------------------------------------------------------------------
+# the code kernel's persistent grid (pool_code_plan), its walk and its rule
+# ---------------------------------------------------------------------------
+
+
+def _code_walk(plan, shape, dtype, stages=4):
+    """A mirror of pool_code_kernel's walk (csrc/stem_pool.cu): block (b,
+    slice) takes tiles b, b + grid, ...; tile t is strip t % strips, segment
+    (t // strips) % segs of image t // (strips · segs). Its step k, k0 − 1 ..
+    k1 − 1, takes load c, stage k: x rows 2k and 2k + 1 (the first step row
+    2k0 − 1 alone, none for k0 = 0), columns 2j0 − 1 .. 2j0 + 2ws − 1
+    inside the image; the tile's threads own window columns j0 .. j0 + ws −
+    1 inside the image and the slice's vectors, and a step past the first
+    writes window row k from row 2k − 1, carried from the step before, and
+    the stage's two rows. Returns how often each (image, window row, window
+    column, vector) is written; checks that the producer, ``stages`` loads
+    ahead at the start and one more after each step's barrier, has issued a
+    step's load before the step waits for it, and that every column a
+    window reads was staged."""
+    n, h, w, c = shape
+    ho, wo, cvs = h // 2, w // 2, c // stem.vector_width(dtype)
+    count = np.zeros((n, ho, wo, cvs), np.int32)
+    for sl in range(plan.slices):
+        v0 = sl * plan.cv
+        for b in range(plan.grid):
+            tiles = range(b, plan.tiles, plan.grid)
+            loads = []  # the producer's order: (tile, stage)
+            for t in tiles:
+                k0 = t // plan.strips % plan.segs * plan.ks
+                loads += [(t, st) for st in range(k0 - 1, min(k0 + plan.ks, ho))]
+            step = 0
+            for t in tiles:
+                j0 = t % plan.strips * plan.ws
+                rest = t // plan.strips
+                k0 = rest % plan.segs * plan.ks
+                k1 = min(k0 + plan.ks, ho)
+                img = rest // plan.segs
+                assert img < n and k0 < ho and j0 < wo
+                j1 = min(j0 + plan.ws, wo)
+                staged = set(range(max(0, 2 * j0 - 1), min(w, 2 * j0 + 2 * plan.ws)))
+                assert all({2 * j, 2 * j + 1} <= staged and (j == 0 or 2 * j - 1 in staged)
+                           for j in range(j0, j1))
+                carried = None
+                for k in range(k0 - 1, k1):
+                    issued = min(len(loads), stages + step)
+                    assert step < issued and loads[step] == (t, k)
+                    if k >= k0:
+                        assert carried == (2 * k - 1 if k > 0 else None)
+                        count[img, k, j0:j1, v0:v0 + plan.cv] += 1
+                    carried = 2 * k + 1 if k >= 0 else None
+                    step += 1
+            assert step == len(loads)
+    return count
+
+
+# (N, H, W, C); "256v": C of 256 vectors of the dtype, the widest
+_CODE_SHAPES = [
+    (1024, 112, 112, 64),  # main_3dident's stem tail at 1024 images
+    (1, 2, 2, 8),          # one window
+    (1, 112, 112, 64),     # one image
+    (2, 10, 70, 64),       # Wo = 35: no strip divides it
+    (3, 30, 14, 24),       # Ho = 15: ragged segments
+    (1, 6, 10, "256v"),    # 16 slices
+]
+
+
+@pytest.mark.parametrize("slots", [1, 7, 264, 396])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _CODE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_code_walk_writes_every_window_once(shape, dtype, slots):
+    n, h, w, c = shape
+    if c == "256v":
+        c = 256 * stem.vector_width(dtype)
+    shape = (n, h, w, c)
+    plan = pm.pool_code_plan(*shape, dtype, slots)
+    ho, wo, cvs = h // 2, w // 2, c // stem.vector_width(dtype)
+    # the kernel's own constraints on a plan (clica_pool_code refuses others)
+    assert plan.cv >= 1 and plan.ws >= 1 and plan.ks >= 1
+    assert (plan.ws + 1) * plan.cv <= stem.THREADS and plan.cv <= stem.MAX_SLICE
+    assert (plan.slices - 1) * plan.cv < cvs <= plan.slices * plan.cv
+    assert (plan.strips - 1) * plan.ws < wo <= plan.strips * plan.ws
+    assert (plan.segs - 1) * plan.ks < ho <= plan.segs * plan.ks
+    assert plan.tiles == n * plan.segs * plan.strips
+    assert 1 <= plan.grid <= plan.tiles
+    assert plan.grid * plan.slices <= max(slots, plan.slices)  # one wave
+    count = _code_walk(plan, shape, dtype)
+    assert count.min() == 1 and count.max() == 1
+    assert pm.pool_code_plan(*shape, dtype, slots) == plan  # a fixed plan
+
+
+@pytest.mark.parametrize("dtype, slots, want", [
+    # (1024, 112, 112, 64): 4 strips of 14 window columns in float32 (15 x
+    # 16 threads), 2 of 28 in bfloat16 (29 x 8); a whole image's rows a
+    # tile at two blocks an SM
+    (torch.float32, 264, (16, 1, 14, 4, 56, 1, 4096, 264)),
+    (torch.float32, 396, (16, 1, 14, 4, 28, 2, 8192, 396)),
+    (torch.bfloat16, 264, (8, 1, 28, 2, 56, 1, 2048, 264)),
+    (torch.bfloat16, 396, (8, 1, 28, 2, 14, 4, 8192, 396)),
+])
+def test_pool_code_plan_at_the_main_path(dtype, slots, want):
+    assert tuple(pm.pool_code_plan(1024, 112, 112, 64, dtype, slots)) == want
+
+
+def _kernel_z(x, a, b):
+    """z as the code kernel computes it: the float32 product and sum each
+    rounded to x's dtype, then the relu, once an input element."""
+    y = (x.float() * a.float()).to(x.dtype).float() + b.float()
+    return y.to(x.dtype).float().clamp_(min=0)
+
+
+def _kernel_rule(z):
+    """pool_code_kernel's winner rule on z (N, H, W, C), in float32: each
+    row's first maximum over the window's columns 2j − 1 (none at j = 0),
+    2j and 2j + 1, with its column; then the window's, row by row: the row
+    2k − 1 carried from the window above (none at k = 0), then 2k and 2k +
+    1, a row taking the window only where its maximum is greater."""
+    n, h, w, c = z.shape
+    below = torch.full((n, h, 1, c), -1.0)
+    m = torch.cat([below, z[:, :, 1:w - 1:2]], 2)  # column 2j − 1
+    d = torch.zeros(m.shape, dtype=torch.uint8)
+    for col, cand in ((1, z[:, :, 0::2]), (2, z[:, :, 1::2])):
+        take = cand > m
+        m = torch.where(take, cand, m)
+        d = torch.where(take, col, d)
+    pooled, code = [], []
+    top_m, top_d = torch.full_like(m[:, 0], -1.0), torch.zeros_like(d[:, 0])
+    for k in range(h // 2):
+        wm, wd = top_m, top_d
+        for r, base in ((2 * k, 3), (2 * k + 1, 6)):
+            take = m[:, r] > wm
+            wm = torch.where(take, m[:, r], wm)
+            wd = torch.where(take, d[:, r] + base, wd)
+        pooled.append(wm)
+        code.append(wd)
+        top_m, top_d = m[:, 2 * k + 1], d[:, 2 * k + 1]  # the carried row
+    return torch.stack(pooled, 1), torch.stack(code, 1)
+
+
+def _tie_case(case, shape, seed):
+    """Inputs that tie: x on a few levels (zeros of both signs among them),
+    a = 0 (z = relu(b), a constant a channel), or a < 0 with x ≥ 0 and b
+    ≤ 0, so that every window is all zeros."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    x = np.round(rng.normal(size=shape) * 0.75) / 2
+    a = rng.normal(size=c)
+    b = 0.3 * rng.normal(size=c)
+    if case == "a=0":
+        a = np.where(np.arange(c) % 2, 0.0, -0.0)
+    if case == "a<0":
+        x, a, b = np.abs(x) + 0.25, -0.5 - np.abs(a), -np.abs(b)
+    return x.astype(np.float32), a.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["levels", "a=0", "a<0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_kernels_winner_rule_is_the_first_maximum(dtype, case):
+    # rows first, the bottom row carried: the codes of pool_code_reference
+    # byte for byte and of the JAX _pool_fwd_core, pooled bit for bit
+    shape = (2, 8, 14, 8)
+    x, a, b = (torch.tensor(v).to(dtype) for v in _tie_case(case, shape, 11))
+    z = _kernel_z(x, a, b)
+    pooled, code = _kernel_rule(z)
+    want_p, want_c = pm.pool_code_reference(x, a, b)
+    assert torch.equal(code, want_c)
+    assert torch.equal(pooled.to(dtype), want_p)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jp, jcode = jax.jit(jax_pool._pool_fwd_core)(jnp.asarray(z.numpy()).astype(jdt))
+    np.testing.assert_array_equal(code.numpy(), np.asarray(jcode).astype(np.uint8))
+    np.testing.assert_array_equal(pooled.numpy(), _np(jp))
+    if case == "a<0":  # each window's first position inside the image
+        first = np.zeros((4, 7), np.uint8)
+        first[0, 0], first[0, 1:], first[1:, 0] = 4, 3, 1
+        assert not bool(pooled.any())
+        assert (code.numpy() == first[None, :, :, None]).all()
+
+
+class _FakeCodeLib:
+    """csrc/stem_pool.cu's library, recording each call's arguments; three
+    code blocks fit an SM."""
+
+    def __init__(self):
+        self.calls = []
+
+    def clica_pool_code_blocks_per_sm(self, *args):
+        self.calls.append(("blocks_per_sm",) + args[:-1])
+        args[-1]._obj.value = 3
+        return 0
+
+    def clica_pool_code(self, *args):
+        self.calls.append(("code",) + args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_code_launch_takes_the_plan(monkeypatch, dtype):
+    # launch_pool_code asks the library how many code blocks fit an SM for
+    # the geometry, hands pool_code_plan whole to the kernel with the
+    # shape, and counts one launch
+    lib = _FakeCodeLib()
+    monkeypatch.setattr(pm, "load_kernels", lambda: lib)
+    monkeypatch.setattr(pm, "_check_map", lambda *args, **kw: None)
+    monkeypatch.setattr(pm, "_stream", lambda t: None)
+    monkeypatch.setattr(pm, "_slots", stem._slots.__wrapped__)
+    monkeypatch.setattr(stem, "load_kernels", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda d: type("Props", (), {"multi_processor_count": 132}))
+    shape = (1024, 112, 112, 64)
+    x = torch.zeros(shape, device="meta", dtype=dtype)
+    v = torch.zeros(64, device="meta", dtype=dtype)
+    before = launch_counts()
+    pooled, code = pm.launch_pool_code(x, v, v)
+    plan = pm.pool_code_plan(*shape, dtype, 3 * 132)
+    bf16 = int(dtype == torch.bfloat16)
+    assert lib.calls[0] == ("blocks_per_sm", plan.cv, plan.ws, bf16)
+    call = lib.calls[1]
+    assert call[0] == "code" and len(call) == 20
+    assert call[6:] == (*shape, bf16, *plan, None)
+    assert pooled.shape == code.shape == (1024, 56, 56, 64)
+    assert code.dtype == torch.uint8 and pooled.dtype == dtype
+    before["pool_code"] += 1
+    assert launch_counts() == before

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """fused_neg_lse's and fused_dot_lse's kernels (or, with --stem, the stem
-tail's backward) of two or more checkouts of this repository, in turns, on
-one GPU.
+tail's kernels and the argmax pool's code kernel) of two or more checkouts
+of this repository, in turns, on one GPU.
 
     python3 tools/compare_lse_kernels.py [--stem] [--out FILE] CHECKOUT [CHECKOUT ...]
 
@@ -44,12 +44,14 @@ runs/chip_smoke/) while the builds run, and a turn measures instead:
      device ms (chip_smoke._median_ms, median of 9) of the checkout's
      launch_stem_bwd; of its dx: launch_stem_dx where the checkout has it,
      else the three tensor passes its backward ran (chip_smoke._three_pass_dx,
-     the same code); of those three passes in every checkout; and of
-     bn_relu_pool_train's forward+backward; a checkout's time is the
-     better of its turns;
-  2. main_3dident's training step, ResNet18, B = 512, --fused-stem,
-     float32 (TF32 off) and --bf16: pairs/s of 10 steady steps and peak
-     GiB (chip_smoke._step3d_pairs_per_sec), listed turn by turn.
+     the same code); of those three passes in every checkout; of
+     bn_relu_pool_train's forward+backward; and of its launch_stem_fwd and
+     ops/pool_minres.py launch_pool_code (the argmax pool's code kernel);
+     a checkout's time is the better of its turns;
+  2. main_3dident's training step, ResNet18, B = 512, float32 (TF32 off)
+     and --bf16, with --fused-stem and with the argmax stem pool
+     (stem_pool='argmax'): ms a step and pairs/s of 10 steady steps and
+     peak GiB (chip_smoke._step3d_pairs_per_sec), listed turn by turn.
 
 Prints the card's name and power limit beside every number and writes
 every number as JSON to --out (default runs/compare_lse/result.json, with
@@ -71,8 +73,12 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 OUT_DIR = ROOT / "runs" / "compare_lse"
 STEP_CONFIGS = ("sphere", "box", "simclr")
-STEM_TIMED = ("bwd", "dx", "dx three passes", "fn fwd+bwd")
-STEM_STEPS = ("float32", "bf16")
+STEM_TIMED = ("bwd", "dx", "dx three passes", "fn fwd+bwd", "fwd", "code")
+# label: (main_3dident's flags, --bf16, the backbone's stem_pool)
+STEM_STEPS = {"--fused-stem float32": (("--fused-stem",), False, "xla"),
+              "--fused-stem bf16": (("--fused-stem",), True, "xla"),
+              "argmax float32": ((), False, "argmax"),
+              "argmax bf16": ((), True, "argmax")}
 
 
 def _smoke_on(checkout: Path):
@@ -183,7 +189,9 @@ def stem_times(smoke, dtype) -> dict:
     cases = {"bwd": lambda: stem.launch_stem_bwd(x, g, a, b, mean, rstd),
              "dx": lambda: dx(x, dy, *factors, mean),
              "dx three passes": lambda: smoke._three_pass_dx(x, dy, *factors, mean),
-             "fn fwd+bwd": fwd_bwd}
+             "fn fwd+bwd": fwd_bwd,
+             "fwd": lambda: stem.launch_stem_fwd(x, a, b),
+             "code": lambda: smoke.pool_minres.launch_pool_code(x, a, b)}
     out = {k: smoke._median_ms(f, reps=9, warmup=2) for k, f in cases.items()}
     out["dx is"] = "launch_stem_dx" if dx is not smoke._three_pass_dx else "three passes"
     return out
@@ -199,9 +207,9 @@ def stem_turn(smoke) -> dict:
     latent_space, _, _ = smoke.main_3dident.setup_latent_space(args)
     sampler = smoke.ThreeDIdentBatchSampler(smoke.FIXTURE, latent_space, 512,
                                             device="cuda")
-    for label in STEM_STEPS:
-        out["steps"][label] = smoke._step3d_pairs_per_sec(sampler, True,
-                                                          label == "bf16")
+    for label, (flags, bf16, stem_pool) in STEM_STEPS.items():
+        out["steps"][label] = smoke._step3d_pairs_per_sec(sampler, flags, bf16,
+                                                          stem_pool)
     return out
 
 
@@ -266,10 +274,11 @@ def report_stem(turns: dict, smi: str) -> dict:
                      for name, ts in turns.items()}
              for label in STEM_STEPS}
     for label, row in steps.items():
-        print(f"[steps] main_3dident --fused-stem {label}, ResNet18 B=512, "
-              f"pairs/s (peak GiB) of 10 steady steps, each checkout's turns, "
+        print(f"[steps] main_3dident {label}, ResNet18 B=512, ms a step "
+              f"(pairs/s, peak GiB) of 10 steady steps, each checkout's turns, "
               f"on {smi}: " + "; ".join(
-                  f"{name} " + " ".join(f"{p:.1f} ({g:.2f})" for p, g in vs)
+                  f"{name} " + " ".join(f"{512e3 / p:.3f} ({p:.1f}, {g:.3f})"
+                                        for p, g in vs)
                   for name, vs in row.items()), flush=True)
     return {"stem": best, "steps": steps,
             "turns": {name: [t["stem"] for t in ts] for name, ts in turns.items()}}
@@ -280,7 +289,8 @@ def main() -> int:
     ap.add_argument("checkouts", nargs="*", type=Path,
                     help="directories holding a tree of the repository")
     ap.add_argument("--stem", action="store_true",
-                    help="compare the stem tail's backward and the 3DIdent step")
+                    help="compare the stem's kernels, the code kernel and the "
+                         "3DIdent steps")
     ap.add_argument("--out", type=Path,
                     help="default runs/compare_lse/result.json (--stem: stem.json)")
     ap.add_argument("--build", type=Path, help=argparse.SUPPRESS)
