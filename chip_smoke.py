@@ -135,7 +135,27 @@ use) and no network, and it exits non-zero on any failure. Phases:
              kernels at a rank's (B/W, B) block for W = 2, 4, 8 against
              their plain versions at phase 2's bars, with device ms and
              bounds (the kernels line's "rect"); 11a also runs main_3dident
-             --norm-kind minres8's step so
+             --norm-kind minres8's step so, and takes the mesh lane's images
+             from the row-sharded store. 11d --mesh-model on gloo ranks on
+             cuda:0: main_mlp --mesh 2 --mesh-model 2 and --mesh 4
+             --mesh-model 2 at B=6144 against 11b's one-device run (step 1
+             within 1e-5, then finite and falling); main_3dident --mesh 4
+             --mesh-model 2 (ResNet18, num_filters 64, B=64, 3 steps,
+             float32 and --bf16) against --mesh 2 (step 1 within 1e-5, and
+             a bfloat16 ulp), the loss kernels once and the bn kernels 20
+             times a step on rank 0; the stem, minres, minres8 and argmax
+             pool kernels at the channel-split shapes (64, 112, 112, C) for
+             C = 32 and 16, float32 and bfloat16, against their plain
+             versions. 11e the row-sharded store: at world size 1 over NCCL
+             the uint8 reduce-scatter on the card and store_gather_scatter
+             against direct indexing; two gloo ranks: the --mesh 2 step on
+             the row-sharded store bit-equal, loss for loss, to the whole
+             store's path, and the bytes a rank holds (N_padded / 2 renders).
+             11f the captured mesh step at world size 1 over NCCL: main_mlp's
+             mesh lane (box p=1, B=6144) captured with its collectives,
+             against its body run eagerly, 22 steps bit for bit, the replays
+             under sync debug mode "error"; eager against captured ms a
+             step in turns
  12 options  the ResNet's remaining options. 12a the float8 modes of the
              bn kernels (bn_apply8, bn_bwd8, bn_dx8; ops/bn_minres8.py) at
              every norm shape of ResNet18 at 1024 images and two ragged
@@ -237,6 +257,7 @@ from cl_ica_tpu_torch.ops import (
     bn_minres,
     bn_minres8,
     build,
+    collectives,
     infonce,
     infonce_dot,
     pool_minres,
@@ -2182,7 +2203,8 @@ def _eager(step: CapturedStep) -> torch.Tensor:
     return torch.stack([t.float() for t in step.body()])
 
 
-def _hold_capture(tag: str, make, per_step: dict, replays: int) -> None:
+def _hold_capture(tag: str, make, per_step: dict, replays: int,
+                  label: str = "[9 capture]") -> None:
     """Two lanes from one seed: WARMUP_STEPS + replays eager steps on one,
     the warm-up, the capture and ``replays`` replays on the other, held bit
     for bit (every loss output and every parameter and buffer). The
@@ -2210,7 +2232,7 @@ def _hold_capture(tag: str, make, per_step: dict, replays: int) -> None:
     worst = max(float((a.detach().double() - b.detach().double()).abs().max())
                 for a, b in pairs)
     per_step = {k: per_step.get(k, 0) for k in grew}
-    print(f"[9 capture] {tag}: {n} steps, eager vs warm-up + capture + "
+    print(f"{label} {tag}: {n} steps, eager vs warm-up + capture + "
           f"{replays} replays: outputs {'bit-equal' if same_out else 'DIFFER'} "
           f"(max |diff| {float((got - want).abs().max()):.3e}); "
           f"{same_params} of {len(pairs)} parameter and buffer tensors "
@@ -2218,17 +2240,18 @@ def _hold_capture(tag: str, make, per_step: dict, replays: int) -> None:
           f"{cap_step.per_replay}; over {replays - 1} replays under sync debug "
           f"mode 'error' {grew}; sampler fallbacks {fallbacks}")
     if not cap_step.captured or cap_step.per_replay != per_step:
-        raise AssertionError(f"9 {tag}: launches a replay {cap_step.per_replay}, "
+        raise AssertionError(f"{label} {tag}: launches a replay {cap_step.per_replay}, "
                              f"expected {per_step}")
     if grew != {k: (replays - 1) * v for k, v in per_step.items()}:
-        raise AssertionError(f"9 {tag}: launches {grew} over {replays - 1} replays")
+        raise AssertionError(f"{label} {tag}: launches {grew} over {replays - 1} replays")
     if fallbacks:
-        raise AssertionError(f"9 {tag}: {fallbacks} sampler fallbacks")
+        raise AssertionError(f"{label} {tag}: {fallbacks} sampler fallbacks")
     if not same_out or same_params != len(pairs):
-        raise AssertionError(f"9 {tag}: the captured steps differ from the eager ones")
+        raise AssertionError(f"{label} {tag}: the captured steps differ from the eager ones")
 
 
-def _capture_rate(tag: str, make, pairs: int, steps: int, smi: str) -> None:
+def _capture_rate(tag: str, make, pairs: int, steps: int, smi: str,
+                  label: str = "[9 times]") -> None:
     """pairs/s (device-synchronised wall time) and device ms a step between
     two CUDA events, eager and captured in turns (eager, captured,
     captured, eager), on two fresh lanes warmed up (and captured) under the
@@ -2253,7 +2276,7 @@ def _capture_rate(tag: str, make, pairs: int, steps: int, smi: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[kind].append((steps * pairs / wall, start.elapsed_time(end) / steps))
-    _say_time(f"[9 times] {tag}, turns of {steps} steps (eager, captured, "
+    _say_time(f"{label} {tag}, turns of {steps} steps (eager, captured, "
               f"captured, eager): "
               + "; ".join(f"{k} pairs/s " + ", ".join(f"{r[0]:.0f}" for r in v)
                           + " device ms a step " + ", ".join(f"{r[1]:.4f}" for r in v)
@@ -2552,11 +2575,13 @@ def _params_equal(a, b) -> tuple[int, int]:
     return sum(torch.equal(x, y) for x, y in pairs), len(pairs)
 
 
-def _mesh_w1_rank(device) -> dict:
+def _mesh_w1_rank(smi: str, device) -> dict:
     """11a, as the one rank of an NCCL group on cuda:0: each lane twice from
-    seed 0, one with the single-device eager step, one with the mesh step
-    at world size 1 (every collective called), MESH_STEPS steps each; their
-    outputs and tensors, and the mesh steps' launch counts."""
+    seed 0, one with the single-device eager step, one with the eager mesh
+    step at world size 1 (every collective called), MESH_STEPS steps each;
+    their outputs and tensors, and the mesh steps' launch counts. Then, in
+    the same rank, 11e's uint8 reduce-scatter and 11f's captured mesh step
+    (their lines are printed here; the times are handed back)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -2567,6 +2592,7 @@ def _mesh_w1_rank(device) -> dict:
         lanes = [main_mlp.Lane(args, 0, device,
                                main_mlp.build_latent_space(args, device),
                                main_mlp.make_loss(args), m) for m in (None, mesh)]
+        lanes[1].captured = False  # 11a holds the eager mesh step; 11f captures it
         for lane in lanes:
             lane.start_phase(False, args.n_steps)
         want = torch.stack([_eager(lanes[0].step) for _ in range(MESH_STEPS)])
@@ -2580,15 +2606,23 @@ def _mesh_w1_rank(device) -> dict:
                        "launches": infonce.launch_counts()}
     for tag, extra in (("3dident", ()), ("3dident minres8", ("--norm-kind", "minres8"))):
         out[tag] = _mesh_w1_3dident(mesh, device, extra)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["store"] = _store_w1(mesh, device)
+    out["capture_s"] = _capture_mesh_w1(mesh, device, smi)
+    out["times"] = list(TIMES)
     return out
 
 
 def _mesh_w1_3dident(mesh, device, extra: tuple) -> dict:
     """11a's main_3dident lane (with the driver flags ``extra``): the eager
-    one-device step against the mesh step at world size 1."""
+    one-device step (the whole store on the device) against the mesh step
+    at world size 1 on the row-sharded store (its one block, the batch
+    taken by the uint8 reduce-scatter over NCCL)."""
     args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised", *extra])
     space, na, n_ang = main_3dident.setup_latent_space(args)
     sampler = ThreeDIdentBatchSampler(FIXTURE, space, 512, device=device)
+    sharded = ThreeDIdentBatchSampler(FIXTURE, space, 512, device=device, mesh=mesh)
 
     def lane(wrap=None):
         model = main_3dident.build_encoder(
@@ -2603,10 +2637,10 @@ def _mesh_w1_3dident(mesh, device, extra: tuple) -> dict:
     model2, opt2, sched2, loss2, gen2 = lane(
         functools.partial(parallel.gspmd_safe_loss, mesh))
     step = parallel.make_sharded_3dident_train_step(mesh, model2, loss2, opt2, sched2)
-    rows = parallel.data_rows(0, 1, 512)
+    rows = parallel.mesh_rows(mesh, 512)
     infonce.reset_launch_counts()
     got = torch.stack([torch.stack(step(*main_3dident.draw_rank_views(
-        sampler, gen2, rows)[1::2])) for _ in range(MESH_STEPS)])
+        sharded, gen2, rows)[1::2])) for _ in range(MESH_STEPS)])
     torch.cuda.synchronize()
     return {"outputs_equal": torch.equal(got, want),
             "max_diff": float((got - want).abs().max()),
@@ -2616,10 +2650,64 @@ def _mesh_w1_3dident(mesh, device, extra: tuple) -> dict:
             "launches": infonce.launch_counts()}
 
 
-def _hold_mesh_w1() -> dict:
-    """11a: world size 1 through NCCL, bit for bit against the eager step."""
+def _store_w1(mesh, device) -> dict:
+    """11e at world size 1 over NCCL: the uint8 reduce-scatter on the card
+    (ops.collectives.reduce_scatter_rows) and store_gather_scatter over the
+    fixture's padded store, against direct indexing."""
     t0 = time.perf_counter()
-    got = parallel.launch(_mesh_w1_rank, 1, device="cuda")
+    packed = np.load(os.path.join(FIXTURE, "images_packed_224x224.u8"), mmap_mode="r")
+    store = data3d.RowShardedStore(packed, mesh, device)
+    idx = torch.randint(0, packed.shape[0], (512,),
+                        generator=torch.Generator().manual_seed(11)).to(device)
+    rows = store.rows_of(idx)
+    direct = store.block[idx]
+    contrib = (direct % 7).contiguous()
+    summed = collectives.reduce_scatter_rows(contrib.clone(), mesh.data_group)
+    torch.cuda.synchronize()
+    return {"dtype": str(rows.dtype), "equal": torch.equal(rows, direct),
+            "scatter_equal": torch.equal(summed, contrib),
+            "scatter_dtype": str(summed.dtype), "block_bytes": store.nbytes,
+            "shape": list(store.shape), "s": time.perf_counter() - t0}
+
+
+MESH_CAPTURE_REPLAYS = 20  # 11f: replays held bit for bit (22 steps in all)
+
+
+def _capture_mesh_w1(mesh, device, smi: str) -> float:
+    """11f: main_mlp's mesh lane at world size 1 over NCCL, captured as the
+    driver captures it (its collectives in the graph), against the same
+    lane's body run eagerly: _hold_capture's check over WARMUP_STEPS +
+    MESH_CAPTURE_REPLAYS steps, the replays under sync debug mode "error",
+    then eager against captured ms a step in turns. Returns its seconds."""
+    t0 = time.perf_counter()
+    args = main_mlp.parse_args(CONFIGS["box"])
+
+    def make():
+        lane = main_mlp.Lane(args, 0, device, main_mlp.build_latent_space(args, device),
+                             main_mlp.make_loss(args), mesh)
+        lane.start_phase(False, args.n_steps)
+        if not isinstance(lane.step, CapturedStep):
+            raise AssertionError(f"11f: the mesh lane over {torch.distributed.get_backend()} "
+                                 "is not captured")
+        return lane.step, lambda: list(lane.f.parameters())
+
+    tag = f"main_mlp box p=1 B={BATCH} --mesh at world size 1 over NCCL"
+    _hold_capture(tag, make, dict.fromkeys(LP, 1), MESH_CAPTURE_REPLAYS,
+                  label="[11 mesh] 11f")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _capture_rate(tag, make, BATCH, 50, smi, label="[11 times] 11f")
+    secs = time.perf_counter() - t0
+    print(f"[11 mesh] 11f {secs:.1f} s")
+    return secs
+
+
+def _hold_mesh_w1(smi: str) -> dict:
+    """11a: world size 1 through NCCL, bit for bit against the eager step;
+    11e's reduce-scatter and 11f's captured mesh step in the same rank."""
+    t0 = time.perf_counter()
+    got = parallel.launch(_mesh_w1_rank, 1, args=(smi,), device="cuda")
+    TIMES.extend(t for t in got["times"] if t not in TIMES)
     launches = {k: 0 for k in KERNELS}
     per_step = {"box": {k: 1 for k in LP}, "simclr": {k: 1 for k in DOT},
                 "3dident": {**{k: 1 for k in LP + DOT},
@@ -2643,7 +2731,18 @@ def _hold_mesh_w1() -> dict:
                                  f"single-device step: {r}")
         for k, v in r["launches"].items():
             launches[k] += v
-    print(f"[11 mesh] 11a {time.perf_counter() - t0:.1f} s")
+    st = got["store"]
+    print(f"[11 mesh] 11e world size 1 over NCCL: store {st['shape']} in one block "
+          f"of {st['block_bytes']} bytes; 512 rows by store_gather_scatter "
+          f"{st['dtype']}, {'equal' if st['equal'] else 'DIFFER'} to direct "
+          f"indexing; reduce_scatter_rows of uint8 on the card "
+          f"{'equal' if st['scatter_equal'] else 'DIFFERS'} ({st['scatter_dtype']}); "
+          f"{st['s']:.1f} s")
+    if not (st["equal"] and st["scatter_equal"] and st["dtype"] == "torch.uint8"
+            and st["scatter_dtype"] == "torch.uint8"):
+        raise AssertionError(f"11e world size 1: {st}")
+    print(f"[11 mesh] 11a, 11e (world size 1) and 11f "
+          f"{time.perf_counter() - t0:.1f} s (11f {got['capture_s']:.1f} s of it)")
     return launches
 
 
@@ -2766,15 +2865,203 @@ def _rect_kernels(worst: dict, smi: str) -> dict:
     return rect
 
 
+TP_MLP_MESHES = ((2, 2), (4, 2))  # 11d: main_mlp's (--mesh, --mesh-model)
+TP_3D_B, TP_3D_STEPS = 64, 3      # 11d: main_3dident's batch and steps
+TP_SPLIT_C = (32, 16)             # 11d: the stem's channels over 2 and 4 model ranks
+STORE_B, STORE_STEPS = 128, 3     # 11e: the two ranks' batch and steps
+
+
+def _gloo_ranks(world: int) -> dict:
+    """parallel.launch's arguments for ``world`` gloo ranks on cuda:0."""
+    return dict(device="cuda", backend="gloo", devices=["cuda:0"] * world)
+
+
+def _logged_losses(save_dir: str) -> list:
+    """log.csv's loss at each logged step (the phase's last step is logged
+    twice: after its window and by the final evaluation)."""
+    with open(os.path.join(save_dir, "log.csv")) as fh:
+        return list({int(r["step"]): float(r["loss"]) for r in csv.DictReader(fh)}.values())
+
+
+def _mesh_rank_runs(runs: list, device) -> list:
+    """The rank of 11d's and 11e's gloo launches: each (what, argv) of
+    ``runs`` as this rank of the group, "mlp" and "3dident" a driver's
+    ``main`` with every launch count set to 0 just before it and read just
+    after, "store" _store_rank: [(what each returned, the counts)] (rank
+    0's is kept)."""
+    out = []
+    for what, argv in runs:
+        infonce.reset_launch_counts()
+        if what == "store":
+            got = _store_rank(device)
+        else:
+            got = {"mlp": main_mlp.main, "3dident": main_3dident.main}[what](
+                argv, device=device)
+        torch.cuda.synchronize()
+        out.append((got, infonce.launch_counts()))
+    return out
+
+
+def _store_rank(device) -> dict:
+    """11e as a rank of two gloo ranks on cuda:0: main_3dident's mesh step
+    for STORE_STEPS steps from seed 0 twice, once with the whole store on
+    the device and the rank's rows gathered from it (the path every rank
+    took before the store was row-sharded), once on the row-sharded store
+    (the rank's half, the rows by the uint8 reduce-scatter): the losses,
+    and the bytes of store each held. Runs last in its rank (it sets
+    cudnn.deterministic)."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    mesh = parallel.make_mesh(2, device)
+    args = main_3dident.parse_args(_RUN3D + ["--mode", "unsupervised"])
+    space, na, n_ang = main_3dident.setup_latent_space(args)
+    rows = parallel.mesh_rows(mesh, STORE_B)
+
+    def run(sampler, views):
+        model = main_3dident.build_encoder(
+            args, na + n_ang, na, torch.Generator().manual_seed(0)).to(device).train()
+        opt, sched = make_optimizer(model.parameters(), args.lr, kind=args.optimizer)
+        step = parallel.make_sharded_3dident_train_step(
+            mesh, model, main_3dident.build_split_loss(
+                args, na, wrap=functools.partial(parallel.gspmd_safe_loss, mesh)),
+            opt, sched)
+        gen = torch.Generator(device=device).manual_seed(0)
+        out = []
+        for _ in range(STORE_STEPS):
+            idx_z, idx_zt, _, _ = sampler.sample_latent_batch(gen)
+            out.append(float(step(normalize_3dident(views(idx_z)),
+                                  normalize_3dident(views(idx_zt)))[0]))
+        return out
+
+    whole = ThreeDIdentBatchSampler(FIXTURE, space, STORE_B, device=device)
+    got = {"whole": run(whole, lambda idx: whole.images_of(idx[rows])),
+           "whole_bytes": whole.device_store.numel()}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = ThreeDIdentBatchSampler(FIXTURE, space, STORE_B, device=device, mesh=mesh)
+    got.update({"sharded": run(sharded, sharded.rank_images_of),
+                "bytes": sharded.sharded_store.nbytes,
+                "shape": list(sharded.sharded_store.shape),
+                "s": time.perf_counter() - t0})
+    return got
+
+
+def _hold_mesh_tp(worst: dict, smi: str) -> dict:
+    """11d: --mesh-model on gloo ranks sharing the card (NCCL takes one rank
+    a device): main_mlp at the published width against 11b's one-device
+    run; main_3dident --mesh 4 --mesh-model 2 (ResNet18's widths, the
+    default minres path, float32 and --bf16) against --mesh 2; the norm,
+    stem and pool kernels at the channel-split shapes against their plain
+    versions. 11e's two-rank part runs in 11d's two-rank launch (each
+    launch's ranks take seconds to start). Returns the drivers' launches
+    (rank 0's)."""
+    t0 = time.perf_counter()
+    run_dir = os.path.join(OUT_DIR, "11_mesh")
+    mlp = {world: (os.path.join(run_dir, f"mlp_tp_{world}x{model}"),
+                   ["--mesh", str(world), "--mesh-model", str(model)])
+           for world, model in TP_MLP_MESHES}
+    argv = _RUN3D + ["--mode", "unsupervised", "--batch-size", str(TP_3D_B),
+                     "--iterations", str(TP_3D_STEPS), "--n-log-steps", "100",
+                     "--n-eval-samples", str(2 * TP_3D_B)]
+    runs = [("float32", argv, VALUE_BAR), ("bf16", argv + ["--bf16"], BF16_ULP)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = {}
+    for world, mesh_3d in ((2, ["--mesh", "2"]), (4, ["--mesh", "4", "--mesh-model", "2"])):
+        save, flags = mlp[world]
+        t1 = time.perf_counter()
+        took[world] = parallel.launch(_mesh_rank_runs, world, args=(
+            [("mlp", _mesh_mlp_argv(save) + flags)]
+            + [("3dident", a + mesh_3d) for _, a, _ in runs]
+            + ([("store", None)] if world == 2 else []),), **_gloo_ranks(world))
+        print(f"[11 mesh] 11d{' and 11e' if world == 2 else ''}: {world} gloo "
+              f"ranks on cuda:0 took {time.perf_counter() - t1:.1f} s (gloo, one card)")
+    want = _logged_losses(os.path.join(run_dir, "mlp_one"))
+    launches = {k: 0 for k in KERNELS}
+    for world, model in TP_MLP_MESHES:
+        save, flags = mlp[world]
+        grew = {k: v for k, v in took[world][0][1].items() if v}
+        got = _logged_losses(save)
+        first = abs(got[0] - want[0]) / abs(want[0])
+        print(f"[11 mesh] 11d main_mlp box p=1 {' '.join(flags)} "
+              f"({world // model} data x {model} model), gloo ranks on cuda:0, "
+              f"B={BATCH}, {MESH_MLP_STEPS} steps: step 1 loss {got[0]:.7f} vs one "
+              f"device {want[0]:.7f} (rel {first:.2e}); losses "
+              f"{[round(x, 6) for x in got]}; rank 0's launches {grew}")
+        if (len(got) != len(want) or first > VALUE_BAR or not _falling(got)
+                or grew != dict.fromkeys(LP, MESH_MLP_STEPS)):
+            raise AssertionError(f"11d main_mlp {flags}: {got} vs {want}, {grew}")
+        for k, v in grew.items():
+            launches[k] += v
+    per_step = {**dict.fromkeys(LP + DOT, TP_3D_STEPS),
+                **dict.fromkeys(BN, BN_NORMS_A_STEP * TP_3D_STEPS)}
+    for (label, _, bar), (got, grew), (one, _) in zip(runs, took[4][1:], took[2][1:]):
+        first = abs(got["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        grew = {k: v for k, v in grew.items() if v}
+        print(f"[11 mesh] 11d main_3dident --mesh 4 --mesh-model 2 (2 data x 2 "
+              f"model) {label}, ResNet18 (num_filters 64: each rank's convs at "
+              f"half the output channels, its norms at C/2), B={TP_3D_B}, gloo "
+              f"ranks on cuda:0: losses {[round(x, 6) for x in got['losses']]} "
+              f"vs --mesh 2 {[round(x, 6) for x in one['losses']]} (step 1 rel "
+              f"{first:.2e}, bar {bar:g}); MCC {got['mcc']:.4f} / {one['mcc']:.4f}; "
+              f"store {got['data_path']}, {got['store_bytes']} bytes a rank; rank "
+              f"0's launches {grew}")
+        if (len(got["losses"]) != TP_3D_STEPS or first > bar or grew != per_step
+                or not all(math.isfinite(x) for x in got["losses"])):
+            raise AssertionError(f"11d main_3dident {label}: {got['losses']} vs "
+                                 f"{one['losses']}, {grew}")
+        for k, v in grew.items():
+            launches[k] += v
+    _hold_store_two_ranks(took[2][-1][0])
+    t1 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for c in TP_SPLIT_C:
+        shape = (TP_3D_B, 112, 112, c)  # the stem of a rank's 2B/D images at C/M
+        for dtype in (torch.float32, torch.bfloat16):
+            _hold_stem(f"11d C={c}", shape, dtype, gen, worst)
+            _hold_bn(shape, dtype, gen, worst)
+            _hold_bn8(shape, dtype, gen, worst)
+            _hold_pool(shape, dtype, gen, worst)
+            torch.cuda.empty_cache()
+    print(f"[11 mesh] 11d the stem, pool, minres and minres8 kernels held at "
+          f"({TP_3D_B}, 112, 112, C) for C = {TP_SPLIT_C}, float32 and bfloat16 in "
+          f"{time.perf_counter() - t1:.1f} s; 11d and 11e's two ranks "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _hold_store_two_ranks(got: dict) -> None:
+    """11e with two gloo ranks on cuda:0 (``got``, rank 0's _store_rank):
+    the row-sharded store bit-equal, loss for loss, to the whole store's
+    path; the bytes a rank holds."""
+    n_pad, row = got["shape"][0], int(np.prod(got["shape"][1:]))
+    print(f"[11 mesh] 11e --mesh 2 main_3dident step (ResNet18, B={STORE_B}, "
+          f"two gloo ranks on cuda:0), {STORE_STEPS} steps: row-sharded store "
+          f"{got['sharded']} vs the whole store's path {got['whole']}: "
+          f"{'bit-equal' if got['sharded'] == got['whole'] else 'DIFFER'}; a rank "
+          f"holds {got['bytes']} bytes = {n_pad} / 2 renders x {row} bytes "
+          f"(the whole store {got['whole_bytes']}); {got['s']:.1f} s in its ranks")
+    if got["sharded"] != got["whole"] or got["bytes"] != n_pad // 2 * row:
+        raise AssertionError(f"11e two ranks: {got}")
+
+
 def phase_mesh(worst: dict, smi: str) -> tuple[dict, dict]:
-    """Phase 11: world size 1 over NCCL, two gloo ranks on the card, and the
-    rectangular loss kernels. Returns the 11a launches and 11c's times."""
+    """Phase 11: world size 1 over NCCL (11a, 11e's reduce-scatter, 11f),
+    two gloo ranks on the card (11b), the rectangular loss kernels (11c),
+    --mesh-model on gloo ranks (11d) and, in 11d's two-rank launch, the
+    row-sharded store (11e). Returns the 11a and 11d launches and 11c's
+    times."""
     t0 = time.perf_counter()
     if not os.path.exists(os.path.join(FIXTURE, "raw_latents.npy")):
         phase_fixture()
-    launches = _hold_mesh_w1()
+    launches = _hold_mesh_w1(smi)
     _hold_mesh_two_ranks()
     rect = _rect_kernels(worst, smi)
+    for k, v in _hold_mesh_tp(worst, smi).items():
+        launches[k] += v
     print(f"[11 mesh] {time.perf_counter() - t0:.1f} s")
     return launches, rect
 

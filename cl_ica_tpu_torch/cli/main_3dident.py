@@ -34,20 +34,28 @@ training loop (utils.profiling). Under CL_ICA_TPU_DEBUG=1 each eager step
 the JAX package's checked steps do; --scan refuses the flag, as there.
 
 ``--mesh N`` trains data-parallel over N ranks (parallel/; rank r on
-cuda:r over NCCL, or gloo with device="cpu"), in all three modes. Every
-rank keeps the image store on the path one device uses (on the device
-within the budget, else the host-prefetch loader, which then gathers the
-rank's rows only); each draws and matches the global batch of pairs from
-the same seed, gathers the renders of its B/N pairs, encodes its 2B/N
-images in one forward with the norms' statistics over all ranks, and
-takes the split loss against the global negatives. Rank 0 alone
-evaluates, prints, logs and saves; every rank resumes from its files.
---mode test is rank 0's evaluation.
+cuda:r over NCCL, or gloo with device="cpu"), in all three modes. Each
+rank keeps only its block of the packed store, padded to a multiple of
+the data axis, on its device (within the budget, which then holds the
+block; beyond it the host path one device takes, the host-prefetch loader
+gathering the rank's rows only); each draws and matches the global batch
+of pairs from the same seed, takes the renders of its B/D pairs through
+one uint8 reduce-scatter over the data group
+(``parallel.store_gather_scatter``), encodes its 2B/D images in one
+forward with the norms' statistics over the data group, and takes the
+split loss against the global negatives. ``--mesh-model M`` makes the
+mesh (N/M data) × (M model): the encoder, its Adam state and its norms'
+buffers are sharded by the JAX package's rule and run channel-parallel
+over each model group (parallel/tensor.py). The evaluations are
+data-parallel over all ranks, as in the JAX package; test mode's sweep
+takes each batch whole on every rank from the row-sharded store
+(``parallel.sharded_store_gather``), so that its scores are one device's.
+Rank 0 alone scores, prints, logs and saves (whole tensors), and every
+rank resumes from its files.
 
 The run is on CUDA: ``main(argv, device=None)`` resolves to "cuda" and
 raises when there is none; the CPU is used only when a caller passes
-device="cpu" explicitly. Flags whose machinery is not ported exit with
-the ROADMAP item that ports them.
+device="cpu" explicitly.
 
 Usage: python -m cl_ica_tpu_torch.cli.main_3dident --offline-dataset DIR [flags]
 """
@@ -80,13 +88,19 @@ from ..losses import LpSimCLRLoss, R2Loss, SimCLRLoss
 from ..models import construct_invertible_mlp, get_mlp
 from ..models.layers import RescaleLayer, SoftclipLayer
 from ..models.resnet import ResNet18, ResNet50, ResNet101, ResNet152, lecun_normal_
+from ..ops.collectives import gather_rows
 from ..parallel import (
-    data_rows,
     gspmd_safe_loss,
-    make_mesh,
+    load_whole_optimizer_state,
+    load_whole_state_dict,
+    make_dp_tp_mesh,
     make_sharded_3dident_sup_step,
     make_sharded_3dident_train_step,
+    mesh_rows,
     run_mesh,
+    tensor_parallel,
+    whole_optimizer_state,
+    whole_state_dict,
 )
 from ..spaces import LatentSpace, NBoxSpace, NSphereSpace, ProductLatentSpace
 from ..train import (
@@ -211,8 +225,9 @@ def parse_args(argv=None):
                              "and batch statistics global. 0/1 = single "
                              "device.")
     parser.add_argument("--mesh-model", type=int, default=0,
-                        help="Tensor-parallel axis of the mesh (not "
-                             "ported yet: ROADMAP A13b).")
+                        help="Tensor-parallel axis of the mesh: the encoder's "
+                             "channels split over M ranks of each data index "
+                             "((N/M) data x M model). 0/1 = data-parallel only.")
     parser.add_argument("--lr-cosine", action="store_true",
                         help="cosine-decay the learning rate to 0 over "
                              "--iterations (default: constant lr)")
@@ -295,19 +310,6 @@ def parse_args(argv=None):
         assert os.path.exists(os.path.dirname(args.save_model) or "."), \
             "Directory to save model does not exist"
     return args
-
-
-def refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP item, on a flag this port does not run yet."""
-    unported = [
-        (args.mesh_model and args.mesh_model > 1,
-         "--mesh-model (tensor parallelism)", "A13b"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise SystemExit(
-                f"{what} is not ported to cl_ica_tpu_torch yet "
-                f"(ROADMAP.md item {item})")
 
 
 def setup_latent_space(args, n_objects=1):
@@ -609,14 +611,16 @@ def draw_rank_views(sampler, generator, rows: slice):
     """(z, x, z̃, x̃) of a rank's rows of one training batch under --mesh:
     the whole batch drawn and matched as ``draw_views`` draws it (so every
     rank, seeded alike, draws the same batch), the renders of these rows
-    alone gathered and normalised. A ``PrefetchingPairLoader`` made with
-    ``rows`` hands out these rows itself."""
+    alone taken (``rank_images_of``: the row-sharded store's uint8
+    reduce-scatter, or the host gather of these rows) and normalised. A
+    ``PrefetchingPairLoader`` made with ``rows`` hands out these rows
+    itself."""
     if isinstance(sampler, PrefetchingPairLoader):
         (z, zt), (x, xt) = next(sampler)
         return z, normalize_3dident(x), zt, normalize_3dident(xt)
     idx_z, idx_zt, z, zt = sampler.sample_latent_batch(generator)
-    x = normalize_3dident(sampler.images_of(idx_z[rows]))
-    xt = normalize_3dident(sampler.images_of(idx_zt[rows]))
+    x = normalize_3dident(sampler.rank_images_of(idx_z))
+    xt = normalize_3dident(sampler.rank_images_of(idx_zt))
     return z[rows], x, zt[rows], xt
 
 
@@ -676,7 +680,6 @@ def main(argv=None, device=None):
     TF32 unless told otherwise, which keeps three digits (--bf16 is the
     flag for reduced precision)."""
     args = parse_args(argv)
-    refuse_unported(args)
     if args.mesh and args.mesh > 1 and not dist.is_initialized():
         return run_mesh(main, argv, args.mesh, device)
     device = resolve_device(device)
@@ -698,11 +701,11 @@ def _run(args, device):
 def _experiment(args, device, closing: contextlib.ExitStack):
     assert os.path.exists(args.offline_dataset)
     # under --mesh this process is one rank of the group run_mesh started
-    mesh = (make_mesh(args.mesh, device)
+    mesh = (make_dp_tp_mesh(args.mesh, args.mesh_model, device)
             if args.mesh and args.mesh > 1 else None)
     lead = mesh is None or mesh.lead
-    rows = None if mesh is None else data_rows(mesh.rank, mesh.world,
-                                               args.batch_size)
+    tp = mesh is not None and mesh.n_model > 1
+    rows = None if mesh is None else mesh_rows(mesh, args.batch_size)
     print("Using dataset:", args.offline_dataset)
     logger = MetricsLogger(log_dir=args.log_dir if lead else None,
                            print_to_stdout=False)
@@ -740,9 +743,10 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         sampler = ThreeDIdentBatchSampler(
             args.offline_dataset, latent_space, args.batch_size,
             latent_dimensions_to_use=dims, load_images=load_images,
-            device=device,
+            device=device, mesh=mesh,
         )
-        if load_images and sampler.device_store is None and not sampler.host_store:
+        if (load_images and sampler.device_store is None
+                and sampler.sharded_store is None and not sampler.host_store):
             raise SystemExit(
                 f"no packed image store (images_packed_*.u8) and no "
                 f"images/ directory to pack under {args.offline_dataset!r}")
@@ -757,18 +761,22 @@ def _experiment(args, device, closing: contextlib.ExitStack):
     else:
         sampler = SequentialThreeDIdent(
             args.offline_dataset, latent_dimensions_to_use=dims,
-            load_images=load_images,
+            load_images=load_images, mesh=mesh, device=device,
         )
 
     if args.load_model is not None:
         model.load_state_dict(
             torch.load(args.load_model, map_location="cpu", weights_only=True))
         print("Model loaded:", args.load_model)
+    if tp:  # the rank's shards, from the whole model every rank built
+        tensor_parallel(model, mesh)
 
     def save_model(path):
-        if lead:
-            torch.save(model.state_dict(), path)
-            print("Model saved as", path)
+        if lead or tp:
+            state = whole_state_dict(model)  # every rank of a model group joins
+            if lead:
+                torch.save(state, path)
+                print("Model saved as", path)
 
     params = [p for p in model.parameters() if p.requires_grad]
     optimizer = scheduler = None
@@ -793,19 +801,26 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         return out
 
     def view_of(z, idx):
-        """The encoder's input for matched latents z at table rows idx."""
+        """The encoder's input for matched latents z at table rows idx
+        (under --mesh the rank's rows of it)."""
         if load_images:
-            return normalize_3dident(sampler.images_of(idx))
+            return normalize_3dident(sampler.images_of(idx) if mesh is None
+                                     else sampler.rank_images_of(idx))
         return g(z) if args.dummy_mixing else z
 
     def eval_batch():
-        """(z, x) of one evaluation batch."""
+        """(z, x) of one evaluation batch (under --mesh, x of the rank's
+        rows, except in test mode's sweep: the whole batch)."""
         if args.mode == "test":
             idx = next_test_indices(args.batch_size)
-            z, x = sampler.batch(idx)
+            if mesh is not None:
+                z, x = sampler.mesh_batch(idx)
+            else:
+                z, x = sampler.batch(idx)
+                x = None if x is None else torch.from_numpy(x).to(device)
             z = torch.as_tensor(z, dtype=torch.float32, device=device)
             if x is not None:
-                x = normalize_3dident(torch.from_numpy(x).to(device))
+                x = normalize_3dident(x)
             return z, x
         idx_z, _, z, _ = sampler.sample_latent_batch(eval_gen)
         return z, view_of(z, idx_z)
@@ -841,16 +856,22 @@ def _experiment(args, device, closing: contextlib.ExitStack):
     def evaluate(eval_perm=True):
         """Accumulate n_eval_samples; MCC, linear R² (train/test split),
         per-dimension MSE, linear fit's MSE. eval_perm=False skips the
-        Hungarian MCC."""
+        Hungarian MCC. Under --mesh every rank encodes its rows of each
+        batch and the codes are gathered over the data group, except in
+        test mode, whose sweep each rank encodes whole (so that its scores
+        are one device's, bit for bit); rank 0 alone scores (the others
+        return infinities)."""
         zs, hzs = [], []
         model.eval()
         for _ in range(args.n_eval_samples // args.batch_size):
             z, x = eval_batch()
             hz = z if args.identity_mixing_and_solution else model(x)
+            if mesh is not None and args.mode != "test":
+                hz = gather_rows(hz, mesh.data_group)
             zs.append(z.cpu().numpy())
             hzs.append(hz.float().cpu().numpy())
         model.train()
-        if not zs:
+        if not zs or not lead:
             return np.inf, np.inf, np.inf, np.inf
         z = np.concatenate(zs)
         hz = np.concatenate(hzs)
@@ -881,25 +902,29 @@ def _experiment(args, device, closing: contextlib.ExitStack):
 
     def save_train_state(next_step):
         flush()
-        if not lead:
+        if not (lead or tp):
             return
-        checkpoint.save_resume_state(state_dir, next_step, {
-            "model": model.state_dict(),
-            "optimizer": optimizer.state_dict() if optimizer else None,
+        # whole tensors: under a model axis every rank joins its shards
+        state = {
+            "model": whole_state_dict(model),
+            "optimizer": (whole_optimizer_state(optimizer, model)
+                          if optimizer else None),
             "scheduler": scheduler.state_dict() if scheduler else None,
             "generators": {"train": train_gen.get_state(),
                            "eval": eval_gen.get_state()},
             "step": next_step,
             "losses": list(losses),
-        })
+        }
+        if lead:
+            checkpoint.save_resume_state(state_dir, next_step, state)
 
     if args.resume:
         found = checkpoint.load_resume_state(state_dir) if state_dir else None
         if found:
             artifact, state = found
-            model.load_state_dict(state["model"])
+            load_whole_state_dict(model, state["model"])
             if optimizer is not None:
-                optimizer.load_state_dict(state["optimizer"])
+                load_whole_optimizer_state(optimizer, model, state["optimizer"])
             if scheduler is not None:
                 scheduler.load_state_dict(state["scheduler"])
             train_gen.set_state(state["generators"]["train"])
@@ -918,10 +943,13 @@ def _experiment(args, device, closing: contextlib.ExitStack):
     # generators: a resumed run goes on from the saved state of train_gen,
     # which is ahead of the batches consumed by the ones prefetched.
     data_path, loader, batches = None, None, sampler
+    store_bytes = 0  # bytes of image store on this rank's device
     if load_images:
         data_path = "host-gather"
-        if args.mode != "test" and sampler.device_store is not None:
-            data_path = "device-store"
+        if sampler.sharded_store is not None:
+            data_path, store_bytes = "device-store", sampler.sharded_store.nbytes
+        elif args.mode != "test" and sampler.device_store is not None:
+            data_path, store_bytes = "device-store", sampler.device_store.numel()
         elif args.mode == "unsupervised":
             data_path = "host-prefetch"
             loader = closing.enter_context(contextlib.closing(PrefetchingPairLoader(
@@ -931,6 +959,16 @@ def _experiment(args, device, closing: contextlib.ExitStack):
             print(f"host-prefetch: {loader.num_workers} workers, {loader.slots} "
                   f"pinned slots of {loader.pinned_bytes // loader.slots} bytes",
                   flush=True)
+
+    if mesh is not None:
+        store = (f"store {tuple(sampler.sharded_store.shape)} row-sharded, "
+                 f"{store_bytes} bytes a rank" if sampler.sharded_store is not None
+                 else f"store on the host ({data_path})" if load_images
+                 else "no store")
+        print(f"mesh path: {mesh.world} devices"
+              + (f" ({mesh.n_data} data x {mesh.n_model} model)" if tp else "")
+              + f", {dist.get_backend(mesh.group)}, {store}, mode {args.mode}, "
+              "eval sharded", flush=True)
 
     model.train()
     now = lambda: datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
@@ -967,9 +1005,10 @@ def _experiment(args, device, closing: contextlib.ExitStack):
                 log_step = step % args.n_log_steps == 0 or step == args.iterations
                 if log_step:
                     flush()
-                if log_step and lead:  # rank 0 alone evaluates under --mesh
                     throughput.update(args.batch_size * min(args.n_log_steps, step + 1))
+                    # under --mesh every rank encodes, rank 0 scores
                     mcc, lin, mse, lin_mse = evaluate()
+                if log_step and lead:
                     pps = throughput.pairs_per_sec
                     print(
                         f"[{now()}] \t",
@@ -1000,9 +1039,11 @@ def _experiment(args, device, closing: contextlib.ExitStack):
                     save_train_state(step + 1)
         elif args.mode == "supervised":
             for step in range(start_step, args.iterations):
-                if (step % args.n_log_steps == 0 or step == args.iterations) and lead:
+                log_step = step % args.n_log_steps == 0 or step == args.iterations
+                if log_step:
                     flush()
                     mcc, lin, mse, lin_mse = evaluate()
+                if log_step and lead:
                     print(
                         f"[{now()}] \t"
                         f"Step: {step} \t",
@@ -1030,10 +1071,11 @@ def _experiment(args, device, closing: contextlib.ExitStack):
                 if args.save_every is not None and (step + 1) % args.save_every == 0:
                     save_model(args.save_model + f".iteration_{step + 1}")
                     save_train_state(step + 1)
-        elif lead:  # test: rank 0's evaluation under --mesh
+        else:  # test: the sweep's evaluation (data-parallel under --mesh)
             mcc, lin, mse, lin_mse = evaluate(eval_perm=not args.identity_solution)
-            print(f"Lin. Disentanglement: {lin}, MCC: {mcc}, MSE: {mse}, "
-                  f"lin. fit MSE: {lin_mse}")
+            if lead:
+                print(f"Lin. Disentanglement: {lin}, MCC: {mcc}, MSE: {mse}, "
+                      f"lin. fit MSE: {lin_mse}")
 
     flush()
     logger.close()
@@ -1045,6 +1087,7 @@ def _experiment(args, device, closing: contextlib.ExitStack):
     return {"losses": losses, "mcc": last["mcc"], "lin": last["lin"],
             "mean_znorm": last["mean_znorm"],
             "pairs_per_sec": throughput.pairs_per_sec, "data_path": data_path,
+            "store_bytes": store_bytes,
             "loader": None if loader is None else {
                 "workers": loader.num_workers, "slots": loader.slots,
                 "pinned_bytes": loader.pinned_bytes,

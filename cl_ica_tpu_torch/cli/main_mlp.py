@@ -25,13 +25,20 @@ starts N processes (or joins torchrun's), rank r on cuda:r over NCCL, or
 all on the CPU over gloo for device="cpu"; each draws the global batch
 from the same seed, keeps its B/N rows, and takes the loss against the
 global negatives, so the run is the one-device run up to the order of
-floating-point sums. The mesh step runs eagerly. Rank 0 alone evaluates,
-prints, logs and writes the artifacts; every rank resumes from them.
+floating-point sums. ``--mesh N --mesh-model M`` makes the mesh
+(N/M data) × (M model): each rank keeps B·M/N rows and its shards of the
+encoder and of Adam's state (the JAX package's ``tp_param_rule``), and the
+encoder runs channel-parallel over the M ranks of its model group
+(parallel/tensor.py). Over NCCL the mesh step is captured as a CUDA graph
+like the one-device step, its collectives inside; over gloo (the CPU, or
+gloo ranks sharing a card) it runs eagerly. Rank 0 alone prints, logs and
+writes the artifacts, with whole tensors; every rank resumes from them.
+Under a model axis every rank runs the evaluations' forward passes, since
+no rank holds the whole encoder.
 
 The run is on CUDA: ``main(argv, device=None)`` resolves to "cuda" and
 raises when there is none; the CPU is used only when a caller passes
-device="cpu" explicitly. Flags whose machinery is not ported yet exit
-with the ROADMAP item that ports them.
+device="cpu" explicitly.
 
 Usage: python -m cl_ica_tpu_torch.cli.main_mlp [flags]
 """
@@ -51,7 +58,16 @@ from . import fused_arg
 from ..evaluation import linear_disentanglement, permutation_disentanglement
 from ..losses import LpSimCLRLoss, SimCLRLoss
 from ..models import construct_invertible_mlp, encoder_params_to_flax, get_mlp
-from ..parallel import make_mesh, make_sharded_synthetic_train_step, run_mesh
+from ..parallel import (
+    load_whole_optimizer_state,
+    load_whole_state_dict,
+    make_dp_tp_mesh,
+    make_sharded_synthetic_train_step,
+    run_mesh,
+    tensor_parallel,
+    whole_optimizer_state,
+    whole_state_dict,
+)
 from ..spaces import LatentSpace, NBoxSpace, NRealSpace, NSphereSpace
 from ..train import (
     CapturedStep,
@@ -158,8 +174,9 @@ def parse_args(argv=None):
                              "(rows of the batch sharded, negatives and "
                              "batch statistics global). 0/1 = one device.")
     parser.add_argument("--mesh-model", type=int, default=0,
-                        help="Tensor-parallel axis of the mesh (not "
-                             "ported yet: ROADMAP A13b).")
+                        help="Tensor-parallel axis of the mesh: the encoder's "
+                             "channels split over M ranks of each data index "
+                             "((N/M) data x M model). 0/1 = data-parallel only.")
     args = parser.parse_args(argv)
     if args.seeds and args.seeds > 1:
         if args.mesh and args.mesh > 1:
@@ -203,19 +220,6 @@ def parse_args(argv=None):
     for k, v in vars(args).items():
         print(f"\t{k}: {v}")
     return args
-
-
-def refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP item, on a flag this port does not run yet."""
-    unported = [
-        (args.mesh_model and args.mesh_model > 1,
-         "--mesh-model (tensor parallelism)", "A13b"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise SystemExit(
-                f"{what} is not ported to cl_ica_tpu_torch yet "
-                f"(ROADMAP.md item {item})")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -317,10 +321,13 @@ def _scores(z, hz):
 
 
 @torch.no_grad()
-def evaluate_scores(latent_space, h_fn, generator, n_samples=4096):
-    """Linear R² and permutation MCC on fresh marginal samples."""
+def evaluate_scores(latent_space, h_fn, generator, n_samples=4096, score=True):
+    """Linear R² and permutation MCC on fresh marginal samples. With
+    ``score`` False only the samples are drawn and encoded (a rank of a
+    model group that is not rank 0): None."""
     z = latent_space.sample_marginal(generator, n_samples)
-    return _scores(z, h_fn(z))
+    hz = h_fn(z)
+    return _scores(z, hz) if score else None
 
 
 class Lane:
@@ -328,7 +335,9 @@ class Lane:
     samples, and encoder init (on the CPU, so a seed gives the same
     initial weights on every device). The frozen mixing g is rebuilt from
     the seed, so a checkpoint does not carry it. Under a ``mesh`` the step
-    is the sharded one, run eagerly; every rank holds the same lane."""
+    is the sharded one, captured over NCCL and eager over gloo; every rank
+    holds the same lane, and under a model axis its shards of the encoder
+    (``tp``), whose state dicts it joins into whole tensors."""
 
     def __init__(self, args, seed: int, device, latent_space, loss, mesh=None):
         self.args, self.seed, self.device, self.mesh = args, seed, device, mesh
@@ -345,10 +354,15 @@ class Lane:
             rng=np.random.default_rng(seed),
         ).to(device)
         self.f = self.optimizer = self.scheduler = self.step = None
+        self.tp = mesh is not None and mesh.n_model > 1
+        # the mesh step is captured over NCCL only: gloo's collectives
+        # run on the host
+        self.captured = mesh is None or dist.get_backend(mesh.group) == "nccl"
         self.clear_histories()
 
     def identity_scores(self):
-        return evaluate_scores(self.latent_space, self.g, self.eval_gen)
+        return evaluate_scores(self.latent_space, self.g, self.eval_gen,
+                               score=self.scores)
 
     def start_phase(self, supervised: bool, n_steps: int) -> None:
         """A fresh encoder (from the init stream), optimizer and step. The
@@ -365,48 +379,65 @@ class Lane:
             generator=self.init_gen,
             dtype=torch.bfloat16 if args.bf16 else None,
         ).to(self.device)
+        if self.tp:
+            tensor_parallel(self.f, self.mesh)
         self.optimizer, self.scheduler = make_optimizer(
             self.f.parameters(), args.lr, args.weight_decay,
             cosine_steps=n_steps if args.lr_cosine else None)
         parts = (self.latent_space.sample_pair, self.g, self.f, self.loss,
                  self.optimizer, args.batch_size)
+        # captured: train_steps checks the window's losses instead
         if self.mesh is None:
-            # captured: train_steps checks the window's losses instead
             body = make_synthetic_train_step(
                 *parts, supervised=supervised, scheduler=self.scheduler,
                 nan_guard=False)
         else:
             body = make_sharded_synthetic_train_step(
                 self.mesh, *parts, supervised=supervised,
-                scheduler=self.scheduler)
+                scheduler=self.scheduler, nan_guard=not self.captured)
         run = lambda: tuple(body(self.train_gen).values())
         self.step = (CapturedStep(run, [self.train_gen], self.device)
-                     if self.mesh is None else lambda: torch.stack(run()))
+                     if self.captured else lambda: torch.stack(run()))
 
     def clear_histories(self) -> None:
         self.losses, self.linear_scores, self.perm_scores = [], [], []
 
+    @property
+    def scores(self) -> bool:
+        """Whether this rank scores the evaluations (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.lead
+
     def evaluate(self):
-        lin, perm = evaluate_scores(
-            self.latent_space, lambda z: self.f(self.g(z)), self.eval_gen)
-        self.linear_scores.append(lin)
-        self.perm_scores.append(perm)
-        return lin, perm
+        """The step's evaluation; (lin, perm) where this rank scores, else
+        None (its part of the forward only)."""
+        out = evaluate_scores(self.latent_space, lambda z: self.f(self.g(z)),
+                              self.eval_gen, score=self.scores)
+        if out is not None:
+            self.linear_scores.append(out[0])
+            self.perm_scores.append(out[1])
+        return out
 
     @torch.no_grad()
     def final_scores(self):
         z1, _ = self.latent_space.sample_pair(self.eval_gen, self.args.batch_size)
-        return _scores(z1, self.f(self.g(z1)))
+        hz = self.f(self.g(z1))
+        return _scores(z1, hz) if self.scores else None
 
     def save_encoder(self, path: str) -> None:
-        """The encoder as the Flax variables tree the JAX package pickles."""
-        with open(path, "wb") as fh:
-            pickle.dump(encoder_params_to_flax(self.f.state_dict()), fh)
+        """The encoder as the Flax variables tree the JAX package pickles,
+        of whole tensors (every rank of a model group joins its shards;
+        rank 0 writes)."""
+        tree = encoder_params_to_flax(whole_state_dict(self.f))
+        if self.scores:
+            with open(path, "wb") as fh:
+                pickle.dump(tree, fh)
 
     def state_dict(self) -> dict:
+        """The lane's state, of whole tensors (under a model axis every rank
+        of the model group calls this)."""
         return {
-            "encoder": self.f.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "encoder": whole_state_dict(self.f),
+            "optimizer": whole_optimizer_state(self.optimizer, self.f),
             "scheduler": self.scheduler.state_dict() if self.scheduler else None,
             "generators": {"train": self.train_gen.get_state(),
                            "eval": self.eval_gen.get_state(),
@@ -421,11 +452,11 @@ class Lane:
         scheduler only for a checkpoint taken inside the current phase (a
         phase-boundary checkpoint's belong to the finished phase)."""
         if mid_phase:
-            self.f.load_state_dict(state["encoder"])
-            self.optimizer.load_state_dict(state["optimizer"])
+            load_whole_state_dict(self.f, state["encoder"])
+            load_whole_optimizer_state(self.optimizer, self.f, state["optimizer"])
             if self.scheduler is not None:
                 self.scheduler.load_state_dict(state["scheduler"])
-            if self.mesh is None:
+            if self.captured:
                 self.step.reset()  # the optimizer's state tensors were replaced
         self.train_gen.set_state(state["generators"]["train"])
         self.eval_gen.set_state(state["generators"]["eval"])
@@ -613,13 +644,12 @@ def _broadcast(value):
 
 def main(argv=None, device=None):
     args = parse_args(argv)
-    refuse_unported(args)
     if args.mesh and args.mesh > 1 and not dist.is_initialized():
         return run_mesh(main, argv, args.mesh, device)
     device = resolve_device(device)
     if args.seeds and args.seeds > 1:
         return run_ensemble(args, device)
-    mesh = (make_mesh(args.mesh, device)
+    mesh = (make_dp_tp_mesh(args.mesh, args.mesh_model, device)
             if args.mesh and args.mesh > 1 else None)
     lead = mesh is None or mesh.lead
     # --save-every/--resume: one artifact per checkpoint {the lane's
@@ -651,12 +681,17 @@ def main(argv=None, device=None):
         seed = _broadcast(seed)
     lane = Lane(args, seed, device, build_latent_space(args, device),
                 make_loss(args), mesh)
+    if mesh is not None:
+        print(f"mesh: {mesh.world} ranks ({mesh.n_data} data x {mesh.n_model} "
+              f"model), {dist.get_backend(mesh.group)}, "
+              f"{'captured' if lane.captured else 'eager'} step", flush=True)
 
-    if lead:
+    if lead or lane.tp:  # a model group's ranks draw the evaluations alike
         # identity-solution sanity scores
-        lin0, perm0 = lane.identity_scores()
-        print(f"Id. Lin. Disentanglement: {lin0:.4f}")
-        print(f"Id. Perm. Disentanglement: {perm0:.4f}")
+        scores = lane.identity_scores()
+        if lead:
+            print(f"Id. Lin. Disentanglement: {scores[0]:.4f}")
+            print(f"Id. Perm. Disentanglement: {scores[1]:.4f}")
 
     if args.save_dir and lead:
         os.makedirs(args.save_dir, exist_ok=True)
@@ -692,11 +727,13 @@ def main(argv=None, device=None):
                       if args.save_every else 0)
 
         def save_resume(phase, step):
-            if not lead:
+            if not (lead or lane.tp):
                 return
-            checkpoint.save_resume_state(
-                resume_dir, phase * (10 ** 9) + step,
-                {"lane": lane.state_dict(), "phase": phase, "step": step})
+            state = lane.state_dict()  # under a model axis, every rank joins
+            if lead:
+                checkpoint.save_resume_state(
+                    resume_dir, phase * (10 ** 9) + step,
+                    {"lane": state, "phase": phase, "step": step})
 
         throughput = Throughput()
 
@@ -706,6 +743,8 @@ def main(argv=None, device=None):
 
         def do_eval():
             if not lead:
+                if lane.tp:  # its part of the encoder's forward
+                    lane.evaluate()
                 return
             lin, perm = lane.evaluate()
             losses = lane.losses
@@ -756,11 +795,14 @@ def main(argv=None, device=None):
             # the carried generator streams
             save_resume(phase_idx + 1, 0)
 
-        if args.save_dir and lead:
+        if args.save_dir and (lead or lane.tp):
             tag = "sup" if test else "unsup"
             lane.save_encoder(os.path.join(args.save_dir, f"{tag}_f.pkl"))
 
     if not lead:
+        if lane.tp:
+            for _ in range(args.num_eval_batches):
+                lane.final_scores()
         return None
     # final mean/std over num_eval_batches
     finals = [lane.final_scores() for _ in range(args.num_eval_batches)]

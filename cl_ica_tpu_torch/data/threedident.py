@@ -15,7 +15,12 @@ match), return the matched latents and their renders.
   gathered by the native library's threaded gather (native/
   packed_loader.cpp) into pinned buffers and copied to the device, and
   for training ``PrefetchingPairLoader`` does so ahead of the step in
-  worker threads, the copy overlapping the step.
+  worker threads, the copy overlapping the step;
+- under a data-parallel mesh (parallel/) a rank keeps only its block of
+  the store, padded to a multiple of the data axis, on its device
+  (``RowShardedStore``, when the block fits the budget), and the rank's
+  rows of each batch come from ``parallel.store_gather_scatter``'s uint8
+  reduce-scatter over the data group (``rank_images_of``).
 
 Images are (B, H, W, 3) uint8 in the store and leave ``normalize_3dident``
 as float32 (B, 3, H, W) tensors in ``channels_last`` memory: the same
@@ -38,6 +43,8 @@ import torch
 
 from ..native import PackedGather
 from ..ops.knn import l2_topk
+from ..parallel.collective import sharded_store_gather, store_gather_scatter
+from ..parallel.mesh import Mesh, mesh_rows
 from ..spaces import LatentSpace
 
 # normalisation constants over the 3DIdent train renders
@@ -234,6 +241,54 @@ class PackedImageStore:
         return np.stack(out)
 
 
+def device_budget(default: int = DEFAULT_BUDGET_BYTES) -> int:
+    """Bytes of image store a device may hold (``BUDGET_ENV``)."""
+    return int(os.environ.get(BUDGET_ENV, default))
+
+
+class RowShardedStore:
+    """The running rank's block of the packed store on its device: the
+    store padded with zero rows to a multiple of the mesh's data axis D
+    (``parallel.pad_rows_to_multiple``), data index d holding rows
+    [d·N/D, (d+1)·N/D). Only the block is read from the memmap."""
+
+    def __init__(self, packed: np.ndarray, mesh: Mesh, device):
+        self.shape = self.padded_shape(packed, mesh)
+        per = self.shape[0] // mesh.n_data
+        lo = mesh.data_index * per
+        hi = min(packed.shape[0], lo + per)
+        block = np.zeros((per,) + tuple(packed.shape[1:]), dtype=np.uint8)
+        block[:max(hi - lo, 0)] = packed[lo:hi]
+        self.block = torch.from_numpy(block).to(device)
+        self._gather = store_gather_scatter(mesh, self.shape)
+        self._whole = sharded_store_gather(mesh, self.shape)
+
+    @staticmethod
+    def padded_shape(packed, mesh: Mesh) -> tuple:
+        n = -(-packed.shape[0] // mesh.n_data) * mesh.n_data
+        return (n,) + tuple(packed.shape[1:])
+
+    @classmethod
+    def block_bytes(cls, packed, mesh: Mesh) -> int:
+        """Bytes of a rank's block: N_padded / D renders."""
+        shape = cls.padded_shape(packed, mesh)
+        return int(np.prod(shape)) // mesh.n_data
+
+    @property
+    def nbytes(self) -> int:
+        return self.block.numel()
+
+    def rows_of(self, idx: torch.Tensor) -> torch.Tensor:
+        """The rank's rows (``mesh_rows``) of the renders of table rows
+        ``idx`` (B,), the same on every rank: uint8 (B/D, H, W, 3)."""
+        return self._gather(self.block, idx)
+
+    def whole_of(self, idx: torch.Tensor) -> torch.Tensor:
+        """All renders of table rows ``idx`` (B,) on every rank: uint8
+        (B, H, W, 3), by one all-reduce of the owned rows."""
+        return self._whole(self.block, idx)
+
+
 def _load_latents(root: str, dims: Optional[Sequence[int]]):
     latents = np.load(os.path.join(root, "raw_latents.npy"))
     if dims is None:
@@ -250,6 +305,10 @@ class ThreeDIdentBatchSampler:
     also gathers and normalises both views: with the image store resident
     on the device (``device_store``) there, with no host data path;
     otherwise the rows are gathered on the host (``images_of``).
+
+    Under a ``mesh`` the sampler keeps the rank's block of the store on the
+    device (``sharded_store``) when the block fits the budget, never the
+    whole store; ``rank_images_of`` gives the rank's rows of a batch.
     """
 
     def __init__(
@@ -262,9 +321,11 @@ class ThreeDIdentBatchSampler:
         device_images: Optional[bool] = None,
         device_image_budget_bytes: int = DEFAULT_BUDGET_BYTES,
         device="cpu",
+        mesh: Optional[Mesh] = None,
     ):
         self.root = root
         self.device = torch.device(device)
+        self.mesh = mesh
         self.unfiltered_latents, latents = _load_latents(
             root, latent_dimensions_to_use)
         self.latents = torch.as_tensor(
@@ -278,24 +339,29 @@ class ThreeDIdentBatchSampler:
             PackedImageStore(root, latents.shape[0]) if load_images else None
         )
 
-        # Device-resident image store: when the packed uint8 array fits
-        # the budget, upload it once. A store beyond it stays on the host.
-        self.device_store = None
+        # Device-resident image store: when the packed uint8 array (under
+        # a mesh, the rank's block of it) fits the budget, upload it once.
+        # A store beyond it stays on the host.
+        self.device_store = self.sharded_store = None
         if self.images is not None and self.images._packed is not None:
+            self.sharded_store = sharded_store_of(
+                self.images._packed, mesh, self.device, device_images,
+                device_image_budget_bytes)
             packed = self.images._packed
-            if device_images is None:
-                budget = int(os.environ.get(BUDGET_ENV, device_image_budget_bytes))
-                device_images = packed.nbytes <= budget
-            if device_images:
-                # np.array copies the read-only memmap into host memory
-                self.device_store = torch.from_numpy(
-                    np.array(packed)).to(self.device)
+            if mesh is None:
+                if device_images is None:
+                    device_images = packed.nbytes <= device_budget(
+                        device_image_budget_bytes)
+                if device_images:
+                    # np.array copies the read-only memmap into host memory
+                    self.device_store = torch.from_numpy(
+                        np.array(packed)).to(self.device)
 
     @property
     def host_store(self) -> bool:
         """Whether the packed store is served from the host."""
-        return (self.device_store is None and self.images is not None
-                and self.images._packed is not None)
+        return (self.device_store is None and self.sharded_store is None
+                and self.images is not None and self.images._packed is not None)
 
     def sample_latent_batch(self, generator: torch.Generator):
         """-> (idx_z, idx_zt, z_matched, z_tilde_matched), on the device."""
@@ -322,6 +388,14 @@ class ThreeDIdentBatchSampler:
         self.images.gather(rows, out=buf)
         return buf.to(self.device, non_blocking=pinned)
 
+    def rank_images_of(self, idx: torch.Tensor) -> torch.Tensor:
+        """Under a mesh, the renders of the rank's rows of a batch of table
+        rows ``idx`` (B,) as uint8 on the device: the uint8 reduce-scatter
+        from the row-sharded store, or the host gather of those rows."""
+        if self.sharded_store is not None:
+            return self.sharded_store.rows_of(idx)
+        return self.images_of(idx[mesh_rows(self.mesh, idx.shape[0])])
+
     def sample_with_images(self, generator: torch.Generator):
         """-> ((z, z̃), (x, x̃)), everything on the device, the images
         normalised."""
@@ -340,19 +414,29 @@ class ThreeDIdentBatchSampler:
 
 
 class SequentialThreeDIdent:
-    """Indexed (z, image) access over the rendered set."""
+    """Indexed (z, image) access over the rendered set. Under a ``mesh``
+    the rank's block of the store is kept on its device when it fits the
+    budget (``sharded_store``), and ``mesh_batch`` gives a batch's renders
+    on every rank."""
 
     def __init__(
         self,
         root: str,
         latent_dimensions_to_use: Optional[Sequence[int]] = None,
         load_images: bool = True,
+        mesh: Optional[Mesh] = None,
+        device="cpu",
     ):
         self.unfiltered_latents, self.latents = _load_latents(
             root, latent_dimensions_to_use)
         self.images = (
             PackedImageStore(root, self.latents.shape[0]) if load_images else None
         )
+        self.mesh, self.device = mesh, torch.device(device)
+        self.sharded_store = None
+        if self.images is not None and self.images._packed is not None:
+            self.sharded_store = sharded_store_of(self.images._packed, mesh,
+                                                  self.device)
 
     def __len__(self):
         return len(self.latents)
@@ -361,6 +445,29 @@ class SequentialThreeDIdent:
         z = self.latents[indices]
         x = self.images.gather(indices) if self.images else None
         return z, x
+
+    def mesh_batch(self, indices: np.ndarray):
+        """Under a mesh: the latents of ``indices`` (numpy) and their renders,
+        uint8 on the device, on every rank (the row-sharded store's
+        all-reduce, ``sharded_store_gather``, or the host gather)."""
+        z = self.latents[indices]
+        if self.sharded_store is not None:
+            idx = torch.as_tensor(indices, dtype=torch.int64, device=self.device)
+            return z, self.sharded_store.whole_of(idx)
+        return z, torch.from_numpy(self.images.gather(indices)).to(self.device)
+
+
+def sharded_store_of(packed, mesh: Optional[Mesh], device,
+                     device_images: Optional[bool] = None,
+                     budget: int = DEFAULT_BUDGET_BYTES) -> Optional[RowShardedStore]:
+    """The rank's ``RowShardedStore`` under a mesh whose block fits the
+    device budget (or ``device_images`` True); None without a mesh, or
+    for a block beyond the budget (the host path)."""
+    if mesh is None:
+        return None
+    if device_images is None:
+        device_images = RowShardedStore.block_bytes(packed, mesh) <= device_budget(budget)
+    return RowShardedStore(packed, mesh, device) if device_images else None
 
 
 class _Slot:

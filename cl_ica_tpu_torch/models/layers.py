@@ -62,6 +62,19 @@ def _global_count(x) -> int:
     return x.numel() // x.shape[1] * world_of(current_group())
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input's dtype,
+    as the JAX package's Dense layers under a compute dtype: float32 in,
+    the plain layer; bfloat16 in, a bfloat16 product of float32
+    parameters."""
+
+    def forward(self, x):
+        if isinstance(x, torch.Tensor) and x.dtype != self.weight.dtype:
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            return F.linear(x, self.weight.to(x.dtype), bias)
+        return super().forward(x)
+
+
 def smooth_leaky_relu(x, alpha: float = 0.2):
     """alpha*x + (1-alpha)*log(1+exp(x)) — a C∞ leaky ReLU."""
     return alpha * x + (1 - alpha) * F.softplus(x)

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm1d, RescaleLayer, SoftclipLayer
+from .layers import BatchNorm1d, Linear, RescaleLayer, SoftclipLayer
 
 
 def _norm_layer(kind: str, width: int) -> nn.Module:
@@ -75,7 +75,7 @@ class MLPEncoder(nn.Module):
         self.dtype = dtype
         widths = [n_in] + list(hidden) + [n_out]
         self.linears = nn.ModuleList(
-            torch.nn.utils.skip_init(nn.Linear, a, b)
+            torch.nn.utils.skip_init(Linear, a, b)
             for a, b in zip(widths[:-1], widths[1:])
         )
         self.norms = nn.ModuleList(
@@ -100,11 +100,7 @@ class MLPEncoder(nn.Module):
         last = len(self.linears) - 1
         low = self.dtype is not None
         for i, lin in enumerate(self.linears):
-            if low:
-                x = F.linear(x.to(self.dtype), lin.weight.to(self.dtype),
-                             lin.bias.to(self.dtype))
-            else:
-                x = lin(x)
+            x = lin(x.to(self.dtype) if low else x)
             if i < last:
                 if self.norms is not None:
                     x = self.norms[i](x.float() if low else x)

@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .layers import (
     FastBatchNorm2d,
+    Linear,
     MinResBN2d,
     MinResBNPool,
     StemBNReLUPool,
@@ -255,7 +256,7 @@ class ResNet(nn.Module):
                                         2 if i > 0 and j == 0 else 1, norm_kind))
                 c_in = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
-        self.fc = nn.Linear(c_in, num_classes)
+        self.fc = Linear(c_in, num_classes)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -295,7 +296,7 @@ class ResNet(nn.Module):
             x = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
                             context_fn=_checkpoint_contexts) if remat else block(x))
         x = x.mean(dim=(2, 3))
-        x = F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))
+        x = self.fc(x)
         return x.float()
 
 

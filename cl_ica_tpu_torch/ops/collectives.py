@@ -1,5 +1,5 @@
-"""The data-parallel group of a step, and the collectives its norms and
-loss call.
+"""The data-parallel group of a step, and the collectives its norms,
+loss, tensor-parallel layers and image store call.
 
 Under ``--mesh N`` each of N ranks holds B/N rows of the batch
 (parallel/). Three things then cross ranks, and all three go through
@@ -18,6 +18,23 @@ this module:
                   over all ranks' rows;
   the gradients   parallel/sharded.py averages the parameters' gradients
                   after the backward.
+
+Under ``--mesh-model M`` (parallel/tensor.py) a fourth thing crosses
+the ranks of a model group, which hold the same rows and each a block of
+every split layer's channels:
+
+  the channels    ``gather_channels``: every rank's block of the last dim
+                  (NHWC channels, Linear features), in rank order. Its
+                  backward hands each rank the cotangent of its block:
+                  summed over the ranks (``reduce_backward``, where each
+                  rank's consumer saw only part of the gathered tensor's
+                  uses, as a split layer does) or the rank's own slice
+                  (where every rank computed the same thing from it);
+                  ``sum_backward`` is the identity whose backward sums
+                  over the ranks, for a whole tensor a split layer takes.
+
+``reduce_scatter_rows`` is the image store's uint8 reduce-scatter
+(parallel/collective.py).
 
 ``data_group(group)`` sets the group for a step's forward and backward;
 ``current_group()`` is None outside it, and then no caller communicates
@@ -125,3 +142,82 @@ class _GatherRows(torch.autograd.Function):
 def gather_rows(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     """Every rank's rows of x, in rank order; differentiable."""
     return _GatherRows.apply(x, group)
+
+
+def _rank_in(group) -> int:
+    return dist.get_rank(group)
+
+
+def _sum_block(g: torch.Tensor, group, width: int) -> torch.Tensor:
+    """The rank's block of the last dim of the sum over ranks of g: NCCL's
+    reduce-scatter (over the blocks moved to dim 0), or gloo's all-reduce
+    and the rank's slice."""
+    world = world_of(group)
+    if dist.get_backend(group) == "nccl":
+        blocks = g.reshape(*g.shape[:-1], world, width).movedim(-2, 0).contiguous()
+        out = torch.empty(g.shape[:-1] + (width,), dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, blocks, op=dist.ReduceOp.SUM, group=group)
+        return out
+    g = g.contiguous().clone()
+    all_reduce_sum_(g, group)
+    r = _rank_in(group)
+    return g[..., r * width:(r + 1) * width].contiguous()
+
+
+class _GatherChannels(torch.autograd.Function):
+    """cat(every rank's x, in rank order) along the last dim; the backward
+    is the sum over ranks of the rank's block (``reduce``) or its slice."""
+
+    @staticmethod
+    def forward(ctx, x, group, reduce):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(world_of(group))]
+        dist.all_gather(parts, x, group=group)
+        ctx.group, ctx.width, ctx.reduce = group, x.shape[-1], reduce
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.width
+        if ctx.reduce:
+            return _sum_block(g, ctx.group, w), None, None
+        r = _rank_in(ctx.group)
+        return g[..., r * w:(r + 1) * w].contiguous(), None, None
+
+
+def gather_channels(x: torch.Tensor, group, reduce_backward: bool) -> torch.Tensor:
+    """Every model rank's block of x's last dim, in rank order;
+    differentiable (module docstring)."""
+    return _GatherChannels.apply(x, group, reduce_backward)
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(g.contiguous().clone(), ctx.group), None
+
+
+def sum_backward(x: torch.Tensor, group) -> torch.Tensor:
+    """x itself; its cotangent is summed over the ranks of ``group``."""
+    return _SumBackward.apply(x, group)
+
+
+def reduce_scatter_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The rank's block of rows of the sum over ranks of t (B, ...), in
+    t's dtype (uint8 for the image store: one nonzero addend a row, so
+    nothing overflows). NCCL's reduce-scatter, or gloo's all-reduce and
+    the rank's rows (gloo has no reduce-scatter)."""
+    world, t = world_of(group), t.contiguous()
+    m = t.shape[0] // world
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((m,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM, group=group)
+        return out
+    all_reduce_sum_(t, group)
+    r = _rank_in(group)
+    return t[r * m:(r + 1) * m]

@@ -3,7 +3,11 @@ rows of the batch.
 
 Port of cl_ica_tpu/parallel/collective.py (``shardmap_cl_loss``,
 ``gspmd_safe_loss``: one routing function here, since the fused kernels'
-per-rank block needs no wrapper). A step under a mesh
+per-rank block needs no wrapper; ``store_gather_scatter`` and
+``sharded_store_gather``, the row-sharded image store's gathers, at the
+end). Everything here runs over the mesh's data group: on a 2-D mesh the
+ranks of one model group hold the same rows and compute the same loss.
+A step under a mesh
 (parallel/sharded.py) encodes its own rows, gathers every rank's z1_rec
 with ``global_negatives`` and
 takes z3_rec = roll(gathered, 1): the global batch's negatives, across
@@ -49,15 +53,15 @@ from ..losses import (
     SimCLRLoss,
     SplitCombinedCLLoss,
 )
-from ..ops.collectives import gather_rows
-from .mesh import Mesh, data_rows
+from ..ops.collectives import all_reduce_sum_, gather_rows, reduce_scatter_rows
+from .mesh import Mesh, mesh_rows
 
 
 def global_negatives(mesh: Mesh, z1_rec: torch.Tensor) -> torch.Tensor:
-    """z3_rec of the global batch: roll(every rank's z1_rec, in rank order,
-    1), all B rows on every rank; differentiable (its backward sums over
-    the ranks)."""
-    return torch.roll(gather_rows(z1_rec, mesh.group), 1, dims=0)
+    """z3_rec of the global batch: roll(every data rank's z1_rec, in rank
+    order, 1), all B rows on every rank; differentiable (its backward sums
+    over the ranks)."""
+    return torch.roll(gather_rows(z1_rec, mesh.data_group), 1, dims=0)
 
 
 def kernel_eligible(loss) -> bool:
@@ -77,10 +81,10 @@ class _OnRanks(CLLoss):
         self.mesh, self.inner = mesh, loss
 
     def _rows(self, n_global: int) -> slice:
-        return data_rows(self.mesh.rank, self.mesh.world, n_global)
+        return mesh_rows(self.mesh, n_global)
 
     def _gathered(self, a):
-        return None if a is None else gather_rows(a, self.mesh.group)
+        return None if a is None else gather_rows(a, self.mesh.data_group)
 
     def _whole(self, loss, z1, z2_con_z1, z1_rec, z2_con_z1_rec, z3_rec):
         """``loss`` over the whole batch: (value, the rank's per-item rows,
@@ -143,3 +147,64 @@ def gspmd_safe_loss(mesh: Mesh, loss):
     if isinstance(loss, CLLoss):
         return _WholeBatch(mesh, loss)
     raise TypeError(f"gspmd_safe_loss: not a CLLoss: {type(loss)}")
+
+
+# ---------------------------------------------------------------------------
+# the row-sharded image store
+# ---------------------------------------------------------------------------
+
+
+def _owned_rows(mesh: Mesh, store_shape, block: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """(B, ...) uint8: the rows of ``idx`` that the rank's block of the
+    padded store holds, zeros elsewhere: each row has one nonzero owner
+    over the data group, so their uint8 sum is the row itself."""
+    per = store_shape[0] // mesh.n_data
+    local = idx - mesh.data_index * per
+    mine = (local >= 0) & (local < per)
+    rows = block[local.clamp(0, per - 1)]
+    return rows * mine.view((-1,) + (1,) * (rows.ndim - 1)).to(rows.dtype)
+
+
+def _check_store(mesh: Mesh, store_shape) -> None:
+    if store_shape[0] % mesh.n_data:
+        raise ValueError(f"a store of {store_shape[0]} rows is not divisible by "
+                         f"the data axis ({mesh.n_data}): pad it "
+                         "(pad_rows_to_multiple)")
+
+
+def store_gather_scatter(mesh: Mesh, store_shape):
+    """Row-gather from the row-sharded store, returning the rank's rows of
+    the batch: fn(block, idx) -> (B/D, ...) uint8, where ``block`` is the
+    rank's (N/D, ...) rows of the PADDED store of ``store_shape`` (data
+    index d holds rows [d·N/D, (d+1)·N/D)) and ``idx`` the global batch's
+    (B,) store rows, the same on every rank. Each rank contributes the
+    requested rows it owns and zeros elsewhere, and one uint8
+    reduce-scatter over the data group leaves each its own B/D rows (the
+    same rows ``mesh_rows`` picks): (D − 1)/D of the batch's bytes cross
+    the ranks, one byte a pixel. A batch the data axis does not divide is
+    refused."""
+    _check_store(mesh, store_shape)
+
+    def gather(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        if idx.shape[0] % mesh.n_data:
+            raise ValueError(f"batch {idx.shape[0]} not divisible by "
+                             f"{mesh.n_data} shards")
+        return reduce_scatter_rows(_owned_rows(mesh, store_shape, block, idx),
+                                   mesh.data_group)
+
+    return gather
+
+
+def sharded_store_gather(mesh: Mesh, store_shape):
+    """The replicated variant: fn(block, idx) -> the whole (B, ...) batch
+    on every rank, uint8, by one all-reduce of the owned rows over the data
+    group (the JAX package's psum of float32 rows; the values are the
+    same)."""
+    _check_store(mesh, store_shape)
+
+    def gather(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum_(_owned_rows(mesh, store_shape, block, idx),
+                               mesh.data_group)
+
+    return gather

@@ -7,6 +7,16 @@ devices; here each of N processes drives one device and the N form a
 ``cuda:r``), gloo for device="cpu". ``make_mesh`` is the running rank's
 view of that group, and ``data_rows`` its rows of a batch.
 
+``make_dp_tp_mesh(n, model)`` is the drivers' ``--mesh N --mesh-model M``
+layout, the JAX package's (data, model) device array: rank r sits at data
+index r // M and model index r % M. Two kinds of sub-group cross it: a
+data group (the ranks of one model index, which hold the same shards of
+the model and different rows of the batch) and a model group (the ranks
+of one data index, which hold the same rows and the model's channels
+split among them). Every rank creates every sub-group, in one order.
+On a 1-D mesh the data group is the whole group and there is no model
+group.
+
 ``launch`` runs a function in N spawned processes, the ranks of one group
 (start method ``spawn``), and returns rank 0's value. They meet through a
 ``FileStore`` in a fresh temporary directory, not a TCP port, so that
@@ -36,22 +46,47 @@ import torch.multiprocessing as mp
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The running rank's view of the data-parallel group."""
+    """The running rank's view of the (data, model) mesh: ``group`` holds
+    every rank; ``data_group`` the ranks of its model index (the whole
+    group on a 1-D mesh), ``model_group`` those of its data index (None on
+    a 1-D mesh)."""
 
-    group: object  # the torch.distributed process group
+    group: object  # the torch.distributed process group of every rank
     rank: int
     world: int
     device: torch.device
+    n_model: int = 1
+    data_group: object = None
+    model_group: object = None
+
+    def __post_init__(self):
+        if self.data_group is None:
+            object.__setattr__(self, "data_group", self.group)
 
     @property
     def lead(self) -> bool:
-        """Rank 0: the one that logs, evaluates and writes checkpoints."""
+        """Rank 0: the one that logs and writes checkpoints."""
         return self.rank == 0
 
+    @property
+    def n_data(self) -> int:
+        """The data axis's size: the ranks a batch's rows are split over."""
+        return self.world // self.n_model
 
-def make_mesh(n_devices: int, device) -> Mesh:
-    """The data mesh of the running rank, in an initialised group of
-    ``n_devices`` ranks (``launch`` or torchrun started them)."""
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+
+def make_dp_tp_mesh(n_devices: int, model: int, device) -> Mesh:
+    """The running rank's mesh of ``n_devices`` ranks in an initialised
+    group (``launch`` or torchrun started them): 1-D over the data axis for
+    ``model`` 0 or 1, else (n_devices / model) × model, rank r at data
+    index r // model and model index r % model."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the ranks' process group: start "
                            "them with parallel.launch or torchrun")
@@ -59,15 +94,41 @@ def make_mesh(n_devices: int, device) -> Mesh:
     if world != n_devices:
         raise ValueError(f"requested a {n_devices}-rank mesh inside a process "
                          f"group of {world}")
-    return Mesh(dist.group.WORLD, dist.get_rank(), world, torch.device(device))
+    rank, device = dist.get_rank(), torch.device(device)
+    model = model if model and model > 1 else 1
+    if model == 1:
+        return Mesh(dist.group.WORLD, rank, world, device)
+    if world % model:
+        raise ValueError(f"a {world}-rank mesh is not divisible by a model "
+                         f"axis of {model}")
+    n_data = world // model
+    # every rank creates every sub-group, in the same order
+    data_groups = [dist.new_group([d * model + m for d in range(n_data)])
+                   for m in range(model)]
+    model_groups = [dist.new_group([d * model + m for m in range(model)])
+                    for d in range(n_data)]
+    return Mesh(dist.group.WORLD, rank, world, device, model,
+                data_groups[rank % model], model_groups[rank // model])
 
 
-def data_rows(rank: int, world: int, batch: int) -> slice:
-    """The rank's contiguous block [r·B/W, (r+1)·B/W) of a batch."""
-    if batch % world:
-        raise ValueError(f"batch {batch} is not divisible by {world} ranks")
-    m = batch // world
-    return slice(rank * m, (rank + 1) * m)
+def make_mesh(n_devices: int, device) -> Mesh:
+    """The 1-D data mesh of the running rank (``make_dp_tp_mesh`` with no
+    model axis)."""
+    return make_dp_tp_mesh(n_devices, 0, device)
+
+
+def data_rows(index: int, size: int, batch: int) -> slice:
+    """Data index ``index``'s contiguous block [i·B/D, (i+1)·B/D) of a
+    batch over a data axis of ``size``."""
+    if batch % size:
+        raise ValueError(f"batch {batch} is not divisible by {size} ranks")
+    m = batch // size
+    return slice(index * m, (index + 1) * m)
+
+
+def mesh_rows(mesh: Mesh, batch: int) -> slice:
+    """The running rank's rows of a batch: its data index's block."""
+    return data_rows(mesh.data_index, mesh.n_data, batch)
 
 
 def rank_devices(world: int, device) -> list:

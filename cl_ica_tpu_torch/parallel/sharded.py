@@ -1,24 +1,32 @@
-"""Data-parallel training steps with global negatives and global batch
-statistics.
+"""Data-parallel (and tensor-parallel) training steps with global
+negatives and global batch statistics, and the tensor-parallel placement
+rule.
 
-Port of cl_ica_tpu/parallel/sharded.py. Each of W ranks holds the whole
-model and optimizer state and B/W rows of each batch (``data_rows``): it
-draws the global batch from the same generator stream as every other rank
-(so ``--mesh W`` trains on the batch one device would), keeps its rows,
-encodes them with every norm's statistics taken over all ranks' rows
-(``ops.collectives.data_group``), takes the loss against the global
-negatives (parallel/collective.py), back-propagates, and averages the
-parameter gradients over the ranks in one flat all-reduce a dtype before
-the optimizer step. The result is the global-batch step of one device, up
-to the order of floating-point sums; at W = 1 it is that step exactly.
-The reported values are averaged over the ranks.
+Port of cl_ica_tpu/parallel/sharded.py. Each of the D ranks of a data
+group holds the same model shards and B/D rows of each batch (``mesh_rows``):
+it draws the global batch from the same generator stream as every other
+rank (so ``--mesh N`` trains on the batch one device would), keeps its
+rows, encodes them with every norm's statistics taken over the data
+group's rows (``ops.collectives.data_group``), takes the loss against the
+global negatives (parallel/collective.py), back-propagates, and averages
+the parameter gradients over the data group in one flat all-reduce a dtype
+before the optimizer step. The result is the global-batch step of one
+device, up to the order of floating-point sums; at N = 1 it is that step
+exactly. The reported values are averaged over the data group.
 
-The steps run eagerly: capturing a step that calls NCCL into a CUDA graph
-is ROADMAP A13b. Under CL_ICA_TPU_DEBUG=1 the synthetic and KITTI steps
+Under ``--mesh-model M`` the model is sharded by ``tp_param_rule`` and
+runs channel-parallel over the model group (parallel/tensor.py); the steps
+are the same code, since the model's output, the loss and every replicated
+computation are the same on each rank of a model group.
+
+The steps themselves read nothing on the host, so main_mlp captures the
+synthetic one, collectives and all, when the group's backend is NCCL
+(train/capture.py). Under CL_ICA_TPU_DEBUG=1 the synthetic and KITTI steps
 raise ValueError after a step whose loss, averaged over the ranks, is not
 finite (utils.debug.nan_check, on every rank alike, as the JAX package's
-checked mesh step does); main_3dident checks its two steps' values itself,
-under the JAX package's names for them.
+checked mesh step does; ``nan_guard=False`` leaves it to the caller of a
+captured step); main_3dident checks its two steps' values itself, under
+the JAX package's names for them.
 """
 
 from __future__ import annotations
@@ -27,20 +35,66 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.collectives import all_reduce_mean_, data_group, gather_rows
 from ..utils.debug import nan_check
 from .collective import global_negatives, gspmd_safe_loss
-from .mesh import Mesh, data_rows
+from .mesh import Mesh, mesh_rows
+
+
+def tp_param_rule(shape, n_model: int) -> bool:
+    """Whether the JAX package's ``tp_param_rule`` splits a tensor of this
+    torch shape over a model axis of ``n_model``; a split is always on dim
+    0 here: a conv's OIHW output channels (the last dim of Flax's HWIO), a
+    Linear's (out, in) rows (the columns of Flax's (in, out) Dense kernel),
+    a 1-D vector of at least ``n_model`` entries. Anything whose dim does
+    not divide is replicated (at n = 10 the head splits over 2 and stays
+    whole over 4)."""
+    if n_model <= 1:
+        return False
+    if len(shape) in (2, 4):
+        return shape[0] % n_model == 0
+    if len(shape) == 1:
+        return shape[0] % n_model == 0 and shape[0] >= n_model
+    return False
+
+
+def shard_of(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The rank's block of dim 0 of a whole tensor the rule splits."""
+    k = t.shape[0] // mesh.n_model
+    return t[mesh.model_index * k:(mesh.model_index + 1) * k].clone()
+
+
+def cut_shards(state: dict, mesh: Mesh) -> dict:
+    """The rank's shards of a dict of whole tensors (a state dict), each
+    split by ``tp_param_rule`` on its whole shape; the rest as it is."""
+    return {k: shard_of(v, mesh) if torch.is_tensor(v) and tp_param_rule(
+        v.shape, mesh.n_model) else v for k, v in state.items()}
+
+
+def join_shards(state: dict, split: dict, mesh: Mesh) -> dict:
+    """Whole tensors from the rank's shards: the tensors named in
+    ``split`` with True are gathered over the model group (every rank of
+    it calls this, in one order); the rest as they are."""
+    out = {}
+    for k, v in state.items():
+        if split.get(k):
+            parts = [torch.empty_like(v) for _ in range(mesh.n_model)]
+            dist.all_gather(parts, v.contiguous(), group=mesh.model_group)
+            v = torch.cat(parts)
+        out[k] = v
+    return out
 
 
 def ranks_mean(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The mean over the ranks of a detached tensor (a reported value)."""
-    return all_reduce_mean_(t.detach().clone(), mesh.group)
+    """The mean over the data group of a detached tensor (a reported
+    value; the same on every rank of a model group)."""
+    return all_reduce_mean_(t.detach().clone(), mesh.data_group)
 
 
 def average_gradients(optimizer: torch.optim.Optimizer, mesh: Mesh) -> None:
-    """Every parameter's gradient ← its mean over the ranks: one flat
+    """Every parameter's gradient ← its mean over the data group: one flat
     all-reduce for each dtype. A parameter with no gradient has none on
     any rank (the ranks run one model), and stays without."""
     grads = [p.grad for group in optimizer.param_groups
@@ -48,7 +102,7 @@ def average_gradients(optimizer: torch.optim.Optimizer, mesh: Mesh) -> None:
     for dtype in sorted({g.dtype for g in grads}, key=str):
         same = [g for g in grads if g.dtype == dtype]
         flat = torch.cat([g.reshape(-1) for g in same])
-        all_reduce_mean_(flat, mesh.group)
+        all_reduce_mean_(flat, mesh.data_group)
         offset = 0
         for g in same:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -76,13 +130,15 @@ def make_sharded_synthetic_train_step(
     batch_size: int,
     supervised: bool = False,
     scheduler=None,
+    nan_guard: bool = True,
 ):
     """train.make_synthetic_train_step over the mesh: step(generator) ->
-    {'loss', 'loss_pos', 'loss_neg'}, each averaged over the ranks. The
-    global pair is drawn on every rank; the rank mixes and encodes its
+    {'loss', 'loss_pos', 'loss_neg'}, each averaged over the data group.
+    The global pair is drawn on every rank; the rank mixes and encodes its
     rows. supervised=True is the MSE to the ground-truth latents (a mean
-    over the rank's rows; the ranks' average is the batch's)."""
-    rows = data_rows(mesh.rank, mesh.world, batch_size)
+    over the rank's rows; the ranks' average is the batch's). A body to be
+    captured is built with ``nan_guard=False``."""
+    rows = mesh_rows(mesh, batch_size)
     loss_fn = None if supervised else gspmd_safe_loss(mesh, loss_fn)
 
     def step(generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -90,7 +146,7 @@ def make_sharded_synthetic_train_step(
         z1, z2 = z1[rows], z2[rows]
         with torch.no_grad():
             x1, x2 = mixing(z1), mixing(z2)
-        with data_group(mesh.group):
+        with data_group(mesh.data_group):
             z1_rec = encoder(x1)
             z2_rec = encoder(x2)
             if supervised:
@@ -102,7 +158,8 @@ def make_sharded_synthetic_train_step(
                                                z3_rec)
             update(optimizer, scheduler, total, mesh)
         loss, pos, neg = ranks_mean(torch.stack([total, pos, neg]), mesh)
-        nan_check(loss, "loss")
+        if nan_guard:
+            nan_check(loss, "loss")
         return {"loss": loss, "loss_pos": pos, "loss_neg": neg}
 
     return step
@@ -117,7 +174,7 @@ def make_sharded_data_train_step(mesh: Mesh, encoder: torch.nn.Module, loss_fn,
     loss_fn = gspmd_safe_loss(mesh, loss_fn)
 
     def step(x1: torch.Tensor, x2: torch.Tensor):
-        with data_group(mesh.group):
+        with data_group(mesh.data_group):
             z = encoder(torch.cat([x1, x2])[:, None])
             z1, z2 = z[:x1.shape[0]], z[x1.shape[0]:]
             total = loss_fn(None, None, None, z1, z2,
@@ -145,14 +202,14 @@ def make_sharded_3dident_train_step(mesh: Mesh, model: torch.nn.Module,
 
     def step(x1: torch.Tensor, x2: torch.Tensor):
         b = x1.shape[0]
-        with data_group(mesh.group), torch.set_grad_enabled(optimizer is not None):
+        with data_group(mesh.data_group), torch.set_grad_enabled(optimizer is not None):
             z = model(torch.cat([x1, x2], dim=0))
             z1r, z2r = z[:b], z[b:]
             total, per_item, _ = split_loss(z1r, z2r, global_negatives(mesh, z1r))
             if optimizer is not None:
                 update(optimizer, scheduler, total, mesh)
         with torch.no_grad():
-            sigma = gather_rows(per_item.detach(), mesh.group).std(unbiased=False)
+            sigma = gather_rows(per_item.detach(), mesh.data_group).std(unbiased=False)
         return ranks_mean(total, mesh), sigma
 
     return step
@@ -167,9 +224,9 @@ def make_sharded_3dident_sup_step(mesh: Mesh, model: torch.nn.Module,
     global value."""
 
     def step(x: torch.Tensor, z: torch.Tensor):
-        with data_group(mesh.group):
-            pred = gather_rows(model(x), mesh.group)
-            total = sup_loss(pred, gather_rows(z, mesh.group))
+        with data_group(mesh.data_group):
+            pred = gather_rows(model(x), mesh.data_group)
+            total = sup_loss(pred, gather_rows(z, mesh.data_group))
             update(optimizer, scheduler, total, mesh)
         return total.detach()
 

@@ -10,11 +10,18 @@ ranks' imports, so there are two, started by one module fixture and run in
 turn on a thread while this process compiles the JAX side: every W = 2
 check, with the drivers (main_mlp, main_kitti and main_3dident's three
 modes; the KITTI evaluation cut to 64 points as its other tests cut it, a
-patch the ranks must make themselves), and the W = 4 losses.
+patch the ranks must make themselves), and every W = 4 check: the losses,
+the 2-D meshes (2 data x 2 model and 1 data x 4 model: the shards against
+the JAX package's ``tp_param_rule`` placement, its synthetic and 3DIdent
+steps with ``model_axis="model"``, the norms' running statistics, the
+row-sharded store's gathers), the drivers with --mesh 4 and --mesh 4
+--mesh-model 2, and a tensor-parallel checkpoint resumed under --mesh 4.
 
 Bars: values rtol 1e-5, gradients rtol 1e-4 (as tests/test_mesh_fused.py
 holds the JAX package's own routes); the drivers' losses rtol 1e-5 against
-the run without --mesh of the same seed.
+the run without --mesh of the same seed; the tensor-parallel parameters
+and batch statistics atol 2e-4 (the JAX package's own bar,
+tests/test_train_parallel.py:340).
 """
 
 import concurrent.futures
@@ -41,6 +48,8 @@ from cl_ica_tpu.losses import UniformityLoss as JaxUniformity
 from cl_ica_tpu.models import get_mlp as jax_get_mlp
 from cl_ica_tpu.models.resnet import ResNet18 as JaxResNet18
 from cl_ica_tpu import parallel as jax_parallel
+from cl_ica_tpu.parallel.collective import store_gather_scatter as jax_store_gather_scatter
+from cl_ica_tpu.parallel.sharded import tp_param_rule as jax_tp_param_rule
 from cl_ica_tpu.spaces import LatentSpace, NBoxSpace
 from cl_ica_tpu.train import TrainState
 from cl_ica_tpu_torch import parallel
@@ -51,6 +60,7 @@ from cl_ica_tpu_torch.models import (
     resnet_params_to_flax,
 )
 from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti
+from cl_ica_tpu_torch.train import checkpoint
 
 
 B, N_FEAT = 32, 6
@@ -178,6 +188,46 @@ def _rn_indices(sampler, key):
     return out
 
 
+TP_HIDDEN, TP_HEAD, TP_LR, TP_STEPS = [16, 12, 6], "learnable_box", 5e-5, 2
+TP_ATOL = 2e-4  # the JAX package's bar for the tensor-parallel step
+
+
+def _tp_inputs():
+    """An MLP whose widths split over 2 model ranks and partly over 4 (the
+    6-wide layer stays whole: a replicated layer between split ones), with
+    a learnable box head, and a fixed pair of 16 rows."""
+    rng = np.random.default_rng(6)
+    z1 = rng.uniform(-1, 1, (16, SYN_N)).astype(np.float32)
+    z2 = (z1 + 0.1 * rng.normal(size=z1.shape)).astype(np.float32)
+    f = jax_get_mlp(SYN_N, SYN_N, TP_HIDDEN, output_normalization=TP_HEAD)
+    params = _filled(f.init, jax.random.PRNGKey(1), jnp.zeros((2, SYN_N)), seed=6)
+    params["params"]["SoftclipLayer_0"]["max_abs_bound"][:] = np.linspace(0.5, 1.5, SYN_N)
+    return f, params, z1, z2
+
+
+def _gn_state():
+    """An MLP with GroupNorm after each hidden layer, its norms' scales and
+    biases off 1 and 0."""
+    f = ranks.get_mlp(SYN_N, SYN_N, TP_HIDDEN, layer_normalization="gn",
+                      generator=torch.Generator().manual_seed(7))
+    state = f.state_dict()
+    for k, v in state.items():
+        if k.startswith("norms."):
+            state[k] = torch.linspace(0.5, 1.5, v.numel()) if k.endswith("weight") \
+                else torch.linspace(-0.2, 0.3, v.numel())
+    return state
+
+
+def _tp_norm_inputs():
+    rng = np.random.default_rng(8)
+    return {k: (1.5 * rng.normal(size=(8, 5) if k == "bn1d" else (8, 5, 4, 4))
+                + 0.3).astype(np.float32) for k in ranks.TP_NORMS}
+
+
+def _store_indices():
+    return np.random.default_rng(9).integers(0, 64, 12)
+
+
 # ---------------------------------------------------------------------------
 # the launches
 # ---------------------------------------------------------------------------
@@ -185,25 +235,34 @@ def _rn_indices(sampler, key):
 
 @pytest.fixture(scope="module")
 def spawned(store, fixture_3dident, kitti_root, tmp_path_factory):
-    """The file's two launches (every W = 2 check, the drivers last; the
-    W = 4 losses), run in turn on one thread from the first test on, so
+    """The file's two launches (every W = 2 check, the drivers last; every
+    W = 4 check), run in turn on one thread from the first test on, so
     that the ranks work while this process compiles the JAX side: their
     futures, and the drivers' directory."""
     sampler, packed = store
     _, params, z1, z2 = _synthetic_inputs()
     _, variables = _resnet_variables()
+    rn_indices = _rn_indices(sampler, jax.random.PRNGKey(7))
     tmp = tmp_path_factory.mktemp("drivers")
     argv = _driver_argv(fixture_3dident, kitti_root, tmp, "two")
+    argv["whole_store"] = argv["unsupervised"] + ["--workers", "1"]
+    _, tp_params, tz1, tz2 = _tp_inputs()
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     futures = {
         "w2": pool.submit(
             _launch, ranks.units, 2,
             (*_codes(), NAMES), _norm_inputs(), _rule_inputs(),
             (encoder_params_from_flax(params), z1, z2, SYN_N, SYN_STEPS),
-            (resnet_params_from_flax(variables), packed,
-             _rn_indices(sampler, jax.random.PRNGKey(7)), RN_N, RN_LR),
+            (resnet_params_from_flax(variables), packed, rn_indices, RN_N, RN_LR),
             {k: v + ["--mesh", "2"] for k, v in argv.items()}),
-        "w4": pool.submit(_launch, ranks.losses, 4, *_codes(), NAMES),
+        "w4": pool.submit(
+            _launch, ranks.units4, 4, (*_codes(), NAMES),
+            (encoder_params_from_flax(tp_params), tz1, tz2, SYN_N, TP_HIDDEN,
+             TP_HEAD, TP_LR, TP_STEPS),
+            (_gn_state(), tz1, tz2, SYN_N, TP_HIDDEN, TP_STEPS),
+            (resnet_params_from_flax(variables), packed, rn_indices, RN_N, RN_LR),
+            _tp_norm_inputs(), (packed, _store_indices()),
+            _driver_argv4(fixture_3dident, tmp), _resume_argv(tmp)),
     }
     yield futures, tmp
     pool.shutdown(wait=True)
@@ -235,7 +294,7 @@ def w2(spawned, references):
 
 @pytest.fixture(scope="module")
 def w4(spawned, references):
-    return {"losses": spawned[0]["w4"].result()}
+    return spawned[0]["w4"].result()
 
 
 def _results(request, world):
@@ -542,6 +601,30 @@ def kitti_root(tmp_path_factory):
     return path
 
 
+def _driver_argv4(fixture_3dident, tmp):
+    """The W = 4 launch's drivers: main_mlp and main_3dident's three modes
+    with --mesh 4, and with --mesh 4 --mesh-model 2 ("<key> tp")."""
+    out = {"mlp": MLP + ["--save-dir", str(tmp / "four_mlp")],
+           "mlp tp": MLP + ["--save-dir", str(tmp / "tp_mlp")]}
+    for mode in ("unsupervised", "supervised", "test"):
+        out[mode] = out[f"{mode} tp"] = _argv_3dident(fixture_3dident, mode)
+    return {k: v + ["--mesh", "4"] + (["--mesh-model", "2"] if k.endswith(" tp") else [])
+            for k, v in out.items()}
+
+
+RESUME_AT = 3  # main_mlp's checkpoint after step 3 of 6 (every 2 steps)
+
+
+def _resume_argv(tmp):
+    """main_mlp with a checkpoint every 2 of 6 steps under --mesh 4
+    --mesh-model 2, the directory its step-3 checkpoint is copied to, and
+    the argv that resumes it under --mesh 4."""
+    argv = MLP + ["--n-steps", "6", "--more-unsupervised", "1", "--save-every", "2"]
+    return (argv + ["--save-dir", str(tmp / "tp_resume"), "--mesh", "4",
+                    "--mesh-model", "2"],
+            argv + ["--mesh", "4"], str(tmp / "tp_cut"), RESUME_AT)
+
+
 def _argv_kitti(root, out):
     return ["--dset-dir", root, "--batch-size", "8", "--max-iter", "4",
             "--log-step", "1", "--save-step", "3", "--seed", "0",
@@ -608,7 +691,9 @@ def test_main_3dident_minres8_mesh_repeats_the_one_device_run(drivers):
 
 def test_main_3dident_test_mode_on_a_mesh_is_rank_0s_evaluation(drivers):
     got, want, _ = drivers
-    assert got["test"]["losses"] == [] and got["test"]["data_path"] == "host-gather"
+    # the sweep's renders come from the row-sharded store on the device
+    # (sharded_store_gather), the scores are still rank 0's
+    assert got["test"]["losses"] == [] and got["test"]["data_path"] == "device-store"
     _close([got["test"]["mcc"], got["test"]["lin"]],
            [want["test"]["mcc"], want["test"]["lin"]], VALUE)
 
@@ -647,8 +732,306 @@ def test_prefetch_loader_hands_each_rank_its_rows_in_the_workers_turn(
             loader.close()
 
 
+def test_main_3dident_row_sharded_store_is_the_whole_store_bit_for_bit(drivers, store):
+    # --mesh 2 keeps each rank's half of the store on its device and takes
+    # its rows by the uint8 reduce-scatter; under a budget of 1000 bytes
+    # the same run takes them from the whole store on the host (the path
+    # every rank took before): the same losses and scores, bit for bit
+    got, _, _ = drivers
+    sharded, whole = got["unsupervised"], got["whole_store"]
+    assert sharded["data_path"] == "device-store" and whole["data_path"] == "host-prefetch"
+    assert sharded["losses"] == whole["losses"] and len(sharded["losses"]) == 3
+    assert (sharded["mcc"], sharded["lin"]) == (whole["mcc"], whole["lin"])
+    # rank 0 holds its 24 of the 48 renders of 32 x 32 x 3
+    assert sharded["store_bytes"] == 24 * 32 * 32 * 3 and whole["store_bytes"] == 0
+
+
 def test_driver_ranks_import_no_jax(drivers):
     assert drivers[0]["foreign"] == [[], []]
+
+
+# ---------------------------------------------------------------------------
+# the 2-D mesh: the placement, the steps, the norms, the store, the drivers
+# ---------------------------------------------------------------------------
+
+
+def _tp_mesh_jax(model):
+    return jax_parallel.make_mesh(4, axis_names=("data", "model"),
+                                  shape=(4 // model, model))
+
+
+def _device_shards(tree, mesh):
+    """Per device of ``mesh``, in rank order (rank r is device r of the
+    (data, model) array), the tree of its shards as numpy."""
+    def shard(a, dev):
+        return np.asarray(next(s.data for s in a.addressable_shards if s.device == dev))
+
+    return [jax.tree.map(lambda a: shard(a, dev), tree) for dev in mesh.devices.flat]
+
+
+_JAX_TP = {}
+
+
+def _jax_tp_synthetic(model):
+    """The JAX sharded synthetic step with model_axis="model" on the (4 /
+    model) x model mesh, Adam: the placed parameters' shards, the losses
+    and the parameters' and Adam moments' shards after TP_STEPS steps."""
+    if model in _JAX_TP:
+        return _JAX_TP[model]
+    f, params, z1, z2 = _tp_inputs()
+    mesh = _tp_mesh_jax(model)
+    opt = optax.adam(TP_LR)
+    rule = jax_tp_param_rule(mesh, "model")
+    rep = NamedSharding(mesh, P())
+    state = TrainState.create(params, opt.init(params), jax.random.PRNGKey(0))
+    state = jax.device_put(state, TrainState(
+        params=jax.tree.map(rule, state.params),
+        opt_state=jax.tree.map(rule, state.opt_state), step=rep, key=rep))
+    before = _device_shards(state.params, mesh)
+    step = jax_parallel.make_sharded_synthetic_train_step(
+        mesh, lambda key, size: (jnp.asarray(z1), jnp.asarray(z2)), lambda z: z,
+        lambda p, x: f.apply(p, x), JaxLp(p=2.0, simclr_compatibility_mode=True),
+        opt, z1.shape[0], donate=False, model_axis="model", example_state=state)
+    losses = []
+    for _ in range(TP_STEPS):
+        state, metrics = step(state)
+        losses.append(float(metrics["loss"]))
+    adam = state.opt_state[0]
+    conv = lambda trees: [encoder_params_from_flax(t) for t in trees]
+    _JAX_TP[model] = {"before": conv(before), "losses": losses,
+                      "after": conv(_device_shards(state.params, mesh)),
+                      "mu": conv(_device_shards(adam.mu, mesh)),
+                      "nu": conv(_device_shards(adam.nu, mesh))}
+    return _JAX_TP[model]
+
+
+@pytest.mark.parametrize("model", ranks.MODEL_AXES)
+def test_tp_shards_are_the_jax_rules(w4, model):
+    # each rank holds exactly the shards the JAX rule's NamedSharding puts
+    # on its device: the parameters bit for bit, Adam's moments at their
+    # shapes (the 6-wide layer whole on 4 model ranks, the rest split)
+    want = _jax_tp_synthetic(model)
+    for r, got in enumerate(w4["tp_synthetic"]):
+        got = got[model]
+        assert got["before"].keys() == want["before"][r].keys()
+        for k, v in want["before"][r].items():
+            np.testing.assert_array_equal(got["before"][k], v.numpy(), err_msg=k)
+        for k, (mu, nu) in got["adam"].items():
+            w_mu, w_nu = want["mu"][r][k].numpy(), want["nu"][r][k].numpy()
+            assert mu.shape == w_mu.shape == got["after"][k].shape, k
+            _close(mu, w_mu, GRAD, GRAD * np.abs(w_mu).max(), k)
+            _close(nu, w_nu, GRAD, GRAD * np.abs(w_nu).max(), k)
+    split = {k: v.shape[0] for k, v in w4["tp_synthetic"][0][model]["whole"].items()}
+    shard = {k: v.shape[0] for k, v in w4["tp_synthetic"][0][model]["before"].items()}
+    assert (split["linears.2.weight"] // shard["linears.2.weight"]) == (1 if model == 4 else 2)
+    assert split["head.max_abs_bound"] // shard["head.max_abs_bound"] == model
+
+
+@pytest.mark.parametrize("model", ranks.MODEL_AXES)
+def test_tp_synthetic_step_matches_the_jax_sharded_step(w4, model):
+    want = _jax_tp_synthetic(model)
+    for r, got in enumerate(w4["tp_synthetic"]):
+        _close(got[model]["losses"], want["losses"], VALUE)
+        for k, v in want["after"][r].items():
+            _close(got[model]["after"][k], v.numpy(), 0, TP_ATOL, k)
+
+
+@pytest.mark.parametrize("model", ranks.MODEL_AXES)
+def test_tp_whole_state_is_the_same_on_every_rank(w4, model):
+    # the joined state dict and Adam state are the one-process model's
+    # keys and shapes, and equal on every rank: a replicated parameter's
+    # gradient came out equal on every rank of its model group
+    f = ranks.get_mlp(SYN_N, SYN_N, TP_HIDDEN, output_normalization=TP_HEAD)
+    shapes = {k: tuple(v.shape) for k, v in f.state_dict().items()}
+    first = w4["tp_synthetic"][0][model]
+    assert {k: v.shape for k, v in first["whole"].items()} == shapes
+    for got in w4["tp_synthetic"][1:]:
+        got = got[model]
+        for k, v in first["whole"].items():
+            np.testing.assert_array_equal(got["whole"][k], v, err_msg=k)
+        for i, (mu, nu) in first["whole_adam"].items():
+            np.testing.assert_array_equal(got["whole_adam"][i][0], mu)
+            np.testing.assert_array_equal(got["whole_adam"][i][1], nu)
+
+
+def _jax_tp_threedident(store):
+    """tests/test_train_parallel.py:340's step on the (2 data x 2 model)
+    mesh from the file's ResNet18 variables, RN_STEPS steps: the placed
+    variables' shards, the losses, and the shards after."""
+    if "3d" in _JAX_TP:
+        return _JAX_TP["3d"]
+    sampler, packed = store
+    model, variables = _resnet_variables()
+
+    def apply_model(p, bs, x, train):
+        z, mut = model.apply({"params": p, "batch_stats": bs}, x, train=True,
+                             mutable=["batch_stats"])
+        return z, mut["batch_stats"]
+
+    loss = JaxLp(p=2.0, simclr_compatibility_mode=True)
+    mesh = _tp_mesh_jax(2)
+    padded, _ = jax_parallel.pad_rows_to_multiple(packed, 2)
+    opt = optax.sgd(RN_LR)
+    rule = jax_tp_param_rule(mesh, "model")
+    p, bs = variables["params"], variables["batch_stats"]
+    o = opt.init(p)
+    step = jax_parallel.make_sharded_3dident_train_step(
+        mesh, sampler._sample, apply_model,
+        lambda a, b, c: loss(None, None, None, a, b, c), opt, padded.shape,
+        lambda raw: raw / 255.0, donate=False, model_axis="model",
+        example_params=p, example_opt_state=o, example_batch_stats=bs)
+    p, o, bs = (jax.device_put(t, jax.tree.map(rule, t)) for t in (p, o, bs))
+    key = jax.device_put(jax.random.PRNGKey(7), NamedSharding(mesh, P()))
+    stored = jax.device_put(padded, NamedSharding(mesh, P("data")))
+    conv = lambda p, bs: [resnet_params_from_flax(t) for t in _device_shards(
+        {"params": p, "batch_stats": bs}, mesh)]
+    before = conv(p, bs)
+    losses = []
+    for _ in range(RN_STEPS):
+        p, o, bs, key, total = step(p, o, bs, key, stored)
+        losses.append(float(total))
+    _JAX_TP["3d"] = {"before": before, "losses": losses, "after": conv(p, bs)}
+    return _JAX_TP["3d"]
+
+
+def test_tp_resnet_shards_are_the_jax_rules(w4, store):
+    want = _jax_tp_threedident(store)
+    for r, got in enumerate(w4["tp_threedident"]):
+        keys = [k for k in want["before"][r] if not k.endswith("num_batches_tracked")]
+        assert set(keys) <= set(got["before"])
+        for k in keys:
+            np.testing.assert_array_equal(got["before"][k], want["before"][r][k].numpy(),
+                                          err_msg=k)
+
+
+def test_tp_3dident_step_matches_the_jax_sharded_step(w4, store):
+    # the ResNet18's convolutions channel-split over 2 model ranks, each
+    # view's rows from the row-sharded store: the JAX step with
+    # model_axis="model" on the same (2 data x 2 model) mesh
+    want = _jax_tp_threedident(store)
+    for r, got in enumerate(w4["tp_threedident"]):
+        _close(got["losses"], want["losses"], VALUE)
+        for k, v in want["after"][r].items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            _close(got["after"][k], v.numpy(), 0, TP_ATOL, k)
+
+
+def test_tp_group_norm_matches_one_process(w4):
+    # GroupNorm(1) over all of a row's features: normalised over the
+    # gathered features, its affine on the rank's block; the losses and the
+    # joined state after SGD steps are one process's
+    _, _, z1, z2 = _tp_inputs()
+    want, state = ranks.gn_run(_gn_state(), z1, z2, SYN_N, TP_HIDDEN, TP_STEPS)
+    for got, got_state in w4["tp_gn"]:
+        _close(got, want, VALUE)
+        assert got_state.keys() == state.keys()
+        for k, v in state.items():
+            _close(got_state[k], v, GRAD, 1e-6, k)
+
+
+@pytest.mark.parametrize("kind", ranks.TP_NORMS)
+def test_tp_norm_statistics_are_the_whole_batch_s(w4, kind):
+    # a norm on the channels of a split layer under --mesh 4 --mesh-model 2:
+    # each rank's channels take the statistics of the data group's rows,
+    # equal per channel to the one process's (statistics averaged over all
+    # four ranks would mix two ranks' channels)
+    x = _tp_norm_inputs()[kind]
+    model, forward = ranks.tp_norm_model(kind, x.shape[1], 8)
+    model.train()
+    forward(torch.tensor(x))
+    for r in w4["tp_norms"]:
+        assert r[kind]["shard"] == (4,)
+        _close(r[kind]["mean"], model["norm"].running_mean.numpy(), 1e-5, 1e-7, "mean")
+        _close(r[kind]["var"], model["norm"].running_var.numpy(), 1e-5, 1e-7, "var")
+
+
+@pytest.mark.parametrize("model", ranks.MODEL_AXES)
+def test_store_gather_scatter_rows_and_bytes(w4, store, model):
+    # the rank's rows, uint8 end to end, equal to direct indexing and to the
+    # JAX store_gather_scatter's shard on the rank's device; the replicated
+    # variant's whole batch; a rank's block of the padded store
+    _, packed = store
+    idx = _store_indices()
+    n_data = 4 // model
+    mesh = _tp_mesh_jax(model)
+    padded, _ = jax_parallel.pad_rows_to_multiple(packed, n_data)
+    stored = jax.device_put(padded, NamedSharding(mesh, P("data")))
+    jax_rows = jax.jit(jax_store_gather_scatter(mesh, padded.shape))(
+        stored, jnp.asarray(idx))
+    want = _device_shards(jax_rows, mesh)
+    for r, got in enumerate(w4["store"]):
+        got = got[model]
+        assert got["dtype"] == "torch.uint8" and got["rows"].dtype == np.uint8
+        rows = parallel.data_rows(got["data"], n_data, len(idx))
+        np.testing.assert_array_equal(got["rows"], packed[idx][rows])
+        np.testing.assert_array_equal(got["rows"], want[r])
+        np.testing.assert_array_equal(got["whole"], packed[idx])
+        assert got["block_bytes"] == 64 // n_data * 16 * 16 * 3
+
+
+def test_store_gather_scatter_rejects_indivisible_batch(w4):
+    for r in w4["store"]:
+        assert "not divisible by 2 shards" in r[2]["refused"]
+        assert r[4]["refused"] is None  # one data rank divides every batch
+
+
+def test_main_mlp_mesh_model_repeats_the_mesh_run(w4, spawned):
+    tmp = spawned[1]
+    want, got = _logged(tmp / "four_mlp"), _logged(tmp / "tp_mlp")
+    assert len(want) == 4
+    _close(got, want, VALUE)
+    # the final scores of 16 points, as test_main_mlp_mesh_repeats_the_one_device_run
+    assert np.all(np.isfinite(w4["drivers"]["mlp tp"])) and len(w4["drivers"]["mlp tp"]) == 2
+
+
+@pytest.mark.parametrize("mode", ["unsupervised", "supervised", "test"])
+def test_main_3dident_mesh_model_repeats_the_mesh_run(w4, mode):
+    got, want = w4["drivers"][f"{mode} tp"], w4["drivers"][mode]
+    assert len(want["losses"]) == (0 if mode == "test" else 3)
+    _close(got["losses"], want["losses"], VALUE)
+    # the scores fit 16 codes of 11 columns (a linear fit on 8 of them):
+    # the order of the channel-split sums moves them by more than 1e-5
+    assert np.isfinite([got["mcc"], got["lin"]]).all()
+    assert got["data_path"] == want["data_path"] == "device-store"
+
+
+def _history(run_dir, sub="resume"):
+    return checkpoint.load_resume_state(os.path.join(run_dir, sub))[1]
+
+
+def test_tp_checkpoint_resumes_under_the_data_mesh(w4, spawned):
+    # main_mlp --mesh 4 --mesh-model 2 writes whole tensors: its step-3
+    # checkpoint, resumed under --mesh 4, repeats the rest of the run; its
+    # encoder and Adam state have the one-process model's shapes, and so
+    # does the saved Flax tree
+    tmp = spawned[1]
+    cut = checkpoint.load_resume_state(str(tmp / "tp_cut"))[1]
+    assert (cut["phase"], cut["step"]) == (0, RESUME_AT)
+    f = ranks.get_mlp(4, 4, [40, 200, 200, 200, 200, 40],
+                      output_normalization="learnable_box")
+    shapes = {k: tuple(v.shape) for k, v in f.state_dict().items()}
+    assert {k: tuple(v.shape) for k, v in cut["lane"]["encoder"].items()} == shapes
+    names = list(dict(f.named_parameters()))
+    for i, entry in cut["lane"]["optimizer"]["state"].items():
+        assert tuple(entry["exp_avg"].shape) == shapes[names[i]]
+    want, got = _history(tmp / "tp_resume"), _history(tmp / "tp_cut")
+    assert (got["phase"], got["step"]) == (want["phase"], want["step"]) == (1, 0)
+    assert len(want["lane"]["losses"]) == 6
+    _close(got["lane"]["losses"], want["lane"]["losses"], VALUE)
+    # (the final scores of 16 points move by more than 1e-5 with the
+    # order of the sums: test_main_mlp_mesh_model_repeats_the_mesh_run)
+    assert np.all(np.isfinite(w4["resume"]["resumed"]))
+    import pickle
+    with open(tmp / "tp_resume" / "unsup_f.pkl", "rb") as fh:
+        tree = pickle.load(fh)
+    with open(tmp / "four_mlp" / "unsup_f.pkl", "rb") as fh:
+        dp = pickle.load(fh)
+    assert jax.tree.map(np.shape, tree) == jax.tree.map(np.shape, dp)
+
+
+def test_w4_ranks_import_no_jax(w4):
+    assert w4["drivers"]["foreign"] == [[], [], [], []]
 
 
 # ---------------------------------------------------------------------------
@@ -663,12 +1046,12 @@ def _guard(driver, argv, match, device="cpu"):
 
 @pytest.mark.parametrize("driver, argv, match", [
     ("mlp", ["--mesh", "4", "--batch-size", "6"], "divisible"),
-    ("mlp", ["--mesh", "2", "--mesh-model", "2"], "A13b"),
     ("mlp", ["--mesh", "4", "--mesh-model", "3"], "divisible by --mesh-model"),
+    ("mlp", ["--mesh-model", "2"], "requires --mesh"),
     ("mlp", ["--seeds", "2", "--mesh", "2"], "not composable"),
     ("3dident", ["--mesh", "3", "--batch-size", "8"], "divisible"),
-    ("3dident", ["--mesh", "2", "--mesh-model", "2"], "A13b"),
     ("3dident", ["--mesh", "4", "--mesh-model", "3"], "divisible by --mesh-model"),
+    ("3dident", ["--mesh-model", "2"], "requires --mesh"),
     ("3dident", ["--mesh", "2", "--scan", "--mode", "unsupervised"], "--scan"),
     ("3dident", ["--mesh", "2", "--dummy-mixing"], "no image store"),
     ("3dident", ["--mesh", "2", "--identity-mixing-and-solution"], "no image store"),

@@ -22,6 +22,7 @@ import torch.distributed as dist
 
 from cl_ica_tpu_torch import parallel
 from cl_ica_tpu_torch.cli import kitti_evaluate, main_3dident, main_kitti, main_mlp
+from cl_ica_tpu_torch.data import BUDGET_ENV
 from cl_ica_tpu_torch.losses import (
     AlignmentUniformityLoss,
     LpSimCLRLoss,
@@ -347,12 +348,15 @@ def quick_kitti_evaluation():
 
 def run_drivers(argv: dict, device) -> dict:
     """main_mlp, main_kitti, and main_3dident in its three modes and with
-    --norm-kind minres8, each with its argv; what each ``main`` returns
-    (main_kitti: None)."""
+    --norm-kind minres8, each with its argv, under a key naming the driver
+    or the mode (and after a space anything else: "mlp tp"); what each
+    ``main`` returns (main_kitti: None). "whole_store" is main_3dident with
+    a device budget of 1000 bytes: the store stays on the host."""
     mains = {"mlp": main_mlp.main, "kitti": main_kitti.main,
              "unsupervised": main_3dident.main, "supervised": main_3dident.main,
-             "test": main_3dident.main, "minres8": main_3dident.main}
-    return {k: mains[k](v, device=device) for k, v in argv.items()}
+             "test": main_3dident.main, "minres8": main_3dident.main,
+             "whole_store": main_3dident.main}
+    return {k: mains[k.split()[0]](v, device=device) for k, v in argv.items()}
 
 
 def drivers(argv: dict, device):
@@ -360,6 +364,246 @@ def drivers(argv: dict, device):
     initialised), the KITTI evaluation cut first."""
     torch.set_num_threads(1)
     quick_kitti_evaluation()
-    out = run_drivers(argv, device)
+    whole = {k: v for k, v in argv.items() if k.startswith("whole_store")}
+    out = run_drivers({k: v for k, v in argv.items() if k not in whole}, device)
+    if whole:
+        os.environ[BUDGET_ENV] = "1000"
+        try:
+            out.update(run_drivers(whole, device))
+        finally:
+            del os.environ[BUDGET_ENV]
     out["foreign"] = _everyone(foreign_modules())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the 2-D mesh (--mesh 4 --mesh-model M): tensor parallelism and the
+# row-sharded store
+# ---------------------------------------------------------------------------
+
+MODEL_AXES = (2, 4)  # (2 data x 2 model) and (1 data x 4 model) over 4 ranks
+
+
+def _tp_mesh(model: int, device):
+    torch.set_num_threads(1)
+    return parallel.make_dp_tp_mesh(dist.get_world_size(), model, device)
+
+
+def _adam_state(opt, model) -> dict:
+    """{parameter name: (exp_avg, exp_avg_sq)} of the rank's Adam."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: (_np(s["exp_avg"]), _np(s["exp_avg_sq"]))
+            for p, s in opt.state.items()}
+
+
+def tp_synthetic(state: dict, z1: np.ndarray, z2: np.ndarray, n: int, hidden,
+                 head, lr: float, steps: int, device):
+    """Per model axis M of MODEL_AXES: the MLP of ``state`` (whole) made the
+    rank's channel-parallel shard, ``steps`` steps of
+    make_sharded_synthetic_train_step with Adam(lr) on the fixed pair: the
+    losses, the rank's shards before and after, its Adam state, and the
+    whole state dicts the rank joins."""
+    out = {}
+    for m in MODEL_AXES:
+        mesh = _tp_mesh(m, device)
+        f = get_mlp(n, n, hidden, output_normalization=head)
+        f.load_state_dict(state)
+        parallel.tensor_parallel(f, mesh)
+        before = {k: _np(v) for k, v in f.state_dict().items()}
+        opt, _ = make_optimizer(f.parameters(), lr)
+        step = parallel.make_sharded_synthetic_train_step(
+            mesh, lambda gen, size: (torch.tensor(z1), torch.tensor(z2)),
+            lambda z: z, f, LpSimCLRLoss(p=2.0, simclr_compatibility_mode=True),
+            opt, z1.shape[0])
+        got = [float(step(None)["loss"]) for _ in range(steps)]
+        whole_opt = parallel.whole_optimizer_state(opt, f)
+        out[m] = {"losses": got, "before": before,
+                  "after": {k: _np(v) for k, v in f.state_dict().items()},
+                  "adam": _adam_state(opt, f),
+                  "whole": {k: _np(v) for k, v in parallel.whole_state_dict(f).items()},
+                  "whole_adam": {i: (_np(s["exp_avg"]), _np(s["exp_avg_sq"]))
+                                 for i, s in whole_opt["state"].items()}}
+    return _everyone(out)
+
+
+def gn_run(state: dict, z1: np.ndarray, z2: np.ndarray, n: int, hidden, steps: int,
+           mesh=None):
+    """``steps`` SGD(0.1) steps of the MLP of ``state`` with GroupNorm after
+    each hidden layer (the norm over all of a row's features) on the fixed
+    pair, channel-parallel over ``mesh`` (None: one process): the losses
+    and the whole state dict."""
+    f = get_mlp(n, n, hidden, layer_normalization="gn")
+    f.load_state_dict(state)
+    if mesh is not None:
+        parallel.tensor_parallel(f, mesh)
+    opt, _ = make_optimizer(f.parameters(), 0.1, kind="sgd")
+    loss = LpSimCLRLoss(p=2.0, simclr_compatibility_mode=True)
+    if mesh is None:
+        step = lambda: loss(None, None, None, *_pair_codes(f, z1, z2))[0]
+    else:
+        sharded = parallel.make_sharded_synthetic_train_step(
+            mesh, lambda gen, size: (torch.tensor(z1), torch.tensor(z2)),
+            lambda z: z, f, loss, opt, z1.shape[0])
+    got = []
+    for _ in range(steps):
+        if mesh is None:
+            total = step()
+            opt.zero_grad()
+            total.backward()
+            opt.step()
+            got.append(float(total.detach()))
+        else:
+            got.append(float(sharded(None)["loss"]))
+    whole = parallel.whole_state_dict(f) if mesh is not None else f.state_dict()
+    return got, {k: _np(v) for k, v in whole.items()}
+
+
+def _pair_codes(f, z1, z2):
+    a = f(torch.tensor(z1))
+    return a, f(torch.tensor(z2)), torch.roll(a, 1, 0)
+
+
+def tp_gn(state: dict, z1: np.ndarray, z2: np.ndarray, n: int, hidden, steps: int,
+          device):
+    """gn_run on the (2 data x 2 model) mesh: GroupNorm normalises the
+    gathered features and applies its affine to the rank's block."""
+    return _everyone(gn_run(state, z1, z2, n, hidden, steps, _tp_mesh(2, device)))
+
+
+def tp_threedident(state: dict, store: np.ndarray, indices, n: int, lr: float,
+                   device):
+    """``threedident`` on the (2 data x 2 model) mesh: the ResNet18 of
+    ``state`` made the rank's shard, each view's rows taken from the
+    row-sharded store by store_gather_scatter. The losses, the rank's
+    shards before and after."""
+    mesh = _tp_mesh(2, device)
+    model = ResNet18(num_classes=n, num_filters=8, norm_kind="minres")
+    model.load_state_dict(state)
+    parallel.tensor_parallel(model, mesh)
+    model.train()
+    before = {k: _np(v) for k, v in model.state_dict().items()}
+    opt, _ = make_optimizer(model.parameters(), lr, kind="sgd")
+    loss = LpSimCLRLoss(p=2.0, simclr_compatibility_mode=True)
+    step = parallel.make_sharded_3dident_train_step(
+        mesh, model, lambda a, b, c: loss(None, None, None, a, b, c), opt)
+    padded, _ = parallel.pad_rows_to_multiple(store, mesh.n_data)
+    per = padded.shape[0] // mesh.n_data
+    block = torch.tensor(padded[mesh.data_index * per:(mesh.data_index + 1) * per])
+    gather = parallel.store_gather_scatter(mesh, padded.shape)
+    view = lambda idx: gather(block, torch.tensor(idx)).float().div(255.0).permute(0, 3, 1, 2)
+    got = [float(step(view(iz), view(izt))[0]) for iz, izt in indices]
+    return _everyone({"losses": got, "before": before,
+                      "after": {k: _np(v) for k, v in model.state_dict().items()}})
+
+
+TP_NORMS = ("fast", "minres_relu", "minres_add_relu", "minres_only", "stem", "bn1d",
+            "minres8_relu", "argmax")
+
+
+def tp_norm_model(kind: str, c_in: int, c: int, seed: int = 0):
+    """A split layer (a 1x1 conv, or a Linear for bn1d) into the norm of
+    ``kind`` with c channels, and its forward (res: the same conv's second
+    output, for the add modes)."""
+    g = torch.Generator().manual_seed(seed)
+    first = (torch.nn.Linear(c_in, c) if kind == "bn1d"
+             else torch.nn.Conv2d(c_in, c, 1, bias=False))
+    with torch.no_grad():
+        first.weight.copy_(torch.randn(first.weight.shape, generator=g))
+        if kind == "bn1d":
+            first.bias.zero_()
+    model = torch.nn.ModuleDict({"first": first, "norm": make_norm(kind, c),
+                                 "out": torch.nn.Linear(c, 3)})
+
+    def forward(x):
+        h = model["first"](x)
+        if kind.endswith("add_relu"):
+            y = model["norm"](h, res=h * 0.5)
+        else:
+            y = model["norm"](h)
+        if y.ndim == 4:
+            y = y.mean(dim=(2, 3))
+        return model["out"](y)
+
+    return model, forward
+
+
+def tp_norms(inputs: dict, device):
+    """Per norm kind of TP_NORMS: the toy of tp_norm_model on the (2 data x
+    2 model) mesh, one training forward of the rank's rows under the data
+    group: the running statistics, joined whole."""
+    mesh = _tp_mesh(2, device)
+    out = {}
+    for kind in TP_NORMS:
+        x = inputs[kind]
+        model, forward = tp_norm_model(kind, x.shape[1], 8)
+        parallel.tensor_parallel(model, mesh)
+        model.train()
+        with data_group(mesh.data_group):
+            forward(torch.tensor(x[parallel.mesh_rows(mesh, x.shape[0])])).sum().backward()
+        whole = parallel.whole_state_dict(model)
+        out[kind] = {"mean": _np(whole["norm.running_mean"]),
+                     "var": _np(whole["norm.running_var"]),
+                     "shard": tuple(model["norm"].running_mean.shape)}
+    return _everyone(out)
+
+
+def store_gathers(store: np.ndarray, idx: np.ndarray, device):
+    """store_gather_scatter and sharded_store_gather on each model axis of
+    MODEL_AXES: the rank's rows and their dtype, the whole batch, the
+    block's bytes, and what an indivisible batch raised."""
+    out = {}
+    for m in MODEL_AXES:
+        mesh = _tp_mesh(m, device)
+        padded, _ = parallel.pad_rows_to_multiple(store, mesh.n_data)
+        per = padded.shape[0] // mesh.n_data
+        block = torch.tensor(padded[mesh.data_index * per:(mesh.data_index + 1) * per])
+        rows = parallel.store_gather_scatter(mesh, padded.shape)(block, torch.tensor(idx))
+        whole = parallel.sharded_store_gather(mesh, padded.shape)(block, torch.tensor(idx))
+        try:
+            parallel.store_gather_scatter(mesh, padded.shape)(
+                block, torch.tensor(idx[:mesh.n_data + 1]))
+            refused = None
+        except ValueError as err:
+            refused = str(err)
+        out[m] = {"rows": _np(rows), "dtype": str(rows.dtype), "whole": _np(whole),
+                  "block_bytes": block.numel(), "refused": refused,
+                  "data": mesh.data_index}
+    return _everyone(out)
+
+
+def tp_resume(argv_tp: list, argv_dp: list, cut: str, seq: int, device):
+    """main_mlp under --mesh-model with a copy of its step-``seq``
+    checkpoint kept in ``cut``, then that copy resumed by main_mlp under
+    the data-parallel argv: both runs' final scores."""
+    from cl_ica_tpu_torch.train import checkpoint
+
+    save = checkpoint.save_resume_state
+
+    def keeping(base, at, state):
+        save(base, at, state)
+        if at == seq:
+            save(cut, at, state)
+
+    checkpoint.save_resume_state = keeping
+    try:
+        whole = main_mlp.main(argv_tp, device=device)
+    finally:
+        checkpoint.save_resume_state = save
+    resumed = main_mlp.main(argv_dp + ["--save-dir", cut, "--resume"], device=device)
+    return {"tp": whole, "resumed": resumed}
+
+
+def units4(loss_inputs, tp_synthetic_inputs, tp_gn_inputs, tp_threedident_inputs,
+           tp_norm_inputs, store_inputs, driver_argv, resume_inputs, device):
+    """Everything of the W = 4 launch: the losses, the 2-D mesh's checks,
+    the drivers with --mesh 4 and --mesh 4 --mesh-model 2, and a
+    tensor-parallel checkpoint resumed under --mesh 4."""
+    out = {"losses": losses(*loss_inputs, device=device),
+           "tp_synthetic": tp_synthetic(*tp_synthetic_inputs, device=device),
+           "tp_gn": tp_gn(*tp_gn_inputs, device=device),
+           "tp_threedident": tp_threedident(*tp_threedident_inputs, device=device),
+           "tp_norms": tp_norms(tp_norm_inputs, device=device),
+           "store": store_gathers(*store_inputs, device=device)}
+    out["drivers"] = drivers(driver_argv, device=device)
+    out["resume"] = tp_resume(*resume_inputs, device=device)
     return out
