@@ -110,7 +110,7 @@ from ..train import (
     checkpoint,
     make_optimizer,
 )
-from ..utils import nan_check, trace_context
+from ..utils import nan_check, profiling, trace_context
 from ..utils.debug import DEBUG_ENV, debug_enabled
 from .main_mlp import resolve_device
 
@@ -582,8 +582,10 @@ def unsupervised_objective(model, split_loss, x1, x2):
     (total, per-item) loss."""
     b = x1.shape[0]
     z = model(torch.cat([x1, x2], dim=0))
+    profiling.mark("backbone_fwd")
     z1r, z2r = z[:b], z[b:]
     total, per_item, _ = split_loss(z1r, z2r, torch.roll(z1r, 1, dims=0))
+    profiling.mark("loss")
     return total, per_item
 
 
@@ -627,9 +629,11 @@ def draw_rank_views(sampler, generator, rows: slice):
 def update(optimizer, scheduler, total):
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    profiling.mark("backward")
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
+    profiling.mark("optimizer")
 
 
 def train_step(model, split_loss, optimizer, scheduler, sampler, generator,
@@ -638,14 +642,18 @@ def train_step(model, split_loss, optimizer, scheduler, sampler, generator,
     a batch of pairs, both views through the encoder, the split loss, the
     update. Returns the step's (loss, sigma of the per-item loss) as device
     tensors; nothing is brought to the host. With ``optimizer`` None
-    (--identity-solution has nothing to train) only the loss is computed."""
-    _, x1, _, x2 = draw_views(sampler, generator, mixing)
-    if optimizer is None:
-        with torch.no_grad():
+    (--identity-solution has nothing to train) only the loss is computed.
+    Its layers are marked (utils/profiling.py): data (sample, match,
+    gather, normalise), backbone_fwd, loss, backward, optimizer."""
+    with profiling.step(generator.device):
+        _, x1, _, x2 = draw_views(sampler, generator, mixing)
+        profiling.mark("data")
+        if optimizer is None:
+            with torch.no_grad():
+                total, per_item = unsupervised_objective(model, split_loss, x1, x2)
+        else:
             total, per_item = unsupervised_objective(model, split_loss, x1, x2)
-    else:
-        total, per_item = unsupervised_objective(model, split_loss, x1, x2)
-        update(optimizer, scheduler, total)
+            update(optimizer, scheduler, total)
     return total.detach(), per_item.detach().std(unbiased=False)
 
 
@@ -853,6 +861,7 @@ def _experiment(args, device, closing: contextlib.ExitStack):
                                                       optimizer, scheduler)
 
     @torch.no_grad()
+    @profiling.span("clica.evaluate")
     def evaluate(eval_perm=True):
         """Accumulate n_eval_samples; MCC, linear R² (train/test split),
         per-dimension MSE, linear fit's MSE. eval_perm=False skips the
@@ -889,7 +898,8 @@ def _experiment(args, device, closing: contextlib.ExitStack):
         """Bring the window's losses to the host: the one device
         synchronisation of a window of steps."""
         if pending:
-            values = torch.stack(pending).tolist()
+            with profiling.span("clica.readback"):
+                values = torch.stack(pending).tolist()
             losses.extend(v[0] for v in values)
             last["sigma"] = values[-1][1]
             pending.clear()

@@ -77,7 +77,7 @@ from ..train import (
     make_optimizer,
     make_synthetic_train_step,
 )
-from ..utils import nan_check, trace_context
+from ..utils import nan_check, profiling, trace_context
 
 
 def parse_args(argv=None):
@@ -407,6 +407,7 @@ class Lane:
         """Whether this rank scores the evaluations (rank 0 of a mesh)."""
         return self.mesh is None or self.mesh.lead
 
+    @profiling.span("clica.evaluate")
     def evaluate(self):
         """The step's evaluation; (lin, perm) where this rank scores, else
         None (its part of the forward only)."""
@@ -476,7 +477,8 @@ def train_steps(lanes, n: int) -> None:
     for _ in range(n):
         for lane, out in zip(lanes, window):
             out.append(lane.step())  # (loss, loss_pos, loss_neg)
-    losses = [torch.stack(out)[:, 0].tolist() for out in window]
+    with profiling.span("clica.readback"):
+        losses = [torch.stack(out)[:, 0].tolist() for out in window]
     nan_check(losses, "loss")
     for lane, values in zip(lanes, losses):
         lane.losses.extend(values)

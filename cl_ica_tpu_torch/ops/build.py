@@ -24,8 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # one library per source: the loss kernels (ops/infonce.py, infonce_dot.py),
-# the stem tail's (ops/stem.py) and the blocks' batch norm (ops/bn_minres.py)
-LIBRARIES = ("infonce_lp", "infonce_dot", "stem_pool", "bn_minres")
+# the stem tail's (ops/stem.py), the blocks' batch norm (ops/bn_minres.py)
+# and the layer stamps (ops/marks.py)
+LIBRARIES = ("infonce_lp", "infonce_dot", "stem_pool", "bn_minres", "marks")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # No --use_fast_math: __expf/__powf would spend the 1e-4 gradient bar.
 NVCC_FLAGS = (

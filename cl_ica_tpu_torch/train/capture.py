@@ -28,6 +28,14 @@ launches on the card. On the CPU every call runs the body eagerly.
 The kernels' launch counters (ops.launch_counts) count in Python, so a
 capture would count its launches once; ``CapturedStep`` takes them back
 after the capture and adds the launches of one step at each replay.
+
+A body with layer marks (utils/profiling.py) is captured twice, into one
+memory pool: without its marks, and with them as graph nodes. A replay
+runs the graph with the marks while the torch profiler records (a
+``clica.step`` range), the graph without them otherwise: a mark node
+costs each replay its hop in the graph's chain of nodes, enabled or
+disabled (about 1.5 µs). The warm-up and the capture are the host span
+``clica.capture``.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from ..ops import add_launch_counts, launch_counts
+from ..utils import profiling
 
 WARMUP_STEPS = 2
 
@@ -54,8 +63,8 @@ class CapturedStep:
         self.reset()
 
     def reset(self) -> None:
-        """Drop the graph: the next calls warm up and capture anew."""
-        self.graph = self.out = None
+        """Drop the graphs: the next calls warm up and capture anew."""
+        self.graph = self.out = self.marked = self.marked_out = self.marks = None
         self.warm = 0
         self.per_replay: Dict[str, int] = {}
 
@@ -76,11 +85,23 @@ class CapturedStep:
         out.record_stream(main)
         return out
 
-    def _capture(self) -> None:
+    def _record(self, stamped: bool, pool=None) -> tuple:
+        """One capture of the body, its layer marks as graph nodes or not:
+        (the graph, its output, the marks' names). Its launches are taken
+        back from the counters and kept as one replay's."""
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = launch_counts()
+        with profiling.capturing(self.device, stamped) as names, \
+                torch.cuda.device(self.device), torch.cuda.graph(graph, pool=pool):
+            out = self._run()
+        after = launch_counts()
+        self.per_replay = {k: after[k] - before[k] for k in after}
+        add_launch_counts({k: -v for k, v in self.per_replay.items()})
+        return graph, out, names
+
+    def _capture(self) -> None:
         # A graph that is garbage (a lane of an earlier phase or run, kept
         # by a reference cycle) must go before the capture: the collector,
         # run inside it, would tear that graph down, an operation a capture
@@ -89,24 +110,31 @@ class CapturedStep:
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.device(self.device), torch.cuda.graph(graph):
-                out = self._run()
+            self.graph, self.out, names = self._record(stamped=False)
+            if names:  # the marks' own graph, in the first one's memory
+                self.marked, self.marked_out, _ = self._record(
+                    stamped=True, pool=self.graph.pool())
         finally:
             if collecting:
                 gc.enable()
-        after = launch_counts()
-        self.per_replay = {k: after[k] - before[k] for k in after}
-        add_launch_counts({k: -v for k, v in self.per_replay.items()})
-        self.graph, self.out = graph, out
+        self.marks = profiling.GraphMarks(self.device, names)
 
     def __call__(self) -> torch.Tensor:
         if self.device.type != "cuda":
             return self._run()
         if self.graph is None:
-            if self.warm < WARMUP_STEPS:
-                self.warm += 1
-                return self._warm_step()
-            self._capture()
-        self.graph.replay()
+            with profiling.span("clica.capture"):
+                if self.warm < WARMUP_STEPS:
+                    self.warm += 1
+                    return self._warm_step()
+                self._capture()
+        graph, out = self.graph, self.out
+        if self.marks.traced():
+            if self.marked is not None:
+                graph, out = self.marked, self.marked_out
+            with torch.profiler.record_function("clica.step"):
+                graph.replay()
+        else:
+            graph.replay()
         add_launch_counts(self.per_replay)
-        return self.out.clone()
+        return out.clone()

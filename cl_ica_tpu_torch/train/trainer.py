@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from ..utils.debug import nan_check
 
 
@@ -116,6 +117,10 @@ def make_synthetic_train_step(
     supervised=True swaps the contrastive loss for MSE against the
     ground-truth latents (the upper-bound baseline).
 
+    The step's layers are marked (utils/profiling.py): sample,
+    encoder_fwd (the frozen mixing and both encoder forwards), loss,
+    backward, optimizer (with the schedule).
+
     Under CL_ICA_TPU_DEBUG=1 the step raises ValueError after its update
     if the loss or a gradient is not finite (utils.debug.nan_check, as the
     JAX package's checked step does when it returns). A body to be
@@ -125,23 +130,29 @@ def make_synthetic_train_step(
     """
 
     def step(generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        z1, z2 = sample_pair(generator, batch_size)
-        z3 = torch.roll(z1, 1, dims=0)
-        with torch.no_grad():
-            x1, x2 = mixing(z1), mixing(z2)
-        z1_rec = encoder(x1)
-        z2_rec = encoder(x2)
-        z3_rec = torch.roll(z1_rec, 1, dims=0)
-        if supervised:
-            total = torch.mean((z1_rec - z1) ** 2)
-            pos = neg = total
-        else:
-            total, _, (pos, neg) = loss_fn(z1, z2, z3, z1_rec, z2_rec, z3_rec)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with profiling.step(next(encoder.parameters()).device):
+            z1, z2 = sample_pair(generator, batch_size)
+            profiling.mark("sample")
+            z3 = torch.roll(z1, 1, dims=0)
+            with torch.no_grad():
+                x1, x2 = mixing(z1), mixing(z2)
+            z1_rec = encoder(x1)
+            z2_rec = encoder(x2)
+            z3_rec = torch.roll(z1_rec, 1, dims=0)
+            profiling.mark("encoder_fwd")
+            if supervised:
+                total = torch.mean((z1_rec - z1) ** 2)
+                pos = neg = total
+            else:
+                total, _, (pos, neg) = loss_fn(z1, z2, z3, z1_rec, z2_rec, z3_rec)
+            profiling.mark("loss")
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            profiling.mark("backward")
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
+            profiling.mark("optimizer")
         if nan_guard:
             nan_check(total, "loss")
             for p in encoder.parameters():

@@ -34,3 +34,7 @@ import pytest  # noqa: E402
 @pytest.fixture
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs an NVIDIA card (skips without one)")

@@ -21,6 +21,7 @@ from cl_ica_tpu_torch.data import ThreeDIdentBatchSampler, kitti
 from cl_ica_tpu_torch.ops import add_launch_counts, launch_counts, reset_launch_counts
 from cl_ica_tpu_torch.tools import make_synthetic_3dident, make_synthetic_kitti
 from cl_ica_tpu_torch.train import CapturedStep, CosineLR, capture, make_optimizer
+from cl_ica_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -34,13 +35,18 @@ class _Graph:
     """Records what a torch.cuda.CUDAGraph is asked to do."""
 
     made = []
+    capturing = False
 
     def __init__(self):
         self.generators, self.replays, self.captures = [], 0, 0
+        self.marks, self.pool_of = None, None
         _Graph.made.append(self)
 
     def register_generator_state(self, gen):
         self.generators.append(gen)
+
+    def pool(self):
+        return id(self)
 
     def replay(self):
         self.replays += 1
@@ -55,22 +61,41 @@ class _Stream:
 
 
 @contextlib.contextmanager
-def _capturing(graph):
+def _capturing(graph, pool=None):
     graph.captures += 1
-    yield
+    graph.pool_of = pool
+    _Graph.capturing = True
+    try:
+        yield
+    finally:
+        _Graph.capturing = False
+        graph.marks = profiling._capture
+
+
+class _HostRing(profiling._Ring):
+    """The stamps' ring of the stand-in card, kept on the host."""
+
+    def __init__(self, device):
+        super().__init__(torch.device("cpu"))
 
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
     _Graph.made = []
+    profiling.clear()
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: _Graph.capturing)
+    monkeypatch.setattr(profiling, "_Ring", _HostRing)
     monkeypatch.setattr(torch.cuda, "graph", _capturing)
     monkeypatch.setattr(torch.cuda, "Stream", _Stream)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
-    return _Graph.made
+    yield _Graph.made
+    profiling.clear()
 
 
 def test_warm_up_then_one_capture_then_replays_counted_per_launch(fake_cuda):
@@ -105,7 +130,7 @@ def test_warm_up_then_one_capture_then_replays_counted_per_launch(fake_cuda):
 
 
 def test_a_failed_capture_raises_and_nothing_runs_eagerly(fake_cuda, monkeypatch):
-    def broken(graph):
+    def broken(graph, pool=None):
         raise RuntimeError("operation not permitted when stream is capturing")
 
     monkeypatch.setattr(torch.cuda, "graph", broken)
@@ -122,6 +147,54 @@ def test_on_the_cpu_every_call_runs_the_body(fake_cuda):
     step = CapturedStep(lambda: runs.append(1) or (torch.tensor(3.0),), [], "cpu")
     assert [float(step()[0]) for _ in range(4)] == [3.0] * 4
     assert len(runs) == 4 and not fake_cuda
+
+
+def test_a_marked_body_is_captured_with_and_without_its_marks(fake_cuda):
+    """A body with layer marks is captured twice, into the first graph's
+    memory pool: once without its marks (named only), once with them as
+    graph nodes. Replays outside the
+    profiler run the graph without them; replays while it records, the
+    graph with them, and only those are stamped steps in the host's count.
+    The launches of one capture are one replay's."""
+
+    def body():
+        with profiling.step("cuda"):
+            add_launch_counts({"fwd": 1})
+            profiling.mark("a")
+            profiling.mark("b")
+        return (torch.tensor(1.0),)
+
+    reset_launch_counts()
+    step = CapturedStep(body, [], "cuda")
+    step(), step()  # the warm-up: eager, no profiler, no stamps
+    assert not any(r.records for r in profiling._rings.values())
+    step()  # two captures, one replay
+    plain, marked = fake_cuda
+    assert plain.marks == (["a", "b"], False) and marked.marks == (["a", "b"], True)
+    assert marked.pool_of == plain.pool() and plain.pool_of is None
+    assert (step.graph, step.marked) == (plain, marked) and step.marks.names == ("a", "b")
+    step()
+    with torch.profiler.profile() as prof:
+        step(), step()
+    step(), step()
+    assert (plain.replays, marked.replays) == (4, 2)
+    assert [e.name for e in prof.events()].count("clica.step") == 2
+    assert launch_counts()["fwd"] == 2 + 6  # warm-up steps, then one a replay
+    ring = profiling.ring("cuda")
+    assert ring.count == 2 and list(ring.records) == [(1, ("a", "b"), False),
+                                                      (2, ("a", "b"), True)]
+    reset_launch_counts()
+
+
+def test_a_body_without_marks_is_captured_once(fake_cuda):
+    step = CapturedStep(lambda: (torch.tensor(1.0),), [], "cuda")
+    for _ in range(3):
+        step()
+    with torch.profiler.profile() as prof:
+        step()
+    (graph,) = fake_cuda
+    assert graph.replays == 2 and step.marked is None and step.marks.names == ()
+    assert [e.name for e in prof.events()].count("clica.step") == 1
 
 
 # ---------------------------------------------------------------------------

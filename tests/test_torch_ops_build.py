@@ -22,6 +22,7 @@ from cl_ica_tpu_torch.ops import (
     fused_neg_lse,
     infonce,
     infonce_dot,
+    marks,
     stem,
 )
 
@@ -417,7 +418,8 @@ class _Declared:
 
 
 _LIBRARIES = {"infonce_lp.cu": infonce.declare, "infonce_dot.cu": infonce_dot.declare,
-              "stem_pool.cu": stem.declare, "bn_minres.cu": bn_minres.declare}
+              "stem_pool.cu": stem.declare, "bn_minres.cu": bn_minres.declare,
+              "marks.cu": marks.declare}
 
 
 @pytest.mark.parametrize("source, name", [

@@ -2,8 +2,8 @@
 package's.
 
 The debug guards (nan_check, and the synthetic step's guard as
-tests/test_utils_tools.py::test_trainer_nan_guard_wired has it), seeding,
-StepTimer and trace_context; the mean/std tool on the same PNG folder
+tests/test_utils_tools.py::test_trainer_nan_guard_wired has it), seeding
+and trace_context; the mean/std tool on the same PNG folder
 (1e-9); InfiniteIterator and SimpleImageDataset; the render and
 scene-plan tools on the same inputs (equal outputs); generate_3dident_latents
 for each mode flag: the same files, shapes, dtypes and fixed columns, and
@@ -34,7 +34,6 @@ from cl_ica_tpu_torch.tools import blender_scene, generate_3dident_latents
 from cl_ica_tpu_torch.tools import get_mean_std, render_3dident
 from cl_ica_tpu_torch.train import make_optimizer, make_synthetic_train_step
 from cl_ica_tpu_torch.utils import (
-    StepTimer,
     debug_enabled,
     nan_check,
     seed_everything,
@@ -119,15 +118,6 @@ def test_seed_everything():
     assert torch.equal(torch.randn(4, generator=gen1), torch.randn(4, generator=gen2))
 
 
-def test_step_timer():
-    t = StepTimer(window=4)
-    assert t.mean_step_seconds is None
-    for _ in range(6):
-        t.tick()
-    assert t.mean_step_seconds is not None
-    assert len(t._times) == 4
-
-
 def test_trace_context(tmp_path):
     with trace_context(None):
         pass
@@ -138,6 +128,8 @@ def test_trace_context(tmp_path):
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    with open(tmp_path / "trace" / "layers.json") as fh:
+        assert set(json.load(fh)) == {"layers_ms", "replay_gap_us", "spans_ms"}
 
 
 # ---------------------------------------------------------------------------
