@@ -56,7 +56,8 @@ use) and no network, and it exits non-zero on any failure. Phases:
              images): 6a unsupervised with --fused-stem, where the six loss
              and three stem kernels are launched once per step and no bn
              kernel; 6b the same seed on the default path (--norm-kind
-             minres: each bn kernel 20 times a step, no stem kernel)
+             minres: MINRES_STEP, the stem's norm, relu and pool on the
+             argmax-code kernels, no stem kernel)
              against 6a's first losses; 6c --mode test on
              6a's saved model; 6d 6a stopped at a checkpoint and resumed,
              loss for loss; 6e 6a's seed with --no-fused-loss against
@@ -252,7 +253,13 @@ from cl_ica_tpu_torch.data import (
     normalize_3dident,
 )
 from cl_ica_tpu_torch.data import threedident as data3d
-from cl_ica_tpu_torch.models import ConvEncoder64, construct_invertible_mlp, get_mlp
+from cl_ica_tpu_torch.models import (
+    ConvEncoder64,
+    MinResBN2d,
+    MinResBNPool,
+    construct_invertible_mlp,
+    get_mlp,
+)
 from cl_ica_tpu_torch.ops import (
     bn_minres,
     bn_minres8,
@@ -309,6 +316,13 @@ RN18_NORMS = (STEM_FULL, (1024, 56, 56, 64), (1024, 28, 28, 128),
 BN_FUNCTIONS = (("bn_relu", False, True), ("bn_add_relu", True, True),
                 ("bn_only", False, False))  # (name, residual add, relu)
 BN_NORMS_A_STEP = 20  # ResNet18's norms, each one launch of each bn kernel
+POOL = ("pool_code", "pool_scatter")  # the argmax-code pool's
+# the default minres path a step: the stem's norm, relu and pool are
+# ops/pool_minres.py bn_relu_pool (its statistics, the code and scatter,
+# and bn_relu's backward sums and dx), the other 19 norms minres's
+MINRES_STEP = {"bn_stats": BN_NORMS_A_STEP, "bn_apply": BN_NORMS_A_STEP - 1,
+               "bn_bwd": BN_NORMS_A_STEP, "bn_dx": BN_NORMS_A_STEP,
+               **dict.fromkeys(POOL, 1)}
 # The statistics against float64 sums (the kernel adds in double, so its
 # error is a float32 rounding or two); the channel sums against torch.sum's
 # float32 sums; y, g and dx as the stem's maps.
@@ -1466,8 +1480,9 @@ def phase_3dident() -> dict:
     if not (math.isfinite(out_a["mcc"]) and math.isfinite(out_a["lin"])):
         raise AssertionError("6a: non-finite scores")
 
-    # 6b: the default path, --norm-kind minres: every one of the twenty
-    # norms through the four bn kernels, no stem kernel. The same
+    # 6b: the default path, --norm-kind minres: the twenty norms through
+    # the bn kernels, the stem's with the code and scatter kernels
+    # (MINRES_STEP), no stem kernel. The same
     # mathematics; from the same seed the first loss differs by the order
     # of float32 sums only, and Adam then amplifies that difference step by
     # step
@@ -1480,7 +1495,7 @@ def phase_3dident() -> dict:
           + f"; upstream gradients made dense by a copy: "
             f"{bn_minres.dy_copies()} over 10 steps")
     if (any(grew_b[k] for k in STEM) or any(grew_b[k] != 10 for k in LP + DOT)
-            or any(grew_b[k] != 10 * BN_NORMS_A_STEP for k in BN)):
+            or any(grew_b[k] != 10 * v for k, v in MINRES_STEP.items())):
         raise AssertionError(f"6b: launches {grew_b}")
     if rel[0] > 1e-5 or max(rel[:3]) > 1e-3:
         raise AssertionError(f"6b: first losses differ from 6a's: {rel[:3]}")
@@ -2307,9 +2322,8 @@ def phase_capture(smi: str) -> None:
     cases.append(("main_3dident --scan --fused-stem ResNet18 B=512",
                   functools.partial(_3dident_capture_lane, sampler, "--fused-stem"),
                   dict.fromkeys(LP + DOT + STEM, 1), 6, 512, 10))
-    # the default path (minres norms): each bn kernel once a norm
-    default_path = {**dict.fromkeys(LP + DOT, 1),
-                    **dict.fromkeys(BN, BN_NORMS_A_STEP)}
+    # the default path (minres norms, the stem's on the code and scatter)
+    default_path = {**dict.fromkeys(LP + DOT, 1), **MINRES_STEP}
     cases.append(("main_3dident --scan ResNet18 B=512 (default, minres norms)",
                   functools.partial(_3dident_capture_lane, sampler),
                   default_path, 6, 512, None))
@@ -2505,8 +2519,8 @@ def phase_prefetch(smi: str) -> dict:
                                                           "host-prefetch"):
         raise AssertionError(f"10c: data paths {on_device['data_path']}, "
                              f"{on_host['data_path']}")
-    want = {k: steps if k in LP + DOT else steps * BN_NORMS_A_STEP if k in BN
-            else 0 for k in KERNELS}
+    want = {k: steps if k in LP + DOT else steps * MINRES_STEP.get(k, 0)
+            for k in KERNELS}
     if grew_h != want or grew_d != want:
         raise AssertionError(f"10c: launches {grew_h} (host), {grew_d} (device); "
                              f"expected {want}")
@@ -2710,8 +2724,7 @@ def _hold_mesh_w1(smi: str) -> dict:
     TIMES.extend(t for t in got["times"] if t not in TIMES)
     launches = {k: 0 for k in KERNELS}
     per_step = {"box": {k: 1 for k in LP}, "simclr": {k: 1 for k in DOT},
-                "3dident": {**{k: 1 for k in LP + DOT},
-                            **{k: BN_NORMS_A_STEP for k in BN}},
+                "3dident": {**{k: 1 for k in LP + DOT}, **MINRES_STEP},
                 "3dident minres8": MINRES8_STEP}
     for tag, want in per_step.items():
         r = got[tag]
@@ -2996,8 +3009,9 @@ def _hold_mesh_tp(worst: dict, smi: str) -> dict:
             raise AssertionError(f"11d main_mlp {flags}: {got} vs {want}, {grew}")
         for k, v in grew.items():
             launches[k] += v
+    # the stem's block of 32 channels is whole vectors: the code and scatter
     per_step = {**dict.fromkeys(LP + DOT, TP_3D_STEPS),
-                **dict.fromkeys(BN, BN_NORMS_A_STEP * TP_3D_STEPS)}
+                **{k: v * TP_3D_STEPS for k, v in MINRES_STEP.items()}}
     for (label, _, bar), (got, grew), (one, _) in zip(runs, took[4][1:], took[2][1:]):
         first = abs(got["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
         grew = {k: v for k, v in grew.items() if v}
@@ -3072,14 +3086,8 @@ def phase_mesh(worst: dict, smi: str) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 BN8 = ("bn_apply8", "bn_bwd8", "bn_dx8")     # minres8's modes of the bn kernels
-POOL = ("pool_code", "pool_scatter")        # the argmax-code pool's
 MINRES8_STEP = {**dict.fromkeys(LP + DOT, 1), "bn_stats": BN_NORMS_A_STEP,
                 **dict.fromkeys(BN8, BN_NORMS_A_STEP)}
-# the stem's norm of the argmax pool: its statistics, the code and scatter,
-# and the backward sums and dx of bn_relu; the other 19 norms minres's
-ARGMAX_STEP = {"bn_stats": BN_NORMS_A_STEP, "bn_apply": BN_NORMS_A_STEP - 1,
-               "bn_bwd": BN_NORMS_A_STEP, "bn_dx": BN_NORMS_A_STEP,
-               **dict.fromkeys(POOL, 1)}
 # xhat values that pin the conversion past e4m3fn's range (C9): NaN past
 # 464 with the sign, 464 itself to 448
 E4M3_EDGES = (448.0, 464.0, 465.0, 500.0, math.inf, -500.0)
@@ -3454,11 +3462,62 @@ def _rel_max(got: dict, want: dict) -> float:
                for k in want if want[k].abs().max() > 0)
 
 
+def _hold_stem_route() -> None:
+    """12c: the default minres stem (MinResBNPool, on bn_relu_pool's
+    kernels) against the composition MinResBN2d -> F.max_pool2d at
+    STEM_FULL, float32 and bfloat16: the pooled map and the running buffers
+    bit for bit, the gradients' largest gaps (x, scale, bias) within two
+    bfloat16 ulps or 1e-5 of the largest, and each side's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n, h, w, c = STEM_FULL
+    scale = 1.0 + 0.3 * torch.randn(c, device="cuda", generator=gen)
+    bias = 0.2 * torch.randn(c, device="cuda", generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, c, h, w), device="cuda", generator=gen).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        g = torch.randn((n, c, h // 2, w // 2), device="cuda", generator=gen).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        sides = []
+        for fused in (True, False):
+            norm = (MinResBNPool(c) if fused else MinResBN2d(c)).cuda().train()
+            with torch.no_grad():
+                norm.weight.copy_(scale)
+                norm.bias.copy_(bias)
+            xs = x.detach().requires_grad_()
+            infonce.reset_launch_counts()
+            p = norm(xs) if fused else F.max_pool2d(norm(xs), 3, 2, 1)
+            p.backward(g)
+            torch.cuda.synchronize()
+            sides.append(((p.detach(), norm.running_mean, norm.running_var),
+                          (xs.grad, norm.weight.grad, norm.bias.grad),
+                          {k: v for k, v in infonce.launch_counts().items() if v}))
+            del xs, p, norm
+        (vals, grads, grew), (want_vals, want_grads, want_grew) = sides
+        same = all(torch.equal(a, b) for a, b in zip(vals, want_vals))
+        gaps = [rel_err(a.double(), b.double()) for a, b in zip(grads, want_grads)]
+        bar = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        print(f"[12 options] 12c the default stem vs MinResBN2d -> F.max_pool2d at "
+              f"{STEM_FULL} {dtype}: pooled and running buffers "
+              f"{'bit-equal' if same else 'DIFFER'}; gradient gaps (x, scale, bias) "
+              + ", ".join(f"{e:.3e}" for e in gaps) + f" (bar {bar:g}); launches "
+              f"{grew} against {want_grew}")
+        if (not same or max(gaps) > bar
+                or grew != {"bn_stats": 1, "pool_code": 1, "pool_scatter": 1,
+                            "bn_bwd": 1, "bn_dx": 1}
+                or want_grew != dict.fromkeys(BN, 1)):
+            raise AssertionError(f"12c stem route {dtype}: same {same}, gaps {gaps}, "
+                                 f"launches {grew} / {want_grew}")
+        del sides, vals, grads, want_vals, want_grads, x, g
+        torch.cuda.empty_cache()
+
+
 def _options_models() -> dict:
     """12c: the model options at full width, ResNet18 on 1024 images of
     224x224 (B = 512 pairs), one training forward and backward each:
-    stem_pool='argmax' against 'xla' (output 1e-5, gradients 1e-4
-    relative, the running buffers), s2d_exact against conv7 on the same
+    stem_pool='argmax' and the composition MinResBN2d -> F.max_pool2d
+    against the default stem (output 1e-5, gradients 1e-4 relative, the
+    running buffers), the stem alone against that composition
+    (_hold_stem_route), s2d_exact against conv7 on the same
     weights (the net's output, and the stem's output and weight gradient
     against float64), remat against none bit for bit (cudnn.deterministic, the
     buffers included; the launches of the recompute counted) and s2d
@@ -3470,9 +3529,12 @@ def _options_models() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(6)
     x = torch.randn((2 * OPTIONS_B, 3, 224, 224), device="cuda", generator=gen)
 
-    def run(**kw):
+    def run(plain_stem=False, **kw):
         model = ResNet18(num_classes=110, generator=torch.Generator().manual_seed(0),
-                         **kw).cuda().train()
+                         **kw)
+        if plain_stem:  # the composition MinResBN2d -> F.max_pool2d
+            model.bn_init = MinResBN2d(64)
+        model = model.cuda().train()
         infonce.reset_launch_counts()
         out = _grads_of(model, x)
         torch.cuda.synchronize()
@@ -3482,14 +3544,20 @@ def _options_models() -> dict:
 
     (o_x, g_x, b_x), grew_x = run(norm_kind="minres")
     (o_a, g_a, b_a), grew_a = run(norm_kind="minres", stem_pool="argmax")
-    e_out, e_grad = rel_err(o_a, o_x), _rel_max(g_a, g_x)
-    e_buf = _rel_max(b_a, b_x)
-    print(f"[12 options] 12c stem_pool='argmax' vs 'xla' (minres): output rel "
-          f"{e_out:.2e}, gradients rel {e_grad:.2e}, running buffers rel "
-          f"{e_buf:.2e}; launches {grew_a} (xla: {grew_x})")
-    want_a = {k: v for k, v in ARGMAX_STEP.items()}
-    if e_out > VALUE_BAR or e_grad > GRAD_BAR or e_buf > VALUE_BAR or grew_a != want_a:
-        raise AssertionError(f"12c argmax: {e_out}, {e_grad}, {e_buf}, {grew_a}")
+    (o_c, g_c, b_c), grew_c = run(plain_stem=True, norm_kind="minres")
+    for tag, (o, g, b), grew, want in (
+            ("stem_pool='argmax' vs 'xla'", (o_a, g_a, b_a), grew_a, MINRES_STEP),
+            ("the composition MinResBN2d -> F.max_pool2d vs the default stem",
+             (o_c, g_c, b_c), grew_c, dict.fromkeys(BN, BN_NORMS_A_STEP))):
+        e_out, e_grad, e_buf = rel_err(o, o_x), _rel_max(g, g_x), _rel_max(b, b_x)
+        print(f"[12 options] 12c {tag} (minres): output rel {e_out:.2e}, "
+              f"gradients rel {e_grad:.2e}, running buffers rel {e_buf:.2e}; "
+              f"launches {grew} (default: {grew_x})")
+        if (e_out > VALUE_BAR or e_grad > GRAD_BAR or e_buf > VALUE_BAR
+                or grew != want or grew_x != MINRES_STEP):
+            raise AssertionError(f"12c {tag}: {e_out}, {e_grad}, {e_buf}, {grew}")
+    del g_c, b_c
+    _hold_stem_route()
     (o_e, _, _), _ = run(norm_kind="minres", stem="s2d_exact")
     e_out = rel_err(o_e, o_x)
     del g_x, b_x
@@ -3799,7 +3867,7 @@ def _rest_3dident(smi: str) -> dict:
           f"(MCC {oq['mcc']} / {op['mcc']}); run {tq:.1f} s / {tp:.1f} s; trace "
           f"{size / 1e6:.1f} MB on {smi}")
     want = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(LP + DOT, REST_3D_STEPS),
-            **dict.fromkeys(BN, BN_NORMS_A_STEP * REST_3D_STEPS)}
+            **{k: v * REST_3D_STEPS for k, v in MINRES_STEP.items()}}
     if gq != want or gp != want:
         raise AssertionError(f"13a main_3dident: launches {gq} / {gp}, expected {want}")
     if not same:

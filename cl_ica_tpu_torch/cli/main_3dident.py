@@ -19,8 +19,10 @@ training batches ahead of the step and copy them to the device while it
 runs, and the evaluation, --mode supervised and --mode test gather their
 rows on the host (the native gather) and copy them over. The default
 ``--norm-kind minres`` runs every norm of the ResNet through the
-``ops.bn_minres`` kernels (``minres8`` through their float8 modes,
-``ops.bn_minres8``);
+``ops.bn_minres`` kernels, the stem's norm, relu and max pool through
+``ops.pool_minres`` (its statistics, code and scatter kernels, then
+bn_relu's backward; ``minres8`` runs every norm through their float8
+modes, ``ops.bn_minres8``, and keeps the library's pool);
 ``--fused-stem`` takes the stem tail through the ``ops.stem`` kernels
 instead and the other norms through the plain 'fast' norm, as the JAX
 driver forces. ``--scan`` captures the unsupervised step once as a
@@ -200,9 +202,10 @@ def parse_args(argv=None):
                              "norm with its relu (and a block's residual "
                              "add) in functions that keep only their input "
                              "(and a block's output) for the backward "
-                             "(ops/bn_minres, four CUDA "
-                             "kernels); 'minres8' is minres keeping the "
-                             "normalised input as float8 for the backward "
+                             "(ops/bn_minres, four CUDA kernels; the "
+                             "stem's norm, relu and pool in one, "
+                             "ops/pool_minres); 'minres8' is minres keeping "
+                             "the normalised input as float8 for the backward "
                              "(ops/bn_minres8); 'fast' and 'batch' are the "
                              "plain norm under autograd. --fused-stem forces "
                              "'fast'.")

@@ -33,7 +33,7 @@ from torch import nn
 from ..ops.bn_minres import bn_add_relu, bn_only, bn_relu
 from ..ops.bn_minres8 import bn_add_relu8, bn_only8, bn_relu8
 from ..ops.collectives import all_reduce_mean, current_group, world_of
-from ..ops.pool_minres import bn_relu_pool
+from ..ops.pool_minres import bn_relu_pool, takes
 from ..ops.stem import bn_relu_pool_train
 
 _RECOMPUTING = [False]
@@ -279,6 +279,25 @@ class MinResBN2d(FastBatchNorm2d):
         return y.permute(0, 3, 1, 2)
 
 
+def _max_pool(z):
+    """The stem's 3×3/2 max pool with padding 1."""
+    return F.max_pool2d(z, kernel_size=3, stride=2, padding=1)
+
+
+def _train_pool(norm: FastBatchNorm2d, x, train_fn):
+    """A stem tail's training mode: ``train_fn`` (norm, relu and pool in
+    one) on x's dense (N, H, W, C) view, ``norm``'s running buffers updated
+    from the mean and biased variance it returns, the pooled map back as a
+    channels_last view. A convolution's output is not promised to be
+    channels_last, so the layout is made explicit here (a no-op when it
+    already is)."""
+    x = x.contiguous(memory_format=torch.channels_last)
+    pooled, mean, var = train_fn(x.permute(0, 2, 3, 1), norm.weight, norm.bias,
+                                 norm.eps, **_group_kw())
+    norm.update_running(mean, var, _global_count(x))
+    return pooled.permute(0, 3, 1, 2)
+
+
 class StemBNReLUPool(FastBatchNorm2d):
     """Fused batch norm → relu → 3×3/2 max pool, the ResNet stem tail.
 
@@ -287,41 +306,38 @@ class StemBNReLUPool(FastBatchNorm2d):
     mode goes through ``ops.stem.bn_relu_pool_train`` (the Hopper kernels
     on CUDA tensors) and updates the running buffers from the mean and
     biased variance it returns; eval mode is the plain composition on the
-    running statistics.
-
-    The input is logical (N, C, H, W); the kernels take dense (N, H, W, C)
-    memory, which is what a ``channels_last`` tensor is. A convolution's
-    output is not promised to be channels_last, so the layout is made
-    explicit here (a no-op when it already is) and the permuted view is
-    handed on; the pooled output comes back as a channels_last view."""
+    running statistics. The input is logical (N, C, H, W); the pooled
+    output comes back as a channels_last view."""
 
     def forward(self, x):
-        return self._pool(x, bn_relu_pool_train)
-
-    def _pool(self, x, train_fn):
         if not self.training:
-            z = F.relu(super().forward(x))
-            return F.max_pool2d(z, kernel_size=3, stride=2, padding=1)
-        x = x.contiguous(memory_format=torch.channels_last)
-        pooled, mean, var = train_fn(
-            x.permute(0, 2, 3, 1), self.weight, self.bias, self.eps,
-            **_group_kw())
-        self.update_running(mean, var, _global_count(x))
-        return pooled.permute(0, 3, 1, 2)
+            return _max_pool(F.relu(super().forward(x)))
+        return _train_pool(self, x, bn_relu_pool_train)
 
 
-class MinResBNPool(StemBNReLUPool):
-    """Batch norm → relu → 3×3/2 max pool keeping an int8 argmax code, the
-    JAX package's ``MinResBNPool`` (``ResNet(stem_pool='argmax')`` with
-    norm_kind 'minres'): training mode goes through
-    ``ops.pool_minres.bn_relu_pool`` (the minres norm's statistics and
+class MinResBNPool(MinResBN2d):
+    """The minres norm and relu, then the 3×3/2 max pool: the stem of
+    ``ResNet(norm_kind='minres')``, and the JAX package's ``MinResBNPool``
+    (its ``stem_pool='argmax'``).
+
+    In training mode, where the kernels take the input
+    (``ops.pool_minres.takes``: float32 or bfloat16, H and W even, C a
+    multiple of the 16-byte vector up to 256 vectors), it goes through
+    ``ops.pool_minres.bn_relu_pool``: the minres norm's statistics and
     arithmetic, so its output is ``MinResBN2d``'s followed by
-    ``F.max_pool2d``, bit for bit), whose backward keeps x and the code in
-    place of the pool's input and int64 indices. Parameters, buffers, eval
-    mode and layout as ``StemBNReLUPool``."""
+    ``F.max_pool2d``, bit for bit, and a backward that keeps x and an
+    argmax code a pooled value in place of the pool's input and int64
+    indices. Any other input, and eval mode, takes that composition itself.
+    Parameters, buffers and layout as ``MinResBN2d``'s."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__(num_features, eps, momentum)
 
     def forward(self, x):
-        return self._pool(x, bn_relu_pool)
+        if self.training and takes(x.permute(0, 2, 3, 1)):
+            return _train_pool(self, x, bn_relu_pool)
+        return _max_pool(super().forward(x))
 
 
 class BatchNorm1d(nn.BatchNorm1d):

@@ -2,7 +2,8 @@
 
 Port of cl_ica_tpu/models/resnet.py: the 3DIdent image encoder's
 backbone. 7×7/2 stem convolution (padding 3, no bias), norm → relu → 3×3/2
-max pool (or the fused ``StemBNReLUPool``), four stages of ``BasicBlock``
+max pool (with 'minres' the norm, relu and pool of ``MinResBNPool``; or the
+fused ``StemBNReLUPool``), four stages of ``BasicBlock``
 (18/34) or ``Bottleneck`` (50/101/152), global mean pool, ``Linear``,
 float32 output. The last norm of every block starts with a zero scale.
 
@@ -16,17 +17,24 @@ the Flax names onto: ``conv_init``, ``bn_init``, ``blocks.i`` ←
 ``norm_kind`` 'batch', 'fast' and 'minres' are the same mathematics in
 the JAX package (three ways to spend less device memory on a TPU).
 'batch' and 'fast' are one module here, ``FastBatchNorm2d``, under
-autograd. 'minres' (the drivers' default) is ``MinResBN2d``, as the JAX
-package's ``fused_bn`` blocks run it: the stem's norm and each block's
-first norms fuse the relu, the projection's norm has none, and a block's
+autograd. The stem of 'minres' (the CLIs' default) is ``MinResBNPool``: in
+training, where its kernels take the stem's map, the norm, relu and pool
+are one function (ops/pool_minres.py ``bn_relu_pool``) whose backward keeps
+x and a uint8 argmax code, with the output of the JAX package's norm, relu
+and max pool bit for bit; elsewhere it is ``MinResBN2d`` then
+``F.max_pool2d``. The blocks' norms are ``MinResBN2d``, as the JAX
+package's ``fused_bn`` blocks run them: each block's first norms fuse the
+relu, the projection's norm has none, and a block's
 last norm takes the shortcut and fuses the add and the relu, each one
 function whose backward keeps only x (and, for a block's last norm, the
 block's output) (ops/bn_minres.py). 'minres8' is the same with the float8
 residual (``MinResBN2d(residuals_f8=True)``, ops/bn_minres8.py).
 
-The JAX package's other options: ``stem_pool='argmax'`` with 'minres' puts
-``MinResBNPool`` (ops/pool_minres.py) at the stem's norm, relu and pool; with
-'minres8' it raises, as there; with the other kinds, and under
+The JAX package's other options: ``stem_pool='argmax'`` with 'minres' is
+its ``MinResBNPool`` at the stem's norm, relu and pool, which 'minres' has
+here whatever ``stem_pool``; with 'minres8' it raises, as there (minres8
+keeps ``MinResBN2d`` and the library's pool at its stem: the argmax pool
+has no float8 residual); with the other kinds, and under
 ``fused_stem_pool``, it is ignored, as there. ``stem='s2d'`` is a 2×2
 space-to-depth (3 → 12 channels) and a 4×4 stride-1 'SAME' convolution;
 ``stem='s2d_exact'`` computes conv7's function from conv7's (64, 3, 7, 7)
@@ -244,7 +252,7 @@ class ResNet(nn.Module):
                           else _Conv(in_channels, num_filters, 7, 2, 3))
         if fused_stem_pool:
             self.bn_init = StemBNReLUPool(num_filters, eps=1e-5, momentum=0.1)
-        elif argmax and norm_kind == "minres":
+        elif norm_kind == "minres":  # either stem_pool
             self.bn_init = MinResBNPool(num_filters, eps=1e-5, momentum=0.1)
         else:  # stem_pool='argmax' with another norm is ignored, as in JAX
             self.bn_init = _norm(norm_kind, num_filters)
@@ -283,8 +291,8 @@ class ResNet(nn.Module):
             x = self.conv_init(space_to_depth(x))
         else:
             x = self.conv_init(x)
-        if isinstance(self.bn_init, StemBNReLUPool):  # norm, relu and pool
-            x = self.bn_init(x)
+        if isinstance(self.bn_init, (StemBNReLUPool, MinResBNPool)):
+            x = self.bn_init(x)  # norm, relu and pool
         elif isinstance(self.bn_init, MinResBN2d):  # norm and relu in one
             x = F.max_pool2d(self.bn_init(x), kernel_size=3, stride=2, padding=1)
         else:

@@ -30,10 +30,10 @@ Launches are counted (``ops.launch_counts``). Under a data-parallel mesh
 in ops/bn_minres.py.
 
 Layout: (N, H, W, C) dense, H and W even (otherwise it raises, as the JAX
-function does), C a multiple of the 16-byte vector, at most 256 vectors.
-On CPU tensors the plain versions run (``pool_code_reference``,
-``pool_scatter_reference`` and ops/bn_minres.py's); on CUDA tensors the
-kernels, or it raises.
+function does), C a multiple of the 16-byte vector, at most 256 vectors;
+``takes(x)`` says whether the kernels take x. On CPU tensors the plain
+versions run (``pool_code_reference``, ``pool_scatter_reference`` and
+ops/bn_minres.py's); on CUDA tensors the kernels, or it raises.
 """
 
 from __future__ import annotations
@@ -183,6 +183,19 @@ def launch_pool_scatter(dp, code, h: int, w: int):
 # ---------------------------------------------------------------------------
 # the public function
 # ---------------------------------------------------------------------------
+
+
+def takes(x: torch.Tensor) -> bool:
+    """Whether the kernels take x (N, H, W, C): float32 or bfloat16, and the
+    shapes ``stem._check_shape`` admits (H and W even, C a multiple of the
+    16-byte vector, at most 256 vectors)."""
+    if x.ndim != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+        return False
+    try:
+        _check_shape(x)
+    except ValueError:
+        return False
+    return True
 
 
 class _BnReluPoolCode(torch.autograd.Function):

@@ -245,6 +245,43 @@ def test_module_is_the_minres_norm_and_max_pool(dtype):
         assert _rel(_np(g), _np(w)) <= tol
 
 
+# (C, H, W, dtype, whether the kernels take it): a --mesh-model M rank's
+# stem holds C/M of the 64 channels; 4 and 12 are no multiple of
+# bfloat16's 8-channel vector, 6 of float32's 4; 1028 float32 channels are
+# 257 vectors; 7 rows are odd
+_ROUTES = [(8, 8, 8, torch.float32, True), (8, 8, 8, torch.bfloat16, True),
+           (4, 8, 8, torch.float32, True), (4, 8, 8, torch.bfloat16, False),
+           (12, 6, 8, torch.bfloat16, False), (6, 8, 8, torch.float32, False),
+           (1028, 2, 2, torch.float32, False), (8, 7, 8, torch.float32, False),
+           (8, 8, 8, torch.float16, False)]
+
+
+@pytest.mark.parametrize("c, h, w, dtype, fused", _ROUTES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_module_routes_by_what_the_kernels_take(monkeypatch, c, h, w, dtype, fused):
+    # training mode runs bn_relu_pool where pm.takes says its kernels take
+    # the map, and MinResBN2d then F.max_pool2d elsewhere; both give the
+    # composition's output and running buffers bit for bit
+    import cl_ica_tpu_torch.models.layers as layers
+    calls, real = [], layers.bn_relu_pool
+    monkeypatch.setattr(layers, "bn_relu_pool",
+                        lambda x, *a, **k: calls.append(x.shape) or real(x, *a, **k))
+    g = torch.Generator().manual_seed(c + h)
+    x = (2 * torch.randn(2, h, w, c, generator=g)).to(dtype)
+    assert pm.takes(x) is fused
+    outs = []
+    for norm in (MinResBNPool(c), MinResBN2d(c)):
+        with torch.no_grad():
+            norm.bias.normal_(generator=torch.Generator().manual_seed(1))
+        xs = x.permute(0, 3, 1, 2).requires_grad_()
+        p = norm.train()(xs) if isinstance(norm, MinResBNPool) else F.max_pool2d(
+            norm.train()(xs), 3, 2, 1)
+        p.float().sum().backward()
+        outs.append((p.detach(), norm.running_mean, norm.running_var))
+    assert len(calls) == int(fused)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
 def test_module_eval_is_the_plain_composition():
     norm = MinResBNPool(4)
     norm.running_mean.normal_(generator=torch.Generator().manual_seed(0))

@@ -2,8 +2,9 @@
 
 Each ResNet18 check runs three variants (``VARIANTS``): the unfused stem
 and the fused one (``fused_stem_pool``) with norm_kind='fast', and
-norm_kind='minres' (the drivers' default: ``MinResBN2d`` in every norm,
-the JAX package's ``fused_bn`` blocks) against the Flax model of the same
+norm_kind='minres' (the CLIs' default: ``MinResBN2d`` in every block's
+norm, the JAX package's ``fused_bn`` blocks, and ``MinResBNPool`` at the
+stem) against the Flax model of the same
 kind, with the same values converted to its variable names.
 
 Flax variables (the tree and shapes of ``init``, the values from numpy:
@@ -551,3 +552,127 @@ def test_initialisation_follows_the_generator_and_the_jax_initialisers():
     (56, 1, 2, (0, 0)), (8, 1, 1, (0, 0))])
 def test_same_padding_is_the_jax_rule(size, kernel, stride, want):
     assert _same_padding(size, kernel, stride) == want
+
+
+# ---------------------------------------------------------------------------
+# the minres stem's route: norm, relu and pool in one function where its
+# kernels take the stem's map, the composition MinResBN2d → F.max_pool2d
+# (the library's pool) elsewhere
+# ---------------------------------------------------------------------------
+
+
+def _spied_pool(monkeypatch):
+    """Calls of ops/pool_minres.py's bn_relu_pool from the models."""
+    from cl_ica_tpu_torch.models import layers
+    calls, real = [], layers.bn_relu_pool
+    monkeypatch.setattr(
+        layers, "bn_relu_pool",
+        lambda x, *a, **k: calls.append(tuple(x.shape)) or real(x, *a, **k))
+    return calls
+
+
+def _stem_pair(dtype, stem_pool="xla"):
+    """A minres ResNet18 and its copy whose stem is the composition
+    MinResBN2d → F.max_pool2d, the same values in both; every norm's scale
+    off its initial 0 or 1, the stem's bias off 0."""
+    model = ResNet18(num_classes=5, norm_kind="minres", dtype=dtype,
+                     stem_pool=stem_pool, generator=torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MinResBN2d):
+                m.weight.copy_(1.0 + 0.3 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=g))
+    plain = ResNet18(num_classes=5, norm_kind="minres", dtype=dtype)
+    plain.bn_init = MinResBN2d(64, eps=1e-5, momentum=0.1)
+    plain.load_state_dict(model.state_dict())
+    return model, plain
+
+
+def _step(model, x):
+    """Output, running buffers and parameter gradients of one training
+    forward and backward, and the dtypes autograd saved for the backward."""
+    model.train().zero_grad()
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t.dtype) or t, lambda t: t):
+        out = model(x)
+    torch.sin(out).sum().backward()
+    return (out.detach(), {k: b.clone() for k, b in model.named_buffers()},
+            {k: p.grad for k, p in model.named_parameters()}, saved)
+
+
+@pytest.mark.parametrize("stem_pool", ["xla", "argmax"])
+@pytest.mark.parametrize("size", [32, 30], ids=["even-stem", "odd-stem"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_minres_stem_takes_bn_relu_pool_where_its_kernels_take_the_map(
+        monkeypatch, dtype, size, stem_pool):
+    # a 32x32 image gives a 16x16 stem map, which the code and scatter
+    # kernels take: one bn_relu_pool call a forward, no int64 pool indices
+    # saved; a 30x30 image gives 15x15, which they refuse: the composition.
+    # Either way the output and the running buffers equal the composition's
+    # bit for bit and the gradients its at the bars of
+    # test_module_is_the_minres_norm_and_max_pool (ops/pool_minres.py)
+    model, plain = _stem_pair(dtype, stem_pool)
+    x = _nchw(_images(20, size=size))
+    calls = _spied_pool(monkeypatch)
+    out, bufs, grads, saved = _step(model, x)
+    fused = size == 32
+    assert calls == ([(4, size // 2, size // 2, 64)] if fused else [])
+    assert (torch.int64 in saved) is not fused
+    calls.clear()
+    want_out, want_bufs, want_grads, want_saved = _step(plain, x)
+    assert not calls and torch.int64 in want_saved
+    assert torch.equal(out, want_out)
+    assert bufs.keys() == want_bufs.keys()
+    assert all(torch.equal(bufs[k], want_bufs[k]) for k in bufs)
+    tol = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert grads.keys() == want_grads.keys()
+    for k, w in want_grads.items():
+        err = float((grads[k] - w).abs().max() / w.abs().max().clamp(min=1e-30))
+        assert err <= tol, (k, err)
+    if not fused:
+        assert all(torch.equal(grads[k], want_grads[k]) for k in grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_minres_stem_in_eval_is_the_composition(monkeypatch, dtype):
+    model, plain = _stem_pair(dtype)
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        model.bn_init.running_mean.normal_(generator=g)
+        model.bn_init.running_var.uniform_(0.5, 2.0, generator=g)
+    plain.load_state_dict(model.state_dict())
+    calls = _spied_pool(monkeypatch)
+    x = _nchw(_images(21))
+    with torch.no_grad():
+        assert torch.equal(model.eval()(x), plain.eval()(x))
+    assert not calls
+
+
+@pytest.mark.parametrize("kind, stem", [
+    ("minres8", "MinResBN2d"), ("fast", "FastBatchNorm2d"),
+    ("batch", "FastBatchNorm2d"), ("none", "Identity")])
+def test_other_norm_kinds_keep_their_stems(monkeypatch, kind, stem):
+    # minres8's stem keeps its float8 residual (the argmax Function has
+    # none); fast, batch and none have no minres stem in the JAX package
+    model = ResNet18(num_classes=5, norm_kind=kind,
+                     generator=torch.Generator().manual_seed(8)).train()
+    assert type(model.bn_init).__name__ == stem
+    calls = _spied_pool(monkeypatch)
+    model(_nchw(_images(22))).square().sum().backward()
+    assert not calls
+
+
+@pytest.mark.parametrize("stem_pool", ["xla", "argmax"])
+def test_minres_state_dict_is_the_composition_models(stem_pool):
+    # the keys, shapes and dtypes of a model whose stem is MinResBN2d, so
+    # that checkpoints from before the route load, and the Flax names of
+    # models/convert.py
+    model, plain = _stem_pair(None, stem_pool)
+    got, want = model.state_dict(), plain.state_dict()
+    assert list(got) == list(want)
+    assert all(got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+               for k in got)
+    assert (_flat(resnet_params_to_flax(got, "MinResBN")).keys()
+            == _flat(resnet_params_to_flax(want, "MinResBN")).keys())
