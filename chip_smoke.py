@@ -30,8 +30,9 @@ use) and no network, and it exits non-zero on any failure. Phases:
              small ragged shapes, tied inputs, C of 256 vectors, and the
              full (1024, 112, 112, 64); two backward calls, bit for bit.
              The minres norm's four kernels (bn_stats, bn_apply, bn_bwd,
-             bn_dx; the "bn" part) at every norm shape of ResNet18 at 1024
-             images and two ragged ones, float32 and bfloat16, for each of
+             bn_dx; the "bn" part) at every norm shape of ResNet18 and of
+             ResNet-50's blocks at 1024 images (C = 64 to 2048, 112x112 down
+             to 7x7) and two ragged ones, float32 and bfloat16, for each of
              bn_relu, bn_add_relu and bn_only: the statistics against
              float64 sums, apply (y), the backward sums and dx (with g)
              against their plain versions given the plain version's a, b
@@ -93,7 +94,9 @@ use) and no network, and it exits non-zero on any failure. Phases:
              main_mlp p=2 and p=0 (B=6144), main_kitti default and
              --augment, and main_3dident --scan --fused-stem, --scan on
              the default path and --scan --optimizer sgd --lr-cosine on it
-             (ResNet18, B=512), a lane's eager steps
+             (ResNet18, B=512), and --scan --bf16 --encoder rn50 on it
+             (ResNet-50, B=512: RN50_STEP, the 53 norms' kernels and the
+             stem's code and scatter), a lane's eager steps
              against another lane's warm-up,
              capture and replays from the same seed, losses and
              parameters bit for bit (KITTI and 3DIdent under
@@ -316,6 +319,14 @@ RN18_NORMS = (STEM_FULL, (1024, 56, 56, 64), (1024, 28, 28, 128),
 BN_FUNCTIONS = (("bn_relu", False, True), ("bn_add_relu", True, True),
                 ("bn_only", False, False))  # (name, residual add, relu)
 BN_NORMS_A_STEP = 20  # ResNet18's norms, each one launch of each bn kernel
+# every norm of ResNet-50's bottleneck blocks at 1024 images (its stem's is
+# ResNet18's): at (7, 7, 2048) a bfloat16 row is one block's threads, so a
+# block takes one position a pass and the sums write a (2, 528, 2048)
+# partial for their reduction
+RN50_NORMS = tuple((1024, h, h, c) for h, c in (
+    (56, 64), (56, 128), (56, 256), (28, 128), (28, 256), (28, 512),
+    (14, 256), (14, 512), (14, 1024), (7, 512), (7, 2048)))
+RN50_NORMS_A_STEP = 53
 POOL = ("pool_code", "pool_scatter")  # the argmax-code pool's
 # the default minres path a step: the stem's norm, relu and pool are
 # ops/pool_minres.py bn_relu_pool (its statistics, the code and scatter,
@@ -323,6 +334,9 @@ POOL = ("pool_code", "pool_scatter")  # the argmax-code pool's
 MINRES_STEP = {"bn_stats": BN_NORMS_A_STEP, "bn_apply": BN_NORMS_A_STEP - 1,
                "bn_bwd": BN_NORMS_A_STEP, "bn_dx": BN_NORMS_A_STEP,
                **dict.fromkeys(POOL, 1)}
+# the same path with ResNet-50's 53 norms
+RN50_STEP = {**dict.fromkeys(BN, RN50_NORMS_A_STEP),
+             "bn_apply": RN50_NORMS_A_STEP - 1, **dict.fromkeys(POOL, 1)}
 # The statistics against float64 sums (the kernel adds in double, so its
 # error is a float32 rounding or two); the channel sums against torch.sum's
 # float32 sums; y, g and dx as the stem's maps.
@@ -1393,9 +1407,10 @@ def phase_bn_kernels(worst: dict) -> None:
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(3)
     for dtype in (torch.float32, torch.bfloat16):
-        # every norm shape of ResNet18 at 1024 images, and two that cut C
-        # into slices (more than 256 vectors) or end a block's pass early
-        for shape in RN18_NORMS + ((3, 5, 7, 2064), (2, 3, 5, 24)):
+        # every norm shape of ResNet18 and ResNet-50 at 1024 images, and two
+        # that cut C into slices (more than 256 vectors) or end a block's
+        # pass early
+        for shape in RN18_NORMS + RN50_NORMS + ((3, 5, 7, 2064), (2, 3, 5, 24)):
             _hold_bn(shape, dtype, gen, worst)
             torch.cuda.empty_cache()
     _hold_bn_functions(gen, worst)
@@ -2334,6 +2349,14 @@ def phase_capture(smi: str) -> None:
                   functools.partial(_3dident_capture_lane, sampler, "--optimizer",
                                     "sgd", "--lr-cosine"),
                   default_path, 6, 512, None))
+    # ResNet-50's bottleneck blocks in bfloat16 (the benchmark's rn50 cell):
+    # a step's activations take half the card, and the lanes' steps run in
+    # turn, each freeing its own
+    cases.append(("main_3dident --scan --bf16 --encoder rn50 ResNet-50 B=512 "
+                  "(default path)",
+                  functools.partial(_3dident_capture_lane, sampler, "--bf16",
+                                    "--encoder", "rn50"),
+                  {**dict.fromkeys(LP + DOT, 1), **RN50_STEP}, 3, 512, None))
     was = torch.backends.cudnn.deterministic
     for tag, make, per_step, replays, pairs, steps in cases:
         # bit for bit needs cuDNN's deterministic algorithms (KITTI,

@@ -89,7 +89,14 @@ from ..evaluation import linear_disentanglement, permutation_disentanglement
 from ..losses import LpSimCLRLoss, R2Loss, SimCLRLoss
 from ..models import construct_invertible_mlp, get_mlp
 from ..models.layers import RescaleLayer, SoftclipLayer
-from ..models.resnet import ResNet18, ResNet50, ResNet101, ResNet152, lecun_normal_
+from ..models.resnet import (
+    FWD_LAYER,
+    ResNet18,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+    lecun_normal_,
+)
 from ..ops.collectives import gather_rows
 from ..parallel import (
     gspmd_safe_loss,
@@ -585,7 +592,7 @@ def unsupervised_objective(model, split_loss, x1, x2):
     (total, per-item) loss."""
     b = x1.shape[0]
     z = model(torch.cat([x1, x2], dim=0))
-    profiling.mark("backbone_fwd")
+    profiling.mark(FWD_LAYER)
     z1r, z2r = z[:b], z[b:]
     total, per_item, _ = split_loss(z1r, z2r, torch.roll(z1r, 1, dims=0))
     profiling.mark("loss")

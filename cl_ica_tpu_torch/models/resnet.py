@@ -47,6 +47,13 @@ alone (``layers.recomputing``), so a step updates them once.
 ``dtype=torch.bfloat16`` computes the backbone in bfloat16 the way the
 MLP encoder does: parameters stay float32 and are cast at use, the
 norms' statistics are float32, and the output is float32.
+
+In training, the forward marks the parts of the step's FWD_LAYER layer
+(utils/profiling.py; cli/main_3dident.py marks the layer itself after the
+forward): ``backbone_fwd.stem`` after the stem's pool and
+``backbone_fwd.stage1`` to ``.stage4`` after each stage's last block.
+Outside a marked step a mark does nothing; the blocks that ``remat``
+recomputes hold none.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils import profiling
 from .layers import (
     FastBatchNorm2d,
     Linear,
@@ -71,6 +79,7 @@ from .layers import (
 )
 
 _NORM_KINDS = ("batch", "fast", "minres", "minres8", "none")
+FWD_LAYER = "backbone_fwd"  # the step's layer whose parts the forward marks
 _MINRES = ("minres", "minres8")
 _STEMS = ("conv7", "s2d", "s2d_exact")
 
@@ -257,12 +266,14 @@ class ResNet(nn.Module):
         else:  # stem_pool='argmax' with another norm is ignored, as in JAX
             self.bn_init = _norm(norm_kind, num_filters)
         blocks, c_in = [], num_filters
+        self.stage_ends = {}  # index of a stage's last block -> its mark
         for i, size in enumerate(stage_sizes):
             for j in range(size):
                 filters = num_filters * 2 ** i
                 blocks.append(block_cls(c_in, filters,
                                         2 if i > 0 and j == 0 else 1, norm_kind))
                 c_in = filters * block_cls.expansion
+            self.stage_ends[len(blocks) - 1] = f"{FWD_LAYER}.stage{i + 1}"
         self.blocks = nn.ModuleList(blocks)
         self.fc = Linear(c_in, num_classes)
         self.reset_parameters(generator)
@@ -298,11 +309,15 @@ class ResNet(nn.Module):
         else:
             x = F.max_pool2d(F.relu(self.bn_init(x)), kernel_size=3, stride=2,
                              padding=1)
+        if self.training:
+            profiling.mark(f"{FWD_LAYER}.stem")
         remat = self.remat and torch.is_grad_enabled()
-        for block in self.blocks:
+        for k, block in enumerate(self.blocks):
             # no block draws random numbers: nothing to stash or restore
             x = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
                             context_fn=_checkpoint_contexts) if remat else block(x))
+            if self.training and k in self.stage_ends:
+                profiling.mark(self.stage_ends[k])
         x = x.mean(dim=(2, 3))
         x = self.fc(x)
         return x.float()

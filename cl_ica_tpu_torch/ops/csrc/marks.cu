@@ -16,7 +16,7 @@
 
 #include <cuda_runtime.h>
 
-constexpr int kMaxSlots = 8;
+constexpr int kMaxSlots = 16;
 
 template <int K>
 __global__ void clica_mark(long long* ring, long long* counter, int rows,
@@ -64,7 +64,15 @@ int clica_mark_launch(int k, void* ring, void* counter, int rows, int slots,
     case 4: launch<4>(r, c, rows, slots, st); break;
     case 5: launch<5>(r, c, rows, slots, st); break;
     case 6: launch<6>(r, c, rows, slots, st); break;
-    default: launch<7>(r, c, rows, slots, st); break;
+    case 7: launch<7>(r, c, rows, slots, st); break;
+    case 8: launch<8>(r, c, rows, slots, st); break;
+    case 9: launch<9>(r, c, rows, slots, st); break;
+    case 10: launch<10>(r, c, rows, slots, st); break;
+    case 11: launch<11>(r, c, rows, slots, st); break;
+    case 12: launch<12>(r, c, rows, slots, st); break;
+    case 13: launch<13>(r, c, rows, slots, st); break;
+    case 14: launch<14>(r, c, rows, slots, st); break;
+    default: launch<15>(r, c, rows, slots, st); break;
   }
   return (int)cudaGetLastError();
 }

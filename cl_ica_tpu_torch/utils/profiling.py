@@ -13,7 +13,11 @@ Layer marks. A step body runs inside ``step(device)``, which opens the step
 with mark 0, and calls ``mark(name)`` at the end of each of its layers
 (sample, encoder_fwd, loss, backward, optimizer in
 train/trainer.py; data, backbone_fwd, loss, backward, optimizer in
-cli/main_3dident.py). On the card a mark is the one-thread kernel
+cli/main_3dident.py). A dotted name ``layer.part`` ends a part of the layer
+whose own mark follows its parts (models/resnet.py marks
+backbone_fwd.stem and backbone_fwd.stage1 to .stage4 inside backbone_fwd):
+a part is read from the mark before it, a layer from the layer's mark
+before it, across its parts. On the card a mark is the one-thread kernel
 ``clica_mark<k>`` (ops/csrc/marks.cu), k its index in the step, which
 writes the device clock into a ring of RING_ROWS steps × RING_SLOTS
 stamps held by this module. ``CapturedStep`` (train/capture.py) captures
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 RING_ROWS = 1024   # steps the ring holds
-RING_SLOTS = 8     # marks a step: mark 0 and up to seven layers
+RING_SLOTS = 16    # marks a step: mark 0 and up to fifteen layers and parts
 SPAN_KEEP = 4096   # calls kept of each host span
 
 
@@ -316,9 +320,11 @@ def read_ring(table: np.ndarray, counter: int, records) -> tuple:
     """({layer: [ms of each stamped step]}, [µs from a step's last mark to
     the next step's mark 0]) from a ring's (rows, slots) stamps in ns, its
     step counter, and the host's records (number, names, whether the step
-    before was stamped). A step the ring no longer holds (more than rows
-    ago) is skipped; a gap is read only between consecutive stamped steps
-    that the ring holds both of."""
+    before was stamped). A part (a dotted name) is read from the mark
+    before it, a layer from the last layer's mark (or mark 0), across the
+    parts between. A step the ring no longer holds (more than rows ago) is
+    skipped; a gap is read only between consecutive stamped steps that the
+    ring holds both of."""
     rows = table.shape[0]
     layers, gaps, before = {}, [], None
     for n, names, follows in records:
@@ -326,8 +332,13 @@ def read_ring(table: np.ndarray, counter: int, records) -> tuple:
         if t is None or not t.all():
             before = None
             continue
+        layer_start = t[0]
         for name, a, b in zip(names, t[:-1], t[1:]):
-            layers.setdefault(name, []).append(float(b - a) * 1e-6)
+            part = "." in name
+            start = a if part else layer_start
+            layers.setdefault(name, []).append(float(b - start) * 1e-6)
+            if not part:
+                layer_start = b
         if follows and before is not None and before[0] == n - 1:
             gaps.append(float(t[0] - before[1]) * 1e-3)
         before = (n, t[-1])

@@ -33,7 +33,10 @@ from portbench.lib import stamps
 torch.set_num_threads(1)
 
 MLP_LAYERS = ["sample", "encoder_fwd", "loss", "backward", "optimizer"]
-THREEDIDENT_LAYERS = ["data", "backbone_fwd", "loss", "backward", "optimizer"]
+THREEDIDENT_LAYERS = ["data", "backbone_fwd.stem", "backbone_fwd.stage1",
+                      "backbone_fwd.stage2", "backbone_fwd.stage3",
+                      "backbone_fwd.stage4", "backbone_fwd", "loss", "backward",
+                      "optimizer"]
 
 
 @pytest.fixture(autouse=True)
@@ -141,9 +144,32 @@ def test_a_mark_outside_a_step_does_nothing_and_a_step_holds_seven():
                 profiling.mark("inner")
             for k in range(profiling.RING_SLOTS - 2):
                 profiling.mark(f"m{k}")
-            with pytest.raises(ValueError, match="at most 7 marks"):
+            with pytest.raises(ValueError,
+                               match=f"at most {profiling.RING_SLOTS - 1} marks"):
                 profiling.mark("one too many")
-    assert list(profiling.readings()["layers"]) == ["inner"] + [f"m{k}" for k in range(6)]
+    assert list(profiling.readings()["layers"]) == ["inner"] + [
+        f"m{k}" for k in range(profiling.RING_SLOTS - 2)]
+
+
+def test_resnet_parts_are_marked_once_in_training_and_never_in_eval():
+    """The stem and stage marks of a training forward, once each whatever
+    the backward recomputes (remat's blocks hold no mark); an eval forward
+    inside a step marks nothing."""
+    from cl_ica_tpu_torch.models import ResNet18
+
+    parts = [n for n in THREEDIDENT_LAYERS if n.startswith("backbone_fwd.")]
+    x = torch.randn(2, 3, 32, 32)
+    for remat in (False, True):
+        profiling.clear()
+        model = ResNet18(num_classes=4, norm_kind="minres", remat=remat)
+        with torch.profiler.profile():
+            with profiling.step("cpu"):
+                model(x).sum().backward()
+            with profiling.step("cpu"):
+                model.eval()
+                with torch.no_grad():
+                    model(x)
+        assert [r[1] for r in profiling.ring("cpu").records] == [parts, []]
 
 
 def test_the_readings_refuse_a_ring_the_host_did_not_count():
@@ -198,6 +224,33 @@ def test_read_ring_with_the_counter_at_zero_or_a_row_missing_a_stamp():
     table[2 % 8, 2] = 0  # step 2's last mark never ran
     layers, gaps = profiling.read_ring(table, counter, records)
     assert len(layers["a"]) == 3 and gaps == [7.0]  # only 3 → 4
+
+
+def test_read_ring_reads_a_layer_across_its_parts():
+    """A dotted name is a part of the layer whose mark follows: a part reads
+    from the mark before it, the layer from the layer's mark before it."""
+    # mark 0 at 0, data at 2 µs, stem 3, stage1 7, stage2 8, backbone_fwd
+    # 12, loss 13; the next step's mark 0 at 20 µs
+    names = ("data", "backbone_fwd.stem", "backbone_fwd.stage1",
+             "backbone_fwd.stage2", "backbone_fwd", "loss")
+    marks = np.array([0, 2, 3, 7, 8, 12, 13], dtype=np.int64) * 1000
+    table = np.zeros((8, len(marks)), dtype=np.int64)
+    table[1] = marks + 1000
+    table[2] = marks + 21000
+    records = [(1, names, False), (2, names, True)]
+    layers, gaps = profiling.read_ring(table, 2, records)
+    want = {"data": 2e-3, "backbone_fwd.stem": 1e-3, "backbone_fwd.stage1": 4e-3,
+            "backbone_fwd.stage2": 1e-3, "backbone_fwd": 10e-3, "loss": 1e-3}
+    assert list(layers) == list(names)
+    assert layers == {k: [pytest.approx(v)] * 2 for k, v in want.items()}
+    assert gaps == [7.0]
+    # without its parts the layer reads the same interval
+    plain = ("data", "backbone_fwd", "loss")
+    flat = np.zeros((8, 4), dtype=np.int64)
+    flat[1] = marks[[0, 1, 5, 6]] + 1000
+    layers, _ = profiling.read_ring(flat, 1, [(1, plain, False)])
+    assert layers == {"data": [pytest.approx(2e-3)], "backbone_fwd": [pytest.approx(10e-3)],
+                      "loss": [pytest.approx(1e-3)]}
 
 
 def test_summary_of_readings():
@@ -260,6 +313,8 @@ NEW_METRICS = {
     "graph_optimizer_ms": ("layers", "optimizer"),
     "replay_gap_us": ("replay_gap_us", None),
     "evaluate_span_ms": ("spans", "clica.evaluate"),
+    **{f"graph_stage{k}_fwd_ms.3dident": ("layers", f"backbone_fwd.stage{k}")
+       for k in range(1, 5)},
 }
 
 
@@ -305,11 +360,16 @@ def test_entry_keeps_the_contract(metric):
     assert m["layer"] in LAYERS and "\n" not in m["layer"] and len(m["layer"]) <= 200
     assert m["workloads"] and set(m["workloads"]) <= set(CELLS)
     suffix = metric.rsplit(".", 1)[1] if "." in metric else None
-    family = {"mlp": "mlp_n10", "3dident": "resnet18_3dident"}.get(suffix)
+    family = {"mlp": {"mlp_n10"},
+              "3dident": {"resnet18_3dident", "resnet50_3dident"}}.get(suffix)
     if family:
-        assert {CELLS[c]["config"] for c in m["workloads"]} == {family}
+        assert {CELLS[c]["config"] for c in m["workloads"]} == family
     assert callable(cells.load_module("metrics", metric).read)
-    assert BENCH["per_layer"].index(m) >= len(BENCH["per_layer"]) - len(NEW_METRICS)
+    # the readers sit together, after every metric the harness read itself
+    names = [e["name"] for e in BENCH["per_layer"]]
+    block = sorted(names.index(n) for n in NEW_METRICS)
+    assert block == list(range(block[0], block[0] + len(NEW_METRICS)))
+    assert all(e["source"] != "program_span" for e in BENCH["per_layer"][:block[0]])
 
 
 # ---------------------------------------------------------------------------
