@@ -34,11 +34,14 @@ use) and no network, and it exits non-zero on any failure. Phases:
              ResNet-50's blocks at 1024 images (C = 64 to 2048, 112x112 down
              to 7x7) and two ragged ones, float32 and bfloat16, for each of
              bn_relu, bn_add_relu and bn_only: the statistics against
-             float64 sums, apply (y), the backward sums and dx (with g)
-             against their plain versions given the plain version's a, b
-             and sums, two calls bit for bit; then the three functions
-             whole (forward and backward through the kernels) against
-             float64 at (16, 28, 28, 64)
+             float64 sums, apply (y), the backward sums (with bn_add_relu's
+             g) and dx against their plain versions given the plain
+             version's a, b and sums, two calls bit for bit; bn_add_relu's
+             backward with two upstream gradients (a block junction's)
+             against PyTorch's add of them and the one-addend backward, the
+             sums, g and dx bit for bit; then the three functions whole
+             (forward and backward through the kernels) against float64 at
+             (16, 28, 28, 64)
   3 parity   loss and every encoder grad of one training step at full
              width (n=10, 100-500-500-500-500-100, B=6144), fused vs not,
              for three configurations
@@ -95,8 +98,9 @@ use) and no network, and it exits non-zero on any failure. Phases:
              --augment, and main_3dident --scan --fused-stem, --scan on
              the default path and --scan --optimizer sgd --lr-cosine on it
              (ResNet18, B=512), and --scan --bf16 --encoder rn50 on it
-             (ResNet-50, B=512: RN50_STEP, the 53 norms' kernels and the
-             stem's code and scatter), a lane's eager steps
+             (ResNet-50, B=512: RN50_STEP, the 53 norms' kernels, 15
+             block junctions and the stem's code and scatter; ResNet18's
+             MINRES_STEP has 7), a lane's eager steps
              against another lane's warm-up,
              capture and replays from the same seed, losses and
              parameters bit for bit (KITTI and 3DIdent under
@@ -319,6 +323,9 @@ RN18_NORMS = (STEM_FULL, (1024, 56, 56, 64), (1024, 28, 28, 128),
 BN_FUNCTIONS = (("bn_relu", False, True), ("bn_add_relu", True, True),
                 ("bn_only", False, False))  # (name, residual add, relu)
 BN_NORMS_A_STEP = 20  # ResNet18's norms, each one launch of each bn kernel
+# the block outputs whose backward takes two upstream gradients (every
+# block's but the last, whose one edge is the mean pool): bn_junctions
+BN_JUNCTIONS_A_STEP = 7
 # every norm of ResNet-50's bottleneck blocks at 1024 images (its stem's is
 # ResNet18's): at (7, 7, 2048) a bfloat16 row is one block's threads, so a
 # block takes one position a pass and the sums write a (2, 528, 2048)
@@ -327,16 +334,19 @@ RN50_NORMS = tuple((1024, h, h, c) for h, c in (
     (56, 64), (56, 128), (56, 256), (28, 128), (28, 256), (28, 512),
     (14, 256), (14, 512), (14, 1024), (7, 512), (7, 2048)))
 RN50_NORMS_A_STEP = 53
+RN50_JUNCTIONS_A_STEP = 15
 POOL = ("pool_code", "pool_scatter")  # the argmax-code pool's
 # the default minres path a step: the stem's norm, relu and pool are
 # ops/pool_minres.py bn_relu_pool (its statistics, the code and scatter,
 # and bn_relu's backward sums and dx), the other 19 norms minres's
 MINRES_STEP = {"bn_stats": BN_NORMS_A_STEP, "bn_apply": BN_NORMS_A_STEP - 1,
                "bn_bwd": BN_NORMS_A_STEP, "bn_dx": BN_NORMS_A_STEP,
+               "bn_junctions": BN_JUNCTIONS_A_STEP,
                **dict.fromkeys(POOL, 1)}
 # the same path with ResNet-50's 53 norms
 RN50_STEP = {**dict.fromkeys(BN, RN50_NORMS_A_STEP),
-             "bn_apply": RN50_NORMS_A_STEP - 1, **dict.fromkeys(POOL, 1)}
+             "bn_apply": RN50_NORMS_A_STEP - 1,
+             "bn_junctions": RN50_JUNCTIONS_A_STEP, **dict.fromkeys(POOL, 1)}
 # The statistics against float64 sums (the kernel adds in double, so its
 # error is a float32 rounding or two); the channel sums against torch.sum's
 # float32 sums; y, g and dx as the stem's maps.
@@ -402,6 +412,8 @@ KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
                      "cl_ica_tpu/ops/pool_minres.py:92 (_dz_stencil; XLA "
                      "pass, not a pallas_call)"),
 }
+# every launch counter (ops.launch_counts): the kernels' and bn_junctions
+COUNTERS = (*KERNELS, "bn_junctions")
 _RUN = ("--n 10 --batch-size 6144 --only-unsupervised --n-steps 100 "
         "--n-log-steps 50 --num-eval-batches 2 --seed 0").split()
 HEADLINE = "--space-type sphere --c-p 0 --c-param 20 --p 2".split() + _RUN
@@ -1301,12 +1313,28 @@ def _same_map(got, want, dtype) -> tuple[float, float]:
     return err, 0.0 if torch.equal(got, want) else math.inf
 
 
+def _hold_junction(x, dy, dy_res, k, a, b, y) -> bool:
+    """bn_add_relu's backward at a block junction, both upstream gradients
+    handed over, against PyTorch's add of the two on the card (autograd's
+    at the junction) followed by the one-addend backward: the sums, g and
+    dx bit for bit."""
+    two = bn_minres.launch_bwd(x, dy, a, b, y, dy_res=dy_res)
+    one = bn_minres.launch_bwd(x, dy + dy_res, a, b, y)
+    dx_two = bn_minres.launch_dx(x, two[2], k, a, b, relu=False)
+    dx_one = bn_minres.launch_dx(x, one[2], k, a, b, relu=False)
+    torch.cuda.synchronize()
+    return (all(torch.equal(p, q) for p, q in zip(two, one))
+            and torch.equal(dx_two, dx_one))
+
+
 def _hold_bn(shape, dtype, gen, worst: dict) -> None:
     """The four kernels at one shape against their plain versions: the
     statistics (and two calls bit for bit) against float64 sums; then, for
     each function, apply, the backward sums (two calls bit for bit) and dx
-    (with g) given the plain version's a, b, sums and (bn_add_relu's mask)
-    output y, so that no relu mask can flip between the routes."""
+    given the plain version's a, b, sums and (bn_add_relu's mask) output y,
+    so that no relu mask can flip between the routes; bn_add_relu's g from
+    the sums' pass, its dx on the plain version's g, and its backward with
+    two upstream gradients against their add (``_hold_junction``)."""
     x, res, dy, scale, bias = _bn_inputs(shape, dtype, gen)
     stats = bn_minres.launch_stats(x, EPS)
     again = bn_minres.launch_stats(x, EPS)
@@ -1331,18 +1359,24 @@ def _hold_bn(shape, dtype, gen, worst: dict) -> None:
         e_y, o_y = _same_map(bn_minres.launch_apply(x, a, b, r, relu), y_p, dtype)
         y = y_p if with_res else None  # bn_add_relu's backward reads its output
         del y_p
-        sums = bn_minres.launch_bwd(x, dy, a, b, y, relu)
-        sums2 = bn_minres.launch_bwd(x, dy, a, b, y, relu)
+        first = bn_minres.launch_bwd(x, dy, a, b, y, relu)
+        again = bn_minres.launch_bwd(x, dy, a, b, y, relu)
         torch.cuda.synchronize()
-        repeats_sums = all(torch.equal(p, q) for p, q in zip(sums, sums2))
-        sums_p = bn_minres.bn_bwd_reference(x, dy, a, b, y, relu)
+        repeats_sums = all(p is q is None or torch.equal(p, q)
+                           for p, q in zip(first, again))
+        *sums, g = first
+        *sums_p, g_p = bn_minres.bn_bwd_reference(x, dy, a, b, y, relu)
         e_sums = max(rel_err(k, p) for k, p in zip(sums, sums_p))
         _, _, k = bn_minres.dx_factors(scale, mean, rstd, *sums_p, count, dtype)
-        dx, g = bn_minres.launch_dx(x, dy, k, a, b, y, relu)
-        dx_p, g_p = bn_minres.bn_dx_reference(x, dy, k, a, b, y, relu)
+        # bn_add_relu's dx is bn_only's mode on its g
+        d, r = (g_p, False) if with_res else (dy, relu)
+        dx = bn_minres.launch_dx(x, d, k, a, b, r)
+        dx_p = bn_minres.bn_dx_reference(x, d, k, a, b, r)
         e_dx, o_dx = _map_err(dx, dx_p, dtype)
         e_g, o_g = _same_map(g, g_p, dtype) if with_res else (0.0, 0.0)
-        del dx, g, dx_p, g_p, y
+        junction = (_hold_junction(x, dy, res, k, a, b, y) if with_res
+                    else True)
+        del dx, g, dx_p, g_p, y, d, first, again
         worst["bn_apply"] = max(worst.get("bn_apply", 0.0), e_y)
         worst["bn_bwd"] = max(worst.get("bn_bwd", 0.0), max(
             float((p - q).abs().max()) for p, q in zip(sums, sums_p)))
@@ -1350,10 +1384,13 @@ def _hold_bn(shape, dtype, gen, worst: dict) -> None:
         worst["bn_dx"] = max(worst.get("bn_dx", 0.0), e_dx, e_g)
         parts.append(f"{fn}: y {e_y:.2e} (over bar {o_y:.2f}) sums rel "
                      f"{e_sums:.2e} dx {e_dx:.2e} ({o_dx:.2f})"
-                     + (f" g {e_g:.2e} ({o_g:.2f})" if with_res else "")
-                     + f" sums twice {'bit-equal' if repeats_sums else 'DIFFER'}")
+                     + (f" g {e_g:.2e} ({o_g:.2f}); two upstream gradients "
+                        f"vs their add: sums, g and dx "
+                        f"{'bit-equal' if junction else 'DIFFER'}"
+                        if with_res else "")
+                     + f"; sums twice {'bit-equal' if repeats_sums else 'DIFFER'}")
         if (o_y > 1.0 or e_sums > BN_SUM_BAR or o_dx > 1.0 or o_g > 1.0
-                or not repeats_sums):
+                or not repeats_sums or not junction):
             fails.append(fn)
     print(f"[2 kernels] bn {tuple(shape)} {name}: stats rel err vs float64 "
           f"{e_stats:.2e} (plain float32 {e_plain:.2e}), two calls "
@@ -1377,8 +1414,11 @@ def _minres64(x, res, scale, bias, relu):
 def _hold_bn_functions(gen, worst: dict) -> None:
     """The three Functions whole on CUDA tensors (the kernels, forward and
     backward) against float64 at (16, 28, 28, 64), where a relu mask that
-    float32 rounding flips is improbable: y, dx, dres, dscale, dbias."""
+    float32 rounding flips is improbable: y, dx, dres, dscale, dbias;
+    bn_add_relu with a cotangent on each of its two edges (a block
+    junction's), float64 with their sum."""
     x, res, dy, scale, bias = _bn_inputs((16, 28, 28, 64), torch.float32, gen)
+    dy_res = torch.randn(x.shape, device="cuda", generator=gen)
     for fn, with_res, relu in BN_FUNCTIONS:
         got, want = [], []
         for route in ("kernels", "float64"):
@@ -1387,11 +1427,16 @@ def _hold_bn_functions(gen, worst: dict) -> None:
             for t in leaves:
                 t.requires_grad_()
             if route == "kernels":
-                y, _, _ = getattr(bn_minres, fn)(*leaves, EPS)
+                out = getattr(bn_minres, fn)(*leaves, EPS)
+                y = out[0]
+                loss = (y * dy).sum() + ((out[1] * dy_res).sum() if with_res
+                                         else 0.0)
             else:
                 r = leaves[1] if with_res else None
                 y = _minres64(leaves[0], r, leaves[-2], leaves[-1], relu)
-            (y * dy.to(y.dtype)).sum().backward()
+                cot = dy + dy_res if with_res else dy
+                loss = (y * cot.double()).sum()
+            loss.backward()
             (got if route == "kernels" else want).extend(
                 [y.detach()] + [t.grad for t in leaves])
         errs = [rel_err(p.double(), q) for p, q in zip(got, want)]
@@ -1487,7 +1532,7 @@ def phase_3dident() -> dict:
     print(f"[6 3dident] 6a: mean loss steps 1-10 {first:.5f} -> last 10 "
           f"{lastw:.5f}; MCC {out_a['mcc']:.4f} linear R2 {out_a['lin']:.4f} "
           f"mean |hz| {out_a['mean_znorm']:.4f} (evaluation at step 21)")
-    if grew_a != {k: steps if k in LP + DOT + STEM else 0 for k in KERNELS}:
+    if grew_a != {k: steps if k in LP + DOT + STEM else 0 for k in COUNTERS}:
         raise AssertionError(f"6a: launches {grew_a}, expected {steps} of each "
                              "loss and stem kernel, no bn kernel")
     if not lastw < first:
@@ -1578,7 +1623,7 @@ def phase_3dident() -> dict:
           f"uninterrupted run's after the resume from step 3")
     if len(whole["losses"]) != 6 or resumed["losses"] != whole["losses"]:
         raise AssertionError(f"6d: resumed {resumed['losses']} vs {whole['losses']}")
-    return {k: grew_a[k] + grew_b[k] for k in KERNELS}
+    return {k: grew_a[k] + grew_b[k] for k in COUNTERS}
 
 
 def _stem_bounds(shape, dtype) -> dict:
@@ -1762,9 +1807,10 @@ def _time_bn(dtype, smi: str) -> dict:
     a, b = bn_minres.affine(scale, bias, mean, rstd, dtype)
     count = x.numel() // x.shape[-1]
     _, _, k = bn_minres.dx_factors(
-        scale, mean, rstd, *bn_minres.bn_bwd_reference(x, dy, a, b), count, dtype)
+        scale, mean, rstd, *bn_minres.bn_bwd_reference(x, dy, a, b)[:2], count,
+        dtype)
     # bn_only's sums and dx: what the library's backward calls compute
-    s_dy, s_dyx = bn_minres.bn_bwd_reference(x, dy, a, b, relu=False)
+    s_dy, s_dyx, _ = bn_minres.bn_bwd_reference(x, dy, a, b, relu=False)
     _, _, k_only = bn_minres.dx_factors(scale, mean, rstd, s_dy, s_dyx, count, dtype)
     x4, dy4 = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
     s_dyxmu = s_dyx - mean * s_dy  # Σdy·(x − mean)
@@ -1783,7 +1829,7 @@ def _time_bn(dtype, smi: str) -> dict:
                                bn_minres.bn_apply_reference(x, a, b, relu=False)),),
         "bwd": lambda out: ((out[0], s_dy), (out[1], s_dyxmu)),
         "dx": lambda out: ((out.permute(0, 2, 3, 1), bn_minres.bn_dx_reference(
-            x, dy, k_only, a, b, relu=False)[0]),),
+            x, dy, k_only, a, b, relu=False)),),
     }
     loose = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-3
     held = {}
@@ -2543,7 +2589,7 @@ def phase_prefetch(smi: str) -> dict:
         raise AssertionError(f"10c: data paths {on_device['data_path']}, "
                              f"{on_host['data_path']}")
     want = {k: steps if k in LP + DOT else steps * MINRES_STEP.get(k, 0)
-            for k in KERNELS}
+            for k in COUNTERS}
     if grew_h != want or grew_d != want:
         raise AssertionError(f"10c: launches {grew_h} (host), {grew_d} (device); "
                              f"expected {want}")
@@ -2594,7 +2640,7 @@ def phase_prefetch(smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[10 prefetch] {time.perf_counter() - t0:.1f} s")
-    return {k: grew_h[k] for k in KERNELS}
+    return {k: grew_h[k] for k in COUNTERS}
 
 
 # ---------------------------------------------------------------------------
@@ -2745,7 +2791,7 @@ def _hold_mesh_w1(smi: str) -> dict:
     t0 = time.perf_counter()
     got = parallel.launch(_mesh_w1_rank, 1, args=(smi,), device="cuda")
     TIMES.extend(t for t in got["times"] if t not in TIMES)
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in COUNTERS}
     per_step = {"box": {k: 1 for k in LP}, "simclr": {k: 1 for k in DOT},
                 "3dident": {**{k: 1 for k in LP + DOT}, **MINRES_STEP},
                 "3dident minres8": MINRES8_STEP}
@@ -3016,7 +3062,7 @@ def _hold_mesh_tp(worst: dict, smi: str) -> dict:
         print(f"[11 mesh] 11d{' and 11e' if world == 2 else ''}: {world} gloo "
               f"ranks on cuda:0 took {time.perf_counter() - t1:.1f} s (gloo, one card)")
     want = _logged_losses(os.path.join(run_dir, "mlp_one"))
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in COUNTERS}
     for world, model in TP_MLP_MESHES:
         save, flags = mlp[world]
         grew = {k: v for k, v in took[world][0][1].items() if v}
@@ -3446,7 +3492,7 @@ def _options_driver() -> dict:
           f"losses {[round(v, 6) for v in losses]}; step 1 "
           f"{'bit-equal' if losses[0] == first['losses'][0] else 'DIFFERS'} to "
           f"minres's ({first['losses'][0]!r}); launches {grew}")
-    want = {k: 10 * MINRES8_STEP.get(k, 0) for k in KERNELS}
+    want = {k: 10 * MINRES8_STEP.get(k, 0) for k in COUNTERS}
     if grew != want:
         raise AssertionError(f"12b minres8: launches {grew}, expected {want}")
     if losses[0] != first["losses"][0] or not _falling(losses):
@@ -3571,7 +3617,8 @@ def _options_models() -> dict:
     for tag, (o, g, b), grew, want in (
             ("stem_pool='argmax' vs 'xla'", (o_a, g_a, b_a), grew_a, MINRES_STEP),
             ("the composition MinResBN2d -> F.max_pool2d vs the default stem",
-             (o_c, g_c, b_c), grew_c, dict.fromkeys(BN, BN_NORMS_A_STEP))):
+             (o_c, g_c, b_c), grew_c, {**dict.fromkeys(BN, BN_NORMS_A_STEP),
+                                       "bn_junctions": BN_JUNCTIONS_A_STEP})):
         e_out, e_grad, e_buf = rel_err(o, o_x), _rel_max(g, g_x), _rel_max(b, b_x)
         print(f"[12 options] 12c {tag} (minres): output rel {e_out:.2e}, "
               f"gradients rel {e_grad:.2e}, running buffers rel {e_buf:.2e}; "
@@ -3750,7 +3797,7 @@ def _hold_trace(tag: str, prof_dir: str, grew: dict) -> int:
     launch is one main kernel). Returns the trace's bytes."""
     found, n_kernels, size = _trace_kernels(prof_dir)
     seen = {sym: n for sym, n in found.items() if n}
-    launched = {k: v for k, v in grew.items() if v}
+    launched = {k: v for k, v in grew.items() if v and k in KERNELS}
     print(f"[13 rest] 13a {tag}: trace {size / 1e6:.1f} MB, {n_kernels} CUDA "
           f"kernel events; hand-written kernels in it {seen}; launch counters "
           f"{launched}")
@@ -3819,7 +3866,7 @@ def _rest_mlp(smi: str) -> dict:
           f"{'bit-equal' if lq == lp else 'DIFFER'} with and without the "
           f"profiler, scores {sq} / {sp}; run {tq:.1f} s / {tp:.1f} s; trace "
           f"{size / 1e6:.1f} MB on {smi}")
-    want = {k: 201 if k in LP else 0 for k in KERNELS}
+    want = {k: 201 if k in LP else 0 for k in COUNTERS}
     if gq != want or gp != want:
         raise AssertionError(f"13a main_mlp: launches {gq} / {gp}, expected {want}")
     if lq != lp or sq != sp or len(lq) != 201:
@@ -3859,7 +3906,7 @@ def _rest_kitti(smi: str) -> dict:
     print(f"[13 rest] 13a main_kitti: log.csv {'equal' if lq == lp else 'DIFFERS'}, "
           f"final parameters {'bit-equal' if same else 'DIFFER'} with and "
           f"without the profiler; trace {size / 1e6:.1f} MB on {smi}")
-    want = {k: REST_KITTI_STEPS if k in LP else 0 for k in KERNELS}
+    want = {k: REST_KITTI_STEPS if k in LP else 0 for k in COUNTERS}
     if gq != want or gp != want:
         raise AssertionError(f"13a main_kitti: launches {gq} / {gp}, expected {want}")
     if lq != lp or not same:
@@ -3889,7 +3936,7 @@ def _rest_3dident(smi: str) -> dict:
           f"{'bit-equal' if same else 'DIFFER'} with and without the profiler "
           f"(MCC {oq['mcc']} / {op['mcc']}); run {tq:.1f} s / {tp:.1f} s; trace "
           f"{size / 1e6:.1f} MB on {smi}")
-    want = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(LP + DOT, REST_3D_STEPS),
+    want = {**dict.fromkeys(COUNTERS, 0), **dict.fromkeys(LP + DOT, REST_3D_STEPS),
             **{k: v * REST_3D_STEPS for k, v in MINRES_STEP.items()}}
     if gq != want or gp != want:
         raise AssertionError(f"13a main_3dident: launches {gq} / {gp}, expected {want}")
@@ -4244,7 +4291,7 @@ def main() -> int:
     run = lambda part: not only or part in only
     name, smi = phase_device()
     phase_build()
-    worst, launches = {}, {k: 0 for k in KERNELS}
+    worst, launches = {}, {k: 0 for k in COUNTERS}
     if run("mlp"):
         worst.update(phase_kernels())
     if run("stem"):

@@ -238,6 +238,12 @@ class MinResBN2d(FastBatchNorm2d):
     backward that keeps the normalised x as float8_e4m3fn (and, with the
     add, res) in place of x.
 
+    With ``res`` the output comes back twice, as the pair (for the next
+    block's first convolution, for its shortcut): in training
+    ``bn_add_relu``'s two autograd edges of one tensor, whose gradients
+    its backward adds itself; in eval mode and with ``residuals_f8`` the
+    same tensor twice, whose gradients autograd adds.
+
     The input is logical (N, C, H, W); the kernels take dense (N, H, W, C)
     memory, which is what a ``channels_last`` tensor is. The layout is
     made explicit here (a no-op when it already is) and the output comes
@@ -259,17 +265,25 @@ class MinResBN2d(FastBatchNorm2d):
         if not self.training:
             y = super().forward(x)
             if res is not None:
-                y = y + res
+                y = F.relu(y + res)
+                return y, y
             return F.relu(y) if self.act == "relu" else y
         x = x.contiguous(memory_format=torch.channels_last)
         nhwc = x.permute(0, 2, 3, 1)
         f8 = self.residuals_f8
         if res is not None:
             res = res.contiguous(memory_format=torch.channels_last)
-            y, mean, var = (bn_add_relu8 if f8 else bn_add_relu)(
-                nhwc, res.permute(0, 2, 3, 1), self.weight, self.bias, self.eps,
-                **_group_kw())
-        elif self.act == "relu":
+            args = (nhwc, res.permute(0, 2, 3, 1), self.weight, self.bias,
+                    self.eps)
+            if f8:
+                y, mean, var = bn_add_relu8(*args, **_group_kw())
+                pair = (y.permute(0, 3, 1, 2),) * 2
+            else:
+                y, y_res, mean, var = bn_add_relu(*args, **_group_kw())
+                pair = y.permute(0, 3, 1, 2), y_res.permute(0, 3, 1, 2)
+            self.update_running(mean, var, _global_count(x))
+            return pair
+        if self.act == "relu":
             y, mean, var = (bn_relu8 if f8 else bn_relu)(
                 nhwc, self.weight, self.bias, self.eps, **_group_kw())
         else:

@@ -14,6 +14,15 @@ the Flax names onto: ``conv_init``, ``bn_init``, ``blocks.i`` ←
 ``norms.k`` ← ``FastBatchNorm_k``/``MinResBN_k``/``BatchNorm_k``,
 ``conv_proj``, ``norm_proj``, and ``fc`` ← ``Dense_0``.
 
+A block takes its input as a pair (x for its first convolution, x_res for
+its shortcut) and returns its output as one: the stem's output is one
+tensor on both, and the mean pool takes the last block's first. With
+'minres' a block's output pair is its last norm's two autograd edges of
+one tensor (ops/bn_minres.py ``bn_add_relu``), so that the gradients of
+the next block's convolution and shortcut reach that norm's backward
+apart, which adds them in its own pass; with the other kinds it is one
+tensor twice, whose gradients autograd adds.
+
 ``norm_kind`` 'batch', 'fast' and 'minres' are the same mathematics in
 the JAX package (three ways to spend less device memory on a TPU).
 'batch' and 'fast' are one module here, ``FastBatchNorm2d``, under
@@ -164,17 +173,18 @@ class BasicBlock(nn.Module):
             self.norm_proj = _norm(norm_kind, filters, act="none")
         self.minres = norm_kind in _MINRES
 
-    def forward(self, x):
+    def forward(self, x, x_res):
         if self.minres:  # the JAX package's fused_bn block
             y = self.convs[1](self.norms[0](self.convs[0](x)))
             if self.conv_proj is not None:
-                x = self.norm_proj(self.conv_proj(x))
-            return self.norms[1](y, res=x)
+                x_res = self.norm_proj(self.conv_proj(x_res))
+            return self.norms[1](y, res=x_res)
         y = F.relu(self.norms[0](self.convs[0](x)))
         y = self.norms[1](self.convs[1](y))
         if self.conv_proj is not None:
-            x = self.norm_proj(self.conv_proj(x))
-        return F.relu(x + y)
+            x_res = self.norm_proj(self.conv_proj(x_res))
+        y = F.relu(x_res + y)
+        return y, y
 
 
 class Bottleneck(nn.Module):
@@ -195,19 +205,20 @@ class Bottleneck(nn.Module):
             self.norm_proj = _norm(norm_kind, out, act="none")
         self.minres = norm_kind in _MINRES
 
-    def forward(self, x):
+    def forward(self, x, x_res):
         if self.minres:  # the JAX package's fused_bn block
             y = self.convs[1](self.norms[0](self.convs[0](x)))
             y = self.convs[2](self.norms[1](y))
             if self.conv_proj is not None:
-                x = self.norm_proj(self.conv_proj(x))
-            return self.norms[2](y, res=x)
+                x_res = self.norm_proj(self.conv_proj(x_res))
+            return self.norms[2](y, res=x_res)
         y = F.relu(self.norms[0](self.convs[0](x)))
         y = F.relu(self.norms[1](self.convs[1](y)))
         y = self.norms[2](self.convs[2](y))
         if self.conv_proj is not None:
-            x = self.norm_proj(self.conv_proj(x))
-        return F.relu(x + y)
+            x_res = self.norm_proj(self.conv_proj(x_res))
+        y = F.relu(x_res + y)
+        return y, y
 
 
 class ResNet(nn.Module):
@@ -312,10 +323,13 @@ class ResNet(nn.Module):
         if self.training:
             profiling.mark(f"{FWD_LAYER}.stem")
         remat = self.remat and torch.is_grad_enabled()
+        x_res = x
         for k, block in enumerate(self.blocks):
             # no block draws random numbers: nothing to stash or restore
-            x = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
-                            context_fn=_checkpoint_contexts) if remat else block(x))
+            x, x_res = (checkpoint(block, x, x_res, use_reentrant=False,
+                                   preserve_rng_state=False,
+                                   context_fn=_checkpoint_contexts)
+                        if remat else block(x, x_res))
             if self.training and k in self.stage_ends:
                 profiling.mark(self.stage_ends[k])
         x = x.mean(dim=(2, 3))

@@ -9,8 +9,9 @@ ops/knn.py         ← cl_ica_tpu/ops/knn.py (l2_topk; no kernel)
 
 The CUDA sources are in ops/csrc and are built at first use by
 ops/build.py, one library per .cu file. ``launch_counts`` returns the
-launches of all thirteen kernels; a replayed CUDA graph adds its launches
-with ``add_launch_counts``.
+launches of all thirteen kernels, and ``bn_junctions``, the add-relu
+backward launches that took two upstream gradients; a replayed CUDA graph
+adds its launches with ``add_launch_counts``.
 """
 
 from .bn_minres import bn_add_relu, bn_only, bn_relu

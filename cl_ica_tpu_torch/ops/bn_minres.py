@@ -17,9 +17,19 @@ two passes, the channel sums Σg and Σg·x, then
     dx = A·g − B·x + C   (A, B, C per channel, folded in float32,
                           applied in x's dtype)
 
-and, for ``bn_add_relu``, g itself as the residual's gradient. The batch
-mean and var returned beside y feed running statistics and carry no
-gradient, as in the JAX custom VJPs.
+and, for ``bn_add_relu``, g itself as the residual's gradient, written by
+the sums' pass and read by dx's. The batch mean and var returned beside y
+feed running statistics and carry no gradient, as in the JAX custom VJPs.
+
+``bn_add_relu`` returns its output twice, y and y_res, one tensor as two
+autograd edges: a ResNet block's output feeds the next block's first
+convolution and its shortcut, and with one edge each their gradients reach
+the backward apart, as dy and dy_res, where autograd would add them in a
+pass of its own. The sums' pass adds them, rounded once to x's dtype as
+that add rounds them, so every gradient is the sum's bit for bit, and a
+block junction's backward reads and writes 8 passes of the block's output
+size where the add and the backward made 11. An edge left unused brings no
+gradient (None), and one addend is the plain backward.
 
 Where the JAX ``bn_add_relu`` keeps res and recomputes the mask from
 x·a + b + res, this one keeps y: y > 0 exactly where x·a + b + res > 0,
@@ -152,13 +162,17 @@ def _masked(x, dy, a, b, y, relu):
 
 
 def bn_bwd_reference(x, dy, a, b, y: Optional[torch.Tensor] = None,
-                     relu: bool = True):
-    """The plain version of the backward sums: (Σg, Σg·x) per channel,
-    float32 sums, g·x taken in x's dtype (the JAX ``_bn_bwd_core``); y is
-    bn_add_relu's output, whose sign is the mask."""
+                     relu: bool = True, dy_res: Optional[torch.Tensor] = None):
+    """The plain version of the backward sums: (Σg, Σg·x, g), float32 sums
+    per channel, g·x taken in x's dtype (the JAX ``_bn_bwd_core``). y is
+    bn_add_relu's output, whose sign is the mask; then g is returned (else
+    None), and dy_res, where given, is added to dy first in x's dtype."""
+    if dy_res is not None:
+        dy = dy + dy_res
     g = _masked(x, dy, a, b, y, relu)
     return (g.sum(dim=_dims(x), dtype=torch.float32),
-            (g * x).sum(dim=_dims(x), dtype=torch.float32))
+            (g * x).sum(dim=_dims(x), dtype=torch.float32),
+            g if y is not None else None)
 
 
 def param_grads(mean, rstd, sum_g, sum_gx):
@@ -179,12 +193,12 @@ def dx_factors(scale, mean, rstd, sum_g, sum_gx, count: int,
     return dscale, dbias, torch.stack([inv, big_b, big_c]).to(dtype)
 
 
-def bn_dx_reference(x, dy, k, a, b, y: Optional[torch.Tensor] = None,
-                    relu: bool = True):
-    """The plain version of the dx kernel: (dx, g) with dx = A·g − B·x + C
-    in x's dtype, each operation rounded, g as for ``bn_bwd_reference``."""
-    g = _masked(x, dy, a, b, y, relu)
-    return k[0] * g - k[1] * x + k[2], g
+def bn_dx_reference(x, dy, k, a, b, relu: bool = True):
+    """The plain version of the dx kernel: dx = A·g − B·x + C in x's dtype,
+    each operation rounded, g = dy·1[x·a + b > 0], or dy without the relu
+    (bn_only, and bn_add_relu on its g)."""
+    g = _masked(x, dy, a, b, None, relu)
+    return k[0] * g - k[1] * x + k[2]
 
 
 # ---------------------------------------------------------------------------
@@ -210,9 +224,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.clica_bn_finish.restype = _I
     lib.clica_bn_apply.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _I, _P]
     lib.clica_bn_apply.restype = _I
-    lib.clica_bn_bwd.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_bn_bwd.argtypes = [_P] * 9 + [_LL, _I, _I, _I, _I, _P]
     lib.clica_bn_bwd.restype = _I
-    lib.clica_bn_dx.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
+    lib.clica_bn_dx.argtypes = [_P] * 6 + [_LL, _I, _I, _I, _I, _P]
     lib.clica_bn_dx.restype = _I
     # the float8 modes (ops/bn_minres8.py)
     lib.clica_bn_apply8.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
@@ -341,44 +355,50 @@ def launch_apply(x, a, b, res=None, relu: bool = True) -> torch.Tensor:
     return y
 
 
-def launch_bwd(x, dy, a, b, y=None, relu: bool = True):
-    """The backward sums kernel and its reduction: (Σg, Σg·x), float32
-    (C,) views of one (2, C) tensor; y is bn_add_relu's output."""
+def launch_bwd(x, dy, a, b, y=None, relu: bool = True, dy_res=None):
+    """The backward sums kernel and its reduction: (Σg, Σg·x, g), the sums
+    float32 (C,) views of one (2, C) tensor. Given bn_add_relu's output y,
+    g is written too (the residual's gradient, and dx's input), else None;
+    dy_res, bn_add_relu's only, is dy's second addend (a block junction's,
+    counted in ``bn_junctions``)."""
     mode = _mode(y, relu)
     lib, positions, c, bf16, grid = _prepare(x, y, (("a", a), ("b", b)))
     _check_map("dy", dy, like=x)
+    if dy_res is not None:
+        _check_map("dy_res", dy_res, like=x)
     partial = torch.empty((2, grid, c), device=x.device, dtype=torch.float32)
     sums = torch.empty((2, c), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_bn_bwd(x.data_ptr(), dy.data_ptr(),
-                              (x if y is None else y).data_ptr(),
-                              a.data_ptr(), b.data_ptr(), partial.data_ptr(),
-                              sums.data_ptr(), positions, c, bf16, mode, grid,
-                              _stream(x))
-    _check_launch(lib, rc, "bn bwd")
-    _launches["bn_bwd"] += 1
-    return sums[0], sums[1]
-
-
-def launch_dx(x, dy, k, a, b, y=None, relu: bool = True):
-    """The dx kernel: (dx, g), dx = A·g − B·x + C with k = (A, B, C) (3, C)
-    in x's dtype; given bn_add_relu's output y, g is written too (it is the
-    residual's gradient), else None."""
-    mode = _mode(y, relu)
-    lib, positions, c, bf16, grid = _prepare(x, y, (("a", a), ("b", b),
-                                                    ("k", k)))
-    _check_map("dy", dy, like=x)
-    dx = torch.empty_like(x)
     g = torch.empty_like(x) if y is not None else None
     with torch.cuda.device(x.device):
-        rc = lib.clica_bn_dx(x.data_ptr(), dy.data_ptr(),
-                             (x if y is None else y).data_ptr(),
-                             a.data_ptr(), b.data_ptr(), k.data_ptr(),
-                             dx.data_ptr(), (dx if g is None else g).data_ptr(),
-                             positions, c, bf16, mode, grid, _stream(x))
+        rc = lib.clica_bn_bwd(x.data_ptr(), dy.data_ptr(),
+                              None if dy_res is None else dy_res.data_ptr(),
+                              (x if y is None else y).data_ptr(),
+                              a.data_ptr(), b.data_ptr(), partial.data_ptr(),
+                              sums.data_ptr(), None if g is None else g.data_ptr(),
+                              positions, c, bf16, mode, grid, _stream(x))
+    _check_launch(lib, rc, "bn bwd")
+    _launches["bn_bwd"] += 1
+    if dy_res is not None:
+        _launches["bn_junctions"] += 1
+    return sums[0], sums[1], g
+
+
+def launch_dx(x, dy, k, a, b, relu: bool = True):
+    """The dx kernel: dx = A·g − B·x + C with k = (A, B, C) (3, C) in x's
+    dtype, g = dy·1[x·a + b > 0], or dy without the relu (bn_only, and
+    bn_add_relu on the g its sums wrote)."""
+    lib, positions, c, bf16, grid = _prepare(x, None, (("a", a), ("b", b),
+                                                       ("k", k)))
+    _check_map("dy", dy, like=x)
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.clica_bn_dx(x.data_ptr(), dy.data_ptr(), a.data_ptr(),
+                             b.data_ptr(), k.data_ptr(), dx.data_ptr(),
+                             positions, c, bf16, _mode(None, relu), grid,
+                             _stream(x))
     _check_launch(lib, rc, "bn dx")
     _launches["bn_dx"] += 1
-    return dx, g
+    return dx
 
 
 # ---------------------------------------------------------------------------
@@ -397,13 +417,14 @@ def _dense(dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class _MinResBN(torch.autograd.Function):
-    """(y, mean, var) = f(x, res, scale, bias) for the three functions (res
-    None without the residual add; relu False only without it). eps, the
-    relu, the route and the group are not differentiable, and neither are
-    the mean and var outputs: they feed running-statistics buffers (the
-    JAX custom VJPs drop their cotangents). Saved: x, (C,) vectors and,
-    with res, the output y (the relu mask's sign; see the module
-    docstring)."""
+    """(y, y_res, mean, var) = f(x, res, scale, bias) for the three
+    functions (res None without the residual add; relu False only without
+    it). y_res is y a second time, as its own autograd edge, with res (see
+    the module docstring), else None. eps, the relu, the route and the
+    group are not differentiable, and neither are the mean and var
+    outputs: they feed running-statistics buffers (the JAX custom VJPs
+    drop their cotangents). Saved: x, (C,) vectors and, with res, the
+    output y (the relu mask's sign; see the module docstring)."""
 
     @staticmethod
     def forward(ctx, x, res, scale, bias, eps, relu, use_kernels, group):
@@ -418,15 +439,21 @@ class _MinResBN(torch.autograd.Function):
                               mean, rstd)
         ctx.relu, ctx.use_kernels, ctx.group = relu, use_kernels, group
         ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        # an unused edge's gradient comes as None, not as zeros
+        ctx.set_materialize_grads(False)
+        return y, None if res is None else y.view_as(y), mean, var
 
     @staticmethod
-    def backward(ctx, dy, _d_mean, _d_var):
+    def backward(ctx, dy, dy_res, _d_mean, _d_var):
         x, y, scale, bias, mean, rstd = ctx.saved_tensors
+        if dy is None:  # only y_res was used
+            dy, dy_res = dy_res, None
         a, b = affine(scale, bias, mean, rstd, x.dtype)
         dy = _dense(dy, x.dtype)
+        if dy_res is not None:
+            dy_res = _dense(dy_res, x.dtype)
         sums = launch_bwd if ctx.use_kernels else bn_bwd_reference
-        sum_g, sum_gx = sums(x, dy, a, b, y, ctx.relu)
+        sum_g, sum_gx, g = sums(x, dy, a, b, y, ctx.relu, dy_res)
         # dscale and dbias are this rank's (the ranks' gradients are
         # averaged later); dx takes the whole batch's sums and count
         dscale, dbias = param_grads(mean, rstd, sum_g, sum_gx)
@@ -436,9 +463,10 @@ class _MinResBN(torch.autograd.Function):
             count *= world_of(ctx.group)
         k = dx_factors(scale, mean, rstd, *totals, count, x.dtype)[2]
         dx_fn = launch_dx if ctx.use_kernels else bn_dx_reference
-        dx, g = dx_fn(x, dy, k, a, b, y, ctx.relu)
-        return (dx, g if y is not None else None, dscale, dbias, None, None,
-                None, None)
+        # bn_add_relu's g is masked already: its dx is bn_only's on g
+        dx = (dx_fn(x, dy, k, a, b, ctx.relu) if g is None
+              else dx_fn(x, g, k, a, b, False))
+        return dx, g, dscale, dbias, None, None, None, None
 
 
 def _minres(x, res, scale, bias, eps, relu, use_kernels, group=None):
@@ -458,15 +486,20 @@ def bn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``group``: the data-parallel ranks whose rows make up the batch (see
     the module docstring), None for this tensor alone. CUDA tensors run
     the Hopper kernels or raise; CPU tensors the plain versions."""
-    return _minres(x, None, scale, bias, eps, True, x.device.type != "cpu",
-                   group)
+    y, _, mean, var = _minres(x, None, scale, bias, eps, True,
+                              x.device.type != "cpu", group)
+    return y, mean, var
 
 
 def bn_add_relu(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor, eps: float = 1e-5, group=None):
     """Training-mode batch norm of x, + res, → relu (a ResNet block's
     tail); res's gradient is the masked upstream gradient g. It keeps y,
-    not res, for the backward. As ``bn_relu`` otherwise."""
+    not res, for the backward. Returns (y, y_res, mean, var): y_res is y,
+    the same memory, as a second autograd edge (for the next block's
+    shortcut, y for its first convolution), whose gradient the backward
+    adds to y's itself (see the module docstring). As ``bn_relu``
+    otherwise."""
     return _minres(x, res, scale, bias, eps, True, x.device.type != "cpu",
                    group)
 
@@ -475,5 +508,6 @@ def bn_only(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             eps: float = 1e-5, group=None):
     """Training-mode batch norm with no activation (a projection
     shortcut). As ``bn_relu`` otherwise."""
-    return _minres(x, None, scale, bias, eps, False, x.device.type != "cpu",
-                   group)
+    y, _, mean, var = _minres(x, None, scale, bias, eps, False,
+                              x.device.type != "cpu", group)
+    return y, mean, var

@@ -26,17 +26,25 @@
 //             (clica_bn_finish), which forms var and rstd from them in the
 //             same arithmetic.
 //   apply     bn_apply_kernel<T, M>: y = x*a + b (+ res) (relu), one pass.
-//   bwd sums  bn_bwd_kernel<T, M>: per channel the sums of g and of g*x
-//             (g*x rounded to x's type, as the JAX line's product is), where
-//             g = dy * 1[x*a + b > 0] is recomputed in registers for
-//             bn_relu, g = dy * 1[y > 0] for bn_add_relu (the same mask as
+//   bwd sums  bn_bwd_kernel<T, M, Q, A>: per channel the sums of g and of
+//             g*x (g*x rounded to x's type, as the JAX line's product is),
+//             where g = dy * 1[x*a + b > 0] is recomputed in registers for
+//             bn_relu, g = dy for bn_only; rows and bn_reduce_kernel as for
+//             stats. For bn_add_relu g = dy * 1[y > 0] (the same mask as
 //             1[x*a + b + res > 0], read from the output so that res need
-//             not be kept), g = dy for bn_only; rows and bn_reduce_kernel
-//             as for stats.
+//             not be kept), and the same pass writes g, the residual's
+//             gradient and dx's input. There dy may come as two addends
+//             (A = 2): a block's output feeds the next block's first
+//             convolution and its shortcut, whose gradients autograd would
+//             otherwise add in a pass of its own (3 passes) before this one
+//             read the sum. The kernel adds them in float and rounds once
+//             to T, as PyTorch's add does, so g is that sum's g bit for bit;
+//             a junction's backward makes 5 + 3 passes where it made 3 + 3
+//             + 5.
 //   dx        bn_dx_kernel<T, M>: dx = A*g - B*x + C with the per-channel
-//             A, B, C of _bn_bwd_core in x's type, g recomputed as above;
-//             for bn_add_relu the same pass writes g, the residual's
-//             gradient.
+//             A, B, C of _bn_bwd_core in x's type, g recomputed as above
+//             for bn_relu and bn_only; bn_add_relu's dx is bn_only's mode
+//             on the g that its sums pass wrote.
 //
 // The float8 modes (ops/bn_minres8.py, the JAX package's
 // cl_ica_tpu/ops/bn_minres8.py) are the same three kernels with Q = true,
@@ -64,18 +72,18 @@
 // dx equal the plain versions' given the same a, b, A, B, C.
 //
 // Bound on this card: bytes. Per element, stats reads x once; apply reads x
-// (and res) and writes y; the sums read x and dy (and y); dx reads x and
-// dy (and y) and writes dx (and g). The operations, under ten per element
-// and value, are far below the bytes at 67 TFLOP/s. So every kernel is one
-// streaming pass: a thread owns one 16-byte vector of channels (4 float32 or
-// 8 bfloat16 values) of a row of C, keeps that vector's per-channel factors
-// (and sums) in registers, and walks the positions p, p + stride, ...,
-// issuing kUnroll positions' 16-byte loads before it uses any. A block's
-// 256 threads take 256 / vectors positions a pass; C of more than 256
-// vectors is cut into evened slices, one per blockIdx.y. The grid is the
-// wrapper's (ops/bn_minres.py grid_rows). Sums: a thread adds a pass's
-// values in float and folds them into double accumulators; a block adds
-// its threads' in a fixed order. No atomics: a run repeats bit for bit.
+// (and res) and writes y; the sums read x and dy (and bn_add_relu's second
+// addend and y, and write g); dx reads x and dy (or g) and writes dx. The
+// operations, under ten per element and value, are far below the bytes at 67
+// TFLOP/s. So every kernel is one streaming pass: a thread owns one 16-byte
+// vector of channels (4 float32 or 8 bfloat16 values) of a row of C, keeps that
+// vector's per-channel factors (and sums) in registers, and walks the positions
+// p, p + stride, ..., issuing kUnroll positions' 16-byte loads before it uses
+// any. A block's 256 threads take 256 / vectors positions a pass; C of more
+// than 256 vectors is cut into evened slices, one per blockIdx.y. The grid is
+// the wrapper's (ops/bn_minres.py grid_rows). Sums: a thread adds a pass's
+// values in float and folds them into double accumulators; a block adds its
+// threads' in a fixed order. No atomics: a run repeats bit for bit.
 //
 // Shapes: x (P, C) dense, P >= 1 positions, C a multiple of the vector width
 // with at most 256 vectors a slice. Index arithmetic is 64-bit (the stem's x
@@ -452,15 +460,19 @@ bn_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
       [] {});
 }
 
-// y is the forward's output, read for bn_add_relu only; with Q, x is not
-// read but xq, and y is bn_add_relu's res, a and b the scale and bias.
-template <typename T, int M, bool Q>
+// y is the forward's output, read for bn_add_relu only, where g is
+// written to gout and, with A = 2, dy is dy + dyr rounded to T; with Q, x
+// is not read but xq, y is bn_add_relu's res, a and b the scale and bias,
+// and g is not written (bn_dx8 writes it).
+template <typename T, int M, bool Q, int A = 1>
 __global__ void __launch_bounds__(kThreads)
 bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-              const T* __restrict__ y, const T* __restrict__ a,
-              const T* __restrict__ b, float* __restrict__ partial,
+              const T* __restrict__ dyr, const T* __restrict__ y,
+              const T* __restrict__ a, const T* __restrict__ b,
+              float* __restrict__ partial, T* __restrict__ gout,
               const unsigned char* __restrict__ xq, long long P, int C) {
   constexpr int V = Pack<T>::V;
+  constexpr bool kWritesG = M == kAddRelu && !Q;
   const Geom g(C / V, V);
   double s0[V], s1[V];
   float f0[V], f1[V], av[V], bv[V];
@@ -469,17 +481,20 @@ bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   if (g.active) {
     load_factor(a + g.c0, av);
     load_factor(b + g.c0, bv);
-    constexpr int N = M == kAddRelu ? 3 : 2;  // x, dy (and y or res)
-    const T* const in[3] = {x, dy, y};
+    // x, dy (, dyr) (and y or res)
+    constexpr int N = (M == kAddRelu ? 3 : 2) + A - 1;
+    const T* const in[4] = {x, dy, A == 2 ? dyr : y, y};
     walk<T, N, Q>(g, P, C, in, xq,
-        [&](long long, const float (&v)[N][V]) {
+        [&](long long q, const float (&v)[N][V]) {
+          float gw[V];
 #pragma unroll
           for (int l = 0; l < V; ++l) {
-            const float gv = masked<T, M, Q>(v[0][l], av[l], bv[l], v[N - 1][l],
-                                             v[1][l]);
-            f0[l] = __fadd_rn(f0[l], gv);
-            f1[l] = __fadd_rn(f1[l], mul<T>(gv, v[0][l]));
+            const float d = A == 2 ? add<T>(v[1][l], v[2][l]) : v[1][l];
+            gw[l] = masked<T, M, Q>(v[0][l], av[l], bv[l], v[N - 1][l], d);
+            f0[l] = __fadd_rn(f0[l], gw[l]);
+            f1[l] = __fadd_rn(f1[l], mul<T>(gw[l], v[0][l]));
           }
+          if (kWritesG) Pack<T>::store(gout + q * C + g.c0, gw);
         },
         [&]() {
 #pragma unroll
@@ -493,9 +508,9 @@ bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   block_sums<V>(g, s0, s1, partial, C);
 }
 
-// k is (3, C) in T: the rows A, B and C of dx = A*g - B*x + C; y as for
-// bn_bwd_kernel, and with Q x is xq's value (C the negated C of
-// _bwd_core8).
+// k is (3, C) in T: the rows A, B and C of dx = A*g - B*x + C. The add
+// mode is Q's alone: y is then bn_add_relu's res, x is xq's value (C the
+// negated C of _bwd_core8), and g is written too.
 template <typename T, int M, bool Q>
 __global__ void __launch_bounds__(kThreads)
 bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -512,7 +527,7 @@ bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   load_factor(k + g.c0, kA);
   load_factor(k + C + g.c0, kB);
   load_factor(k + 2 * C + g.c0, kC);
-  constexpr int N = M == kAddRelu ? 3 : 2;  // x, dy (and y or res)
+  constexpr int N = M == kAddRelu ? 3 : 2;  // x, dy (and, with Q, res)
   const T* const in[3] = {x, dy, y};
   walk<T, N, Q>(g, P, C, in, xq,
       [&](long long q, const float (&v)[N][V]) {
@@ -559,14 +574,15 @@ int launch_apply(const void* x, const void* res, const void* a, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M, bool Q>
-int launch_bwd(const void* x, const void* dy, const void* y, const void* a,
-               const void* b, float* partial, float* sums, const void* xq,
-               long long P, int C, int grid, cudaStream_t st) {
+template <typename T, int M, bool Q, int A = 1>
+int launch_bwd(const void* x, const void* dy, const void* dyr, const void* y,
+               const void* a, const void* b, float* partial, float* sums,
+               void* g, const void* xq, long long P, int C, int grid,
+               cudaStream_t st) {
   const dim3 blocks(grid, slices_of(C / Pack<T>::V));
-  bn_bwd_kernel<T, M, Q><<<blocks, kThreads, 0, st>>>(
-      (const T*)x, (const T*)dy, (const T*)y, (const T*)a, (const T*)b,
-      partial, (const unsigned char*)xq, P, C);
+  bn_bwd_kernel<T, M, Q, A><<<blocks, kThreads, 0, st>>>(
+      (const T*)x, (const T*)dy, (const T*)dyr, (const T*)y, (const T*)a,
+      (const T*)b, partial, (T*)g, (const unsigned char*)xq, P, C);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   bn_reduce_kernel<<<(C + 31) / 32, dim3(32, 8), 0, st>>>(partial, sums, grid,
@@ -587,13 +603,16 @@ int launch_dx(const void* x, const void* dy, const void* y, const void* a,
 
 // Each entry point below takes the mode (0 bn_only, 1 bn_relu,
 // 2 bn_add_relu) and the type, and calls one of six instances: those of Q
-// false, or (the ..8 entry points) of Q true.
-#define CLICA_BN_DISPATCH(fn, Q, ...)                                       \
-  switch (mode * 2 + (is_bf16 ? 1 : 0)) {                                   \
+// false, or (the ..8 entry points) of Q true. clica_bn_dx has no add mode
+// (CLICA_BN_CASES alone): bn_add_relu's dx is bn_only's on g.
+#define CLICA_BN_CASES(fn, Q, ...)                                          \
     case 0: return fn<float, kOnly, Q>(__VA_ARGS__);                        \
     case 1: return fn<__nv_bfloat16, kOnly, Q>(__VA_ARGS__);                \
     case 2: return fn<float, kRelu, Q>(__VA_ARGS__);                        \
-    case 3: return fn<__nv_bfloat16, kRelu, Q>(__VA_ARGS__);                \
+    case 3: return fn<__nv_bfloat16, kRelu, Q>(__VA_ARGS__);
+#define CLICA_BN_DISPATCH(fn, Q, ...)                                       \
+  switch (mode * 2 + (is_bf16 ? 1 : 0)) {                                   \
+    CLICA_BN_CASES(fn, Q, __VA_ARGS__)                                      \
     case 4: return fn<float, kAddRelu, Q>(__VA_ARGS__);                     \
     case 5: return fn<__nv_bfloat16, kAddRelu, Q>(__VA_ARGS__);             \
     default: return (int)cudaErrorInvalidValue;                             \
@@ -650,25 +669,39 @@ int clica_bn_apply(const void* x, const void* res, const void* a,
 }
 
 // The sums of g and of g*x into sums (2, C) float; partial is a (2, grid, C)
-// float buffer; y, the forward's output, is read in mode 2 only.
-int clica_bn_bwd(const void* x, const void* dy, const void* y, const void* a,
-                 const void* b, float* partial, float* sums, long long P,
-                 int C, int is_bf16, int mode, int grid, void* stream) {
+// float buffer. In mode 2 only: y, the forward's output, is read, g (P, C)
+// is written, and dyr, where not null, is dy's second addend.
+int clica_bn_bwd(const void* x, const void* dy, const void* dyr, const void* y,
+                 const void* a, const void* b, float* partial, float* sums,
+                 void* g, long long P, int C, int is_bf16, int mode, int grid,
+                 void* stream) {
   if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  CLICA_BN_DISPATCH(launch_bwd, false, x, dy, y, a, b, partial, sums, nullptr,
-                    P, C, grid, st)
+  if (dyr != nullptr) {
+    if (mode != kAddRelu) return (int)cudaErrorInvalidValue;
+    return is_bf16 ? launch_bwd<__nv_bfloat16, kAddRelu, false, 2>(
+                         x, dy, dyr, y, a, b, partial, sums, g, nullptr, P, C,
+                         grid, st)
+                   : launch_bwd<float, kAddRelu, false, 2>(
+                         x, dy, dyr, y, a, b, partial, sums, g, nullptr, P, C,
+                         grid, st);
+  }
+  CLICA_BN_DISPATCH(launch_bwd, false, x, dy, nullptr, y, a, b, partial, sums,
+                    g, nullptr, P, C, grid, st)
 }
 
-// dx = A*g - B*x + C with k = (A, B, C) (3, C) in x's type; in mode 2 g is
-// written too, and y read as for clica_bn_bwd.
-int clica_bn_dx(const void* x, const void* dy, const void* y, const void* a,
-                const void* b, const void* k, void* dx, void* g, long long P,
-                int C, int is_bf16, int mode, int grid, void* stream) {
+// dx = A*g - B*x + C with k = (A, B, C) (3, C) in x's type, g = dy (mode 0)
+// or dy masked by the recomputed relu (mode 1).
+int clica_bn_dx(const void* x, const void* dy, const void* a, const void* b,
+                const void* k, void* dx, long long P, int C, int is_bf16,
+                int mode, int grid, void* stream) {
   if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  CLICA_BN_DISPATCH(launch_dx, false, x, dy, y, a, b, k, dx, g, nullptr, P, C,
-                    grid, st)
+  switch (mode * 2 + (is_bf16 ? 1 : 0)) {
+    CLICA_BN_CASES(launch_dx, false, x, dy, nullptr, a, b, k, dx, nullptr,
+                   nullptr, P, C, grid, st)
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The float8 modes (minres8). clica_bn_apply's y, and xq (P, C) bytes of
@@ -692,8 +725,8 @@ int clica_bn_bwd8(const void* xq, const void* dy, const void* res,
                   void* stream) {
   if (bad_shape(P, C, vec_of(is_bf16), grid)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  CLICA_BN_DISPATCH(launch_bwd, true, nullptr, dy, res, s, t, partial, sums,
-                    xq, P, C, grid, st)
+  CLICA_BN_DISPATCH(launch_bwd, true, nullptr, dy, nullptr, res, s, t,
+                    partial, sums, nullptr, xq, P, C, grid, st)
 }
 
 // dx = A*g - B*xh + C' with k = (A, B, C') (3, C) in dy's type; in mode 2 g

@@ -223,7 +223,7 @@ class _BnReluPoolCode(torch.autograd.Function):
         dz = scatter(dp, code, x.shape[1], x.shape[2])
         a, b = affine(scale, bias, mean, rstd, x.dtype)
         sums = launch_bwd if ctx.use_kernels else bn_bwd_reference
-        sum_g, sum_gx = sums(x, dz, a, b, None, True)
+        sum_g, sum_gx, _ = sums(x, dz, a, b, None, True)
         # dscale and dbias are this rank's; dx takes the whole batch's sums
         dscale, dbias = param_grads(mean, rstd, sum_g, sum_gx)
         count, totals = x.numel() // x.shape[-1], (sum_g, sum_gx)
@@ -232,7 +232,7 @@ class _BnReluPoolCode(torch.autograd.Function):
             count *= world_of(ctx.group)
         k = dx_factors(scale, mean, rstd, *totals, count, x.dtype)[2]
         dx_fn = launch_dx if ctx.use_kernels else bn_dx_reference
-        dx, _ = dx_fn(x, dz, k, a, b, None, True)
+        dx = dx_fn(x, dz, k, a, b, True)
         return dx, dscale, dbias, None, None, None
 
 

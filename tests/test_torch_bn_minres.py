@@ -72,7 +72,8 @@ def _port(fn, x, res, scale, bias, dy):
     gradients (dx[, dres], dscale, dbias) of sum(y · dy)."""
     args = [x] + ([res] if fn == "bn_add_relu" else []) + [scale, bias]
     leaves = [a.clone().requires_grad_() for a in args]
-    y, mean, var = getattr(bm, fn)(*leaves, EPS)
+    out = getattr(bm, fn)(*leaves, EPS)  # bn_add_relu's y_res left unused
+    y, mean, var = out[0], out[-2], out[-1]
     (y.float() * dy.float()).sum().backward()
     return (y, mean, var), [t.grad for t in leaves]
 
@@ -115,15 +116,57 @@ def test_values_and_gradients_match_jax(fn, shape, dtype, zero_scale):
         assert _rel(as_np(got), jnp_np(want)) <= grad_bar
 
 
+def two_edges_against_autograds_add(x, res, scale, bias, w1, w2, edges):
+    """bn_add_relu's gradients with its output's two edges, y and y_res, each
+    into a consumer of its own (a product with w1, w2: a convolution's and
+    a shortcut's stand-ins), and with one tensor on both consumers, whose
+    gradients autograd adds before the one-addend backward; ``edges`` names
+    the consumers used. ([x, res, scale, bias, w1, w2] gradients) of each:
+    two edges first."""
+    out = []
+    for pair in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x, res, scale, bias, w1, w2)]
+        y, y_res, _, _ = bm.bn_add_relu(*leaves[:4], EPS)
+        if not pair:
+            y_res = y
+        terms = {"both": (y * leaves[4], y_res * leaves[5]),
+                 "y": (y * leaves[4],), "y_res": (y_res * leaves[5],)}[edges]
+        sum(t.float().sum() for t in terms).backward()
+        out.append([t.grad for t in leaves])
+    return out
+
+
+@pytest.mark.parametrize("edges", ["both", "y", "y_res"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_two_edges_give_autograds_add_bit_for_bit(dtype, edges):
+    # the backward adds the two upstream gradients in x's dtype, as
+    # autograd's add does: x, res, scale, bias and both consumers' gradients
+    # equal the single tensor's bit for bit; an edge left unused brings no
+    # gradient, and the other alone is the one-addend backward
+    x, r, _, scale, bias = _data(5, SHAPES[1])
+    rng = np.random.default_rng(6)
+    w1, w2 = (torch.tensor(rng.normal(size=x.shape)).to(dtype) for _ in range(2))
+    tx, tr = (torch.tensor(a).to(dtype) for a in (x, r))
+    pair, single = two_edges_against_autograds_add(
+        tx, tr, torch.tensor(scale), torch.tensor(bias), w1, w2, edges)
+    used = {"both": (4, 5), "y": (4,), "y_res": (5,)}[edges]
+    for i, (got, want) in enumerate(zip(pair, single)):
+        if i in (4, 5) and i not in used:
+            assert got is None and want is None
+            continue
+        assert got.dtype == want.dtype and torch.equal(got, want), i
+
+
 @pytest.mark.parametrize("fn", FUNCTIONS)
 def test_statistics_outputs_carry_no_gradient(fn):
     x, res, _, scale, bias = _data(0, SHAPES[0])
     args = [torch.tensor(x, requires_grad=True)] + (
         [torch.tensor(res, requires_grad=True)] if fn == "bn_add_relu" else []) + [
         torch.tensor(scale, requires_grad=True), torch.tensor(bias, requires_grad=True)]
-    y, mean, var = getattr(bm, fn)(*args, EPS)
-    assert y.requires_grad
-    assert not mean.requires_grad and not var.requires_grad
+    out = getattr(bm, fn)(*args, EPS)
+    assert len(out) == (4 if fn == "bn_add_relu" else 3)
+    assert all(t.requires_grad for t in out[:-2])
+    assert not out[-2].requires_grad and not out[-1].requires_grad
 
 
 def _saved(fn, x, res, scale, bias):
@@ -222,10 +265,15 @@ def test_plain_versions_are_the_jax_lines(dtype, relu, res):
     dx_want, dscale_want, dbias_want = jax_bn._bn_bwd_core(
         jx, jnp.asarray(scale), jnp.asarray(mean.numpy()),
         jnp.asarray(rstd.numpy()), g_want)
-    sum_g, sum_gx = bm.bn_bwd_reference(tx, tdy, a, b, y, relu)
+    sum_g, sum_gx, g = bm.bn_bwd_reference(tx, tdy, a, b, y, relu)
     dscale, dbias, k = bm.dx_factors(torch.tensor(scale), mean, rstd, sum_g,
                                      sum_gx, tx.numel() // tx.shape[-1], dtype)
-    dx, g = bm.bn_dx_reference(tx, tdy, k, a, b, y, relu)
+    if res:  # bn_add_relu's dx is bn_only's on the g its sums wrote
+        dx = bm.bn_dx_reference(tx, g, k, a, b, relu=False)
+    else:
+        assert g is None
+        g = bm._masked(tx, tdy, a, b, None, relu)
+        dx = bm.bn_dx_reference(tx, tdy, k, a, b, relu)
     f = lambda t: t.detach().float().numpy()
     np.testing.assert_array_equal(f(g), np.asarray(g_want, np.float32))
     bar = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-5
@@ -283,28 +331,41 @@ def _fake_card(monkeypatch, lib):
         def kernel_route(x, *args, _res=res, _relu=relu):
             r = args[0] if _res else None
             scale, bias, eps = args[1:] if _res else args
-            return bm._minres(x, r, scale, bias, eps, _relu, True)
+            y, y_res, mean, var = bm._minres(x, r, scale, bias, eps, _relu, True)
+            return (y, y_res, mean, var) if _res else (y, mean, var)
         monkeypatch.setattr(layers, fn, kernel_route)
     yield maps
 
 
-@pytest.mark.parametrize("act, res", [("relu", False), ("relu", True), ("none", False)])
-def test_module_hands_dense_channels_last_pointers_to_the_library(monkeypatch, act, res):
+@pytest.mark.parametrize("act, res, edges", [
+    ("relu", False, 1), ("relu", True, 1), ("relu", True, 2), ("none", False, 1)])
+def test_module_hands_dense_channels_last_pointers_to_the_library(monkeypatch, act, res,
+                                                                  edges):
     # x and res in place, the output y made by the library, and the
-    # backward's reads (x, dy, and with res the output y) all dense
+    # backward's reads (x, dy, with res the output y, and with both of its
+    # edges used the second upstream gradient) all dense; with res the sums'
+    # pass writes g, which dx reads in bn_only's mode
     lib = _FakeBnLib()
     x = torch.randn(2, 8, 5, 5).contiguous(memory_format=torch.channels_last)
     r = torch.randn(2, 8, 5, 5).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(2, 8, 5, 5).contiguous(memory_format=torch.channels_last)
     x.requires_grad_()
     r.requires_grad_()
     norm = MinResBN2d(8, act=act).train()
     reset_launch_counts()
     bm.reset_dy_copies()
     with _fake_card(monkeypatch, lib) as maps:
-        y = norm(x, res=r if res else None)
+        out = norm(x, res=r if res else None)
+        y, y_res = out if res else (out, None)
         assert y.shape == x.shape and y.is_contiguous(memory_format=torch.channels_last)
-        # the mean pool's backward hands a gradient that is not dense NHWC
-        y.mean(dim=(2, 3)).sum().backward()
+        if res:  # one tensor on two edges: outputs 0 and 1 of one node
+            (node, i), = y.grad_fn.next_functions
+            assert y_res.data_ptr() == y.data_ptr() and i == 0
+            assert y_res.grad_fn.next_functions == ((node, 1),)
+        # the mean pool's backward hands a gradient that is not dense NHWC;
+        # the second edge's is dense
+        loss = y.mean(dim=(2, 3)).sum()
+        (loss + (y_res * w).sum() if edges == 2 else loss).backward()
     mode = {("relu", False): bm.RELU, ("relu", True): bm.ADD_RELU,
             ("none", False): bm.ONLY}[act, res]
     assert [c[0] for c in lib.calls] == ["stats", "apply", "bwd", "dx"]
@@ -315,13 +376,20 @@ def test_module_hands_dense_channels_last_pointers_to_the_library(monkeypatch, a
     assert stats[4:] == (50, 8, 0, grid, EPS, None)
     assert apply[2] == (r if res else x).data_ptr()
     assert apply[6:] == (50, 8, 0, mode, grid, None)
-    assert bwd[1] == dx[1] == x.data_ptr() and bwd[2] == dx[2]
-    assert bwd[3] == dx[3] == (apply[5] if res else x.data_ptr())
-    assert bwd[8:] == dx[9:] == (50, 8, 0, mode, grid, None)
+    assert bwd[1] == dx[1] == x.data_ptr()
+    assert (bwd[3] is None) == (edges == 1)
+    assert bwd[4] == (apply[5] if res else x.data_ptr())
+    assert (bwd[9] is None) != res
+    assert dx[2] == (bwd[9] if res else bwd[2])
+    assert bwd[10:] == (50, 8, 0, mode, grid, None)
+    assert dx[7:] == (50, 8, 0, bm.ONLY if res else mode, grid, None)
     assert bm.dy_copies() == 1
     assert ("dy", bwd[2]) in maps
+    if edges == 2:
+        assert ("dy_res", bwd[3]) in maps
     assert launch_counts() == {**{k: 0 for k in launch_counts()},
-                               "bn_stats": 1, "bn_apply": 1, "bn_bwd": 1, "bn_dx": 1}
+                               "bn_stats": 1, "bn_apply": 1, "bn_bwd": 1, "bn_dx": 1,
+                               "bn_junctions": int(edges == 2)}
     assert x.grad.shape == x.shape and (r.grad is not None) == res
 
 
@@ -355,7 +423,12 @@ def test_module_training_matches_the_composition_and_updates_running(act, res):
             y = norm(xs)
             y = y + rs if res else y
             y = F.relu(y) if act == "relu" else y
-        (y * nchw(dy)).sum().backward()
+            y = (y, y) if res else y
+        if res:  # a cotangent on each of the pair's two edges
+            y, y_res = y
+            (y * nchw(dy) + y_res * nchw(dy[::-1].copy())).sum().backward()
+        else:
+            (y * nchw(dy)).sum().backward()
         outs.append((y.detach(), xs.grad, rs.grad, norm.weight.grad, norm.bias.grad,
                      norm.running_mean, norm.running_var))
     for got, want in zip(*outs):
@@ -374,7 +447,8 @@ def test_module_eval_is_the_plain_composition():
     plain = FastBatchNorm2d(8)
     plain.load_state_dict(norm.state_dict())
     norm.eval(), plain.eval()
-    assert torch.equal(norm(x, res=r), F.relu(plain(x) + r))
+    y, y_res = norm(x, res=r)
+    assert y is y_res and torch.equal(y, F.relu(plain(x) + r))
     assert torch.equal(norm(x), F.relu(plain(x)))
     norm.act = "none"
     assert torch.equal(norm(x), plain(x))

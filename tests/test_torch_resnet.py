@@ -37,7 +37,8 @@ from cl_ica_tpu_torch.models import (
     resnet_params_to_flax,
 )
 from cl_ica_tpu_torch.models.layers import MinResBN2d
-from cl_ica_tpu_torch.models.resnet import _same_padding
+from cl_ica_tpu_torch.models.resnet import BasicBlock, Bottleneck, _same_padding
+from cl_ica_tpu_torch.ops import bn_minres
 
 torch.set_num_threads(1)
 
@@ -676,3 +677,114 @@ def test_minres_state_dict_is_the_composition_models(stem_pool):
                for k in got)
     assert (_flat(resnet_params_to_flax(got, "MinResBN")).keys()
             == _flat(resnet_params_to_flax(want, "MinResBN")).keys())
+
+
+# a block's output on its two edges (the next block's first convolution and
+# its shortcut), against one tensor on both, whose gradients autograd adds
+# before the one-addend backward of the block's last norm
+
+
+def _spied_junctions(monkeypatch):
+    """A list that gets one entry a backward of the minres norms' plain
+    route: True where it took two upstream gradients."""
+    calls, sums = [], bn_minres.bn_bwd_reference
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("dy_res", args[6] if len(args) > 6 else None)
+                     is not None)
+        return sums(*args, **kwargs)
+
+    monkeypatch.setattr(bn_minres, "bn_bwd_reference", spy)
+    return calls
+
+
+class _OneTensor(torch.nn.Module):
+    """A block whose output is one tensor on both edges (the composition
+    before the pairs)."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x, x_res):
+        y = self.block(x, x_res)[0]
+        return y, y
+
+
+def _scales_moved(model, seed):
+    """Every norm's scale and bias off its initial value, so that every
+    block's branch reaches the output."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 1 and not name.startswith("fc"):
+                p.copy_(1.0 + 0.3 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def _output_and_grads(fn, x, w, params):
+    """(output, input and parameter gradients) of (fn(x)·w).sum()."""
+    x = x.clone().requires_grad_()
+    out = fn(x)
+    (out.float() * w).sum().backward()
+    return [out.detach(), x.grad] + [p.grad for p in params]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block_cls", [BasicBlock, Bottleneck])
+def test_block_pairs_give_autograds_add_bit_for_bit(monkeypatch, block_cls, dtype):
+    # two blocks, the second with a projection shortcut: the first's output
+    # pair into the second against its first edge on both; the output and
+    # every gradient bit for bit, and one backward with two addends
+    c = 16 * block_cls.expansion
+    blocks = torch.nn.ModuleList([block_cls(c, 16, 1, "minres"),
+                                  block_cls(c, 32, 2, "minres")]).train()
+    _scales_moved(blocks, 3)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(3, c, 8, 8, generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(3, 32 * block_cls.expansion, 4, 4, generator=g)
+    calls = _spied_junctions(monkeypatch)
+    runs = []
+    for pair in (True, False):
+        calls.clear()
+        for p in blocks.parameters():
+            p.grad = None
+        first = blocks[0] if pair else _OneTensor(blocks[0])
+        runs.append(_output_and_grads(lambda v: blocks[1](*first(v, v))[0], x, w,
+                                      blocks.parameters()))
+        assert sum(calls) == int(pair) and len(calls) == 2 * len(blocks[0].norms) + 1
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["minres", "minres-bf16", "minres8", "fast"])
+@pytest.mark.parametrize("mode", ["train", "remat", "eval"])
+@pytest.mark.parametrize("net", ["ResNet18", "ResNet50"])
+def test_resnet_pairs_give_autograds_add_bit_for_bit(monkeypatch, net, mode, kind):
+    # the whole net against the same net with each block's output as one
+    # tensor on both edges: the output, the image's and every parameter's
+    # gradient bit for bit; in training with 'minres' every block's output
+    # but the last (the mean pool's alone) reaches its norm's backward as
+    # two addends, with minres8 and the other kinds none does
+    cls = {"ResNet18": ResNet18, "ResNet50": ResNet50}[net]
+    norm_kind = kind.removesuffix("-bf16")
+    dtype = torch.bfloat16 if kind.endswith("-bf16") else None
+    x = _nchw(_images(23))
+    w = torch.randn(4, 5, generator=torch.Generator().manual_seed(5))
+    calls = _spied_junctions(monkeypatch)
+    runs = []
+    for pair in (True, False):
+        model = _scales_moved(cls(num_classes=5, num_filters=16, norm_kind=norm_kind,
+                                  dtype=dtype, remat=mode == "remat",
+                                  generator=torch.Generator().manual_seed(6)), 7)
+        model.train(mode != "eval")
+        if not pair:
+            model.blocks = torch.nn.ModuleList(_OneTensor(b) for b in model.blocks)
+        calls.clear()
+        runs.append(_output_and_grads(model, x, w, model.parameters())
+                    + list(model.buffers()))
+        junctions = len(model.blocks) - 1 if pair and norm_kind == "minres" else 0
+        assert sum(calls) == (junctions if mode != "eval" else 0)
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)

@@ -160,8 +160,13 @@ def norm_outputs(kind: str, x, res, ct, group=None) -> dict:
     x = torch.tensor(x, requires_grad=True)
     r = torch.tensor(res, requires_grad=True) if kind.endswith("add_relu") else None
     with data_group(group):
-        y = norm(x, res=r) if r is not None else norm(x)
-        (y * torch.tensor(ct)).sum().backward()
+        if r is not None:  # the output's two edges, half the cotangent on each
+            y, y_res = norm(x, res=r)
+            half = torch.tensor(ct) * 0.5
+            ((y * half).sum() + (y_res * half).sum()).backward()
+        else:
+            y = norm(x)
+            (y * torch.tensor(ct)).sum().backward()
     return {"y": _np(y), "mean": _np(norm.running_mean), "var": _np(norm.running_var),
             "dx": _np(x.grad), "dres": None if r is None else _np(r.grad),
             "dscale": _np(norm.weight.grad), "dbias": _np(norm.bias.grad)}
@@ -517,7 +522,7 @@ def tp_norm_model(kind: str, c_in: int, c: int, seed: int = 0):
     def forward(x):
         h = model["first"](x)
         if kind.endswith("add_relu"):
-            y = model["norm"](h, res=h * 0.5)
+            y = model["norm"](h, res=h * 0.5)[0]
         else:
             y = model["norm"](h)
         if y.ndim == 4:
