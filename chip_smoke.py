@@ -275,6 +275,7 @@ from cl_ica_tpu_torch.ops import (
     infonce,
     infonce_dot,
     pool_minres,
+    runtime,
     stem,
 )
 from cl_ica_tpu_torch.spaces.utils import fallback_count, reset_fallback_counts
@@ -305,10 +306,11 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # tensor cores, and device memory.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-LP = ("fwd", "dz1", "dz3")               # fused_neg_lse's launch counters
-DOT = ("dot_fwd", "dot_dz1", "dot_dz3")  # fused_dot_lse's
-STEM = ("stem_fwd", "stem_bwd", "stem_dx")  # the stem tail's
-BN = ("bn_stats", "bn_apply", "bn_bwd", "bn_dx")  # the blocks' minres norm's
+# the launch counters of each wrapper module's kernels (ops/runtime.py's
+# registry): fused_neg_lse's, fused_dot_lse's, the stem tail's, the blocks'
+# minres norm's, its float8 modes' and the argmax-code pool's
+LP, DOT, STEM, BN, BN8, POOL = (runtime.KERNELS[m] for m in (
+    "infonce", "infonce_dot", "stem", "bn_minres", "bn_minres8", "pool_minres"))
 STEM_FULL = (1024, 112, 112, 64)         # conv7's output for 1024 images of 224x224
 # float32: the kernel and the plain version round x*a and +b separately and
 # add at most four g's in one order, so pooled and dy should be equal; the
@@ -335,7 +337,6 @@ RN50_NORMS = tuple((1024, h, h, c) for h, c in (
     (14, 256), (14, 512), (14, 1024), (7, 512), (7, 2048)))
 RN50_NORMS_A_STEP = 53
 RN50_JUNCTIONS_A_STEP = 15
-POOL = ("pool_code", "pool_scatter")  # the argmax-code pool's
 # the default minres path a step: the stem's norm, relu and pool are
 # ops/pool_minres.py bn_relu_pool (its statistics, the code and scatter,
 # and bn_relu's backward sums and dx), the other 19 norms minres's
@@ -413,7 +414,10 @@ KERNELS = {  # launch counter -> (name, source, the Pallas body it replaces)
                      "pass, not a pallas_call)"),
 }
 # every launch counter (ops.launch_counts): the kernels' and bn_junctions
-COUNTERS = (*KERNELS, "bn_junctions")
+COUNTERS = runtime.COUNTERS
+if tuple(KERNELS) != COUNTERS[:-1]:
+    raise AssertionError(f"KERNELS names {tuple(KERNELS)}, the registry "
+                         f"{COUNTERS[:-1]}")
 _RUN = ("--n 10 --batch-size 6144 --only-unsupervised --n-steps 100 "
         "--n-log-steps 50 --num-eval-batches 2 --seed 0").split()
 HEADLINE = "--space-type sphere --c-p 0 --c-param 20 --p 2".split() + _RUN
@@ -614,9 +618,9 @@ def _hold_unnormal_rtau(rng) -> None:
                   lambda a, b: infonce_dot.fused_dot_lse(a, b, C6_TAU),
                   lambda a, b: infonce_dot.dot_lse_reference(a, b, C6_TAU)))
     for tag, names, kern_fn, plain_fn in cases:
-        infonce.reset_launch_counts()
+        runtime.reset_launch_counts()
         kern = _value_and_grads(kern_fn, z1, z3, ct)
-        launched = infonce.launch_counts()
+        launched = runtime.launch_counts()
         exact = _value_and_grads(plain_fn, z1, z3, ct, torch.float64)
         plain = _value_and_grads(plain_fn, z1, z3, ct)
         e_kern = [rel_err(g.double(), w) for g, w in zip(kern, exact)]
@@ -631,7 +635,7 @@ def _hold_unnormal_rtau(rng) -> None:
             raise AssertionError(f"{tag} tau={C6_TAU:g}: non-finite output")
         if e_kern[0] > VALUE_BAR or max(e_kern[1:]) > GRAD_BAR:
             raise AssertionError(f"{tag} tau={C6_TAU:g} vs float64: {e_kern}")
-    infonce.reset_launch_counts()
+    runtime.reset_launch_counts()
 
 
 def _hold_forward_repeats(rng) -> None:
@@ -869,12 +873,12 @@ def _run_main(tag: str, argv: list[str], path: tuple) -> dict:
     launched once per step, and no other kernel at all."""
     save = os.path.join(OUT_DIR, tag)
     shutil.rmtree(save, ignore_errors=True)  # log.csv is appended to
-    infonce.reset_launch_counts()
+    runtime.reset_launch_counts()
     t0 = time.perf_counter()
     lin, perm = main_mlp.main(argv + ["--save-dir", save], device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    grew = infonce.launch_counts()
+    grew = runtime.launch_counts()
     with open(os.path.join(save, "log.csv")) as fh:
         rows = list(csv.DictReader(fh))
     steps = int(rows[-1]["step"])
@@ -1248,7 +1252,7 @@ def phase_stem_kernels(worst: dict) -> None:
         # ragged strips and segments of the backward's tiles, more channels
         # than one block's slice (16 vectors) and, last, C of 256 vectors,
         # the widest the kernels take
-        widest = (2, 6, 10, 256 * stem.vector_width(dtype))
+        widest = (2, 6, 10, 256 * runtime.vector_width(dtype))
         for shape in ((3, 16, 16, 8), (2, 12, 20, 16), (5, 6, 10, 24),
                       (1, 2, 2, 8), (7, 30, 14, 64), (1, 40, 36, 8),
                       (2, 4, 6, 320), (2, 8, 70, 64), widest):
@@ -1497,13 +1501,13 @@ def phase_fixture() -> None:
 def _run_3dident(tag: str, argv: list[str]) -> tuple[dict, dict, float]:
     """One main_3dident run with every launch count set to 0 just before it
     and read just after."""
-    infonce.reset_launch_counts()
+    runtime.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = main_3dident.main(_RUN3D + argv, device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    grew = infonce.launch_counts()
+    grew = runtime.launch_counts()
     print(f"[6 3dident] {tag}: {secs:.1f} s, {len(out['losses'])} steps; "
           f"launches {grew}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -2002,14 +2006,14 @@ def _kitti_8a(tag: str, extra: tuple, bar: float) -> dict:
     """main_kitti.main for 2,000 steps and its evaluation, the counters set
     to 0 just before and read just after."""
     out = os.path.join(KITTI_DIR, tag)
-    infonce.reset_launch_counts()
+    runtime.reset_launch_counts()
     t0 = time.perf_counter()
     main_kitti.main(_RUNK + list(extra) + [
         "--max-iter", "2000", "--log-step", "100", "--output-dir",
         os.path.join(out, "out"), "--ckpt-dir", os.path.join(out, "ck")], device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    grew = infonce.launch_counts()
+    grew = runtime.launch_counts()
     run = os.path.join(out, "out", "kittimasks_1", "1_0", "0")
     with open(os.path.join(run, "log.csv")) as fh:
         rows = [float(v) for v in fh.read().splitlines()[1:]]
@@ -2144,10 +2148,10 @@ def _kitti_unfused() -> None:
     losses, grew = {}, {}
     for tag, extra in (("fused", ()), ("unfused", ("--no-fused-loss",))):
         args = _kitti_args(f"8e_{tag}", "--max-iter", "20", "--log-step", "1", *extra)
-        infonce.reset_launch_counts()
+        runtime.reset_launch_counts()
         kitti_solver.Solver(args, kitti.return_data(args)[0], "cuda").train()
         torch.cuda.synchronize()
-        grew[tag] = infonce.launch_counts()
+        grew[tag] = runtime.launch_counts()
         with open(os.path.join(args.output_dir, "log.csv")) as fh:
             losses[tag] = [float(v) for v in fh.read().splitlines()[1:]]
     rel = [abs(u - f) / abs(f) for f, u in zip(losses["fused"], losses["unfused"])]
@@ -2293,13 +2297,13 @@ def _hold_capture(tag: str, make, per_step: dict, replays: int,
     n = WARMUP_STEPS + replays
     want = torch.stack([_eager(eager_step) for _ in range(n)])
     got = [cap_step() for _ in range(WARMUP_STEPS + 1)]  # the capture is in the last
-    infonce.reset_launch_counts()
+    runtime.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got += [cap_step() for _ in range(replays - 1)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    grew = infonce.launch_counts()
+    grew = runtime.launch_counts()
     got = torch.stack(got)
     fallbacks = int(fallback_count("cuda"))
     same_out = torch.equal(got, want)
@@ -2679,14 +2683,14 @@ def _mesh_w1_rank(smi: str, device) -> dict:
         for lane in lanes:
             lane.start_phase(False, args.n_steps)
         want = torch.stack([_eager(lanes[0].step) for _ in range(MESH_STEPS)])
-        infonce.reset_launch_counts()
+        runtime.reset_launch_counts()
         got = torch.stack([lanes[1].step() for _ in range(MESH_STEPS)])
         torch.cuda.synchronize()
         out[config] = {"outputs_equal": torch.equal(got, want),
                        "max_diff": float((got - want).abs().max()),
                        "tensors": _params_equal(lanes[0].f.parameters(),
                                                 lanes[1].f.parameters()),
-                       "launches": infonce.launch_counts()}
+                       "launches": runtime.launch_counts()}
     for tag, extra in (("3dident", ()), ("3dident minres8", ("--norm-kind", "minres8"))):
         out[tag] = _mesh_w1_3dident(mesh, device, extra)
     gc.collect()
@@ -2721,7 +2725,7 @@ def _mesh_w1_3dident(mesh, device, extra: tuple) -> dict:
         functools.partial(parallel.gspmd_safe_loss, mesh))
     step = parallel.make_sharded_3dident_train_step(mesh, model2, loss2, opt2, sched2)
     rows = parallel.mesh_rows(mesh, 512)
-    infonce.reset_launch_counts()
+    runtime.reset_launch_counts()
     got = torch.stack([torch.stack(step(*main_3dident.draw_rank_views(
         sharded, gen2, rows)[1::2])) for _ in range(MESH_STEPS)])
     torch.cuda.synchronize()
@@ -2730,7 +2734,7 @@ def _mesh_w1_3dident(mesh, device, extra: tuple) -> dict:
             "tensors": _params_equal(
                 list(model.parameters()) + list(model.buffers()),
                 list(model2.parameters()) + list(model2.buffers())),
-            "launches": infonce.launch_counts()}
+            "launches": runtime.launch_counts()}
 
 
 def _store_w1(mesh, device) -> dict:
@@ -2973,14 +2977,14 @@ def _mesh_rank_runs(runs: list, device) -> list:
     0's is kept)."""
     out = []
     for what, argv in runs:
-        infonce.reset_launch_counts()
+        runtime.reset_launch_counts()
         if what == "store":
             got = _store_rank(device)
         else:
             got = {"mlp": main_mlp.main, "3dident": main_3dident.main}[what](
                 argv, device=device)
         torch.cuda.synchronize()
-        out.append((got, infonce.launch_counts()))
+        out.append((got, runtime.launch_counts()))
     return out
 
 
@@ -3154,7 +3158,6 @@ def phase_mesh(worst: dict, smi: str) -> tuple[dict, dict]:
 # pool, the s2d stems, remat)
 # ---------------------------------------------------------------------------
 
-BN8 = ("bn_apply8", "bn_bwd8", "bn_dx8")     # minres8's modes of the bn kernels
 MINRES8_STEP = {**dict.fromkeys(LP + DOT, 1), "bn_stats": BN_NORMS_A_STEP,
                 **dict.fromkeys(BN8, BN_NORMS_A_STEP)}
 # xhat values that pin the conversion past e4m3fn's range (C9): NaN past
@@ -3320,7 +3323,8 @@ def _pool_code_report(smi: str) -> None:
     lib = stem.load_kernels()
     for dtype in (torch.float32, torch.bfloat16):
         cv, _, ws, _ = stem.tile_geometry(STEM_FULL[2], STEM_FULL[3], dtype)
-        slots = stem._slots(0, "pool_code", cv, ws, int(dtype == torch.bfloat16))
+        slots = runtime.resident_blocks(lib, "pool_code", 0, cv, ws,
+                                        int(dtype == torch.bfloat16))
         plan = pool_minres.pool_code_plan(*STEM_FULL, dtype, slots)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         print(f"[12 options] pool_code_kernel {str(dtype).removeprefix('torch.')} "
@@ -3450,7 +3454,7 @@ def _options_kernels(worst: dict, smi: str) -> dict:
             torch.cuda.empty_cache()
         for (n, h, w, c), mode in POOL_SHAPES:
             if c == "256v":
-                c = 256 * stem.vector_width(dtype)
+                c = 256 * runtime.vector_width(dtype)
             _hold_pool((n, h, w, c), dtype, gen, worst, mode)
             torch.cuda.empty_cache()
     _pool_code_report(smi)
@@ -3553,13 +3557,13 @@ def _hold_stem_route() -> None:
                 norm.weight.copy_(scale)
                 norm.bias.copy_(bias)
             xs = x.detach().requires_grad_()
-            infonce.reset_launch_counts()
+            runtime.reset_launch_counts()
             p = norm(xs) if fused else F.max_pool2d(norm(xs), 3, 2, 1)
             p.backward(g)
             torch.cuda.synchronize()
             sides.append(((p.detach(), norm.running_mean, norm.running_var),
                           (xs.grad, norm.weight.grad, norm.bias.grad),
-                          {k: v for k, v in infonce.launch_counts().items() if v}))
+                          {k: v for k, v in runtime.launch_counts().items() if v}))
             del xs, p, norm
         (vals, grads, grew), (want_vals, want_grads, want_grew) = sides
         same = all(torch.equal(a, b) for a, b in zip(vals, want_vals))
@@ -3604,10 +3608,10 @@ def _options_models() -> dict:
         if plain_stem:  # the composition MinResBN2d -> F.max_pool2d
             model.bn_init = MinResBN2d(64)
         model = model.cuda().train()
-        infonce.reset_launch_counts()
+        runtime.reset_launch_counts()
         out = _grads_of(model, x)
         torch.cuda.synchronize()
-        grew = {k: v for k, v in infonce.launch_counts().items() if v}
+        grew = {k: v for k, v in runtime.launch_counts().items() if v}
         del model
         return out, grew
 
@@ -3852,12 +3856,12 @@ def _rest_mlp(smi: str) -> dict:
         shutil.rmtree(prof, ignore_errors=True)
         argv = REST_MLP + ["--save-dir", save] + (
             ["--profile-dir", prof] if tag == "profiled" else [])
-        infonce.reset_launch_counts()
+        runtime.reset_launch_counts()
         t0 = time.perf_counter()
         scores = main_mlp.main(argv, device="cuda")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        grew = infonce.launch_counts()
+        grew = runtime.launch_counts()
         _, state = checkpoint.load_resume_state(os.path.join(save, "resume"))
         runs[tag] = (state["lane"]["losses"], scores, grew, secs, prof)
     (lp, sp, gp, tp, _), (lq, sq, gq, tq, prof) = runs["plain"], runs["profiled"]
@@ -3890,10 +3894,10 @@ def _rest_kitti(smi: str) -> dict:
                         "--output-dir", os.path.join(out, "out"),
                         "--ckpt-dir", os.path.join(out, "ck")] + (
             ["--profile-dir", prof] if tag == "profiled" else [])
-        infonce.reset_launch_counts()
+        runtime.reset_launch_counts()
         main_kitti.main(argv, device="cuda")
         torch.cuda.synchronize()
-        grew = infonce.launch_counts()
+        grew = runtime.launch_counts()
         run = os.path.join(out, "out", "kittimasks_1", "1_0", "0")
         with open(os.path.join(run, "log.csv")) as fh:
             log = fh.read()

@@ -42,8 +42,9 @@ pairs, float32: PERF.md); both read one tensor more in the backward.
 The JAX package leaves these passes to XLA; here they are four CUDA
 kernels in csrc/bn_minres.cu (see the note there): ``bn_stats`` (the
 statistics, with the reduction of its per-block sums), ``bn_apply``,
-``bn_bwd`` (the two sums, with their reduction) and ``bn_dx``. Their
-launches are counted beside the other kernels' (``ops.launch_counts``).
+``bn_bwd`` (the two sums, with their reduction) and ``bn_dx``. They are
+launched through ops/runtime.py, which counts them beside the other
+kernels (``ops.launch_counts``).
 The per-channel folds (a, b; dscale, dbias, A, B, C) stay plain tensor
 operations on (C,) vectors.
 
@@ -72,24 +73,18 @@ the kernels or raise; they never fall back.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from .build import load_library
+from . import runtime
 from .collectives import all_reduce_mean_, all_reduce_sum_, world_of
-from .infonce import _check_launch, _launches, _stream
+from .runtime import FLOAT, INT, LONG, PTR, vector_width
 
 LIBRARY = "bn_minres"
 THREADS = 256  # a block's threads
 BLOCKS_PER_SM = 4  # the grid: at most this many blocks an SM, one wave
 ONLY, RELU, ADD_RELU = 0, 1, 2  # the kernels' modes
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-_DTYPES = (torch.float32, torch.bfloat16)
 
 # Upstream gradients made dense by a copy since the last reset (under a
 # CUDA graph's capture, the capture's copies only).
@@ -104,17 +99,13 @@ def reset_dy_copies() -> None:
     _copies["dy"] = 0
 
 
-def vector_width(dtype: torch.dtype) -> int:
-    """Channels per 16-byte vector of the kernels."""
-    return 8 if dtype == torch.bfloat16 else 4
-
-
 # ---------------------------------------------------------------------------
 # the plain versions
 # ---------------------------------------------------------------------------
 
 
-def _dims(x: torch.Tensor) -> Tuple[int, ...]:
+def position_dims(x: torch.Tensor) -> Tuple[int, ...]:
+    """Every dimension of (..., C) x but the channels'."""
     return tuple(range(x.ndim - 1))
 
 
@@ -123,8 +114,8 @@ def channel_stats(x: torch.Tensor, eps: float, group=None):
     straight from the input, the square taken in x's dtype (as
     ``jnp.square(x)``), var = max(E[x²] − E[x]², 0), rstd = 1/√(var + eps).
     With a group, mean and E[x²] are first averaged over the ranks."""
-    mean = x.mean(dim=_dims(x), dtype=torch.float32)
-    mean2 = x.square().mean(dim=_dims(x), dtype=torch.float32)
+    mean = x.mean(dim=position_dims(x), dtype=torch.float32)
+    mean2 = x.square().mean(dim=position_dims(x), dtype=torch.float32)
     if group is not None:
         mean, mean2 = all_reduce_mean_(torch.stack([mean, mean2]), group)
     var = (mean2 - mean * mean).clamp_(min=0)
@@ -138,7 +129,7 @@ def affine(scale, bias, mean, rstd, dtype: torch.dtype):
     return inv.to(dtype), (bias - mean * inv).to(dtype)
 
 
-def _pre(x, a, b, res):
+def pre_activation(x, a, b, res):
     """x·a + b (+ res) in x's dtype, each operation rounded."""
     z = x * a + b
     return z if res is None else z + res
@@ -148,7 +139,7 @@ def bn_apply_reference(x, a, b, res: Optional[torch.Tensor] = None,
                        relu: bool = True) -> torch.Tensor:
     """The plain version of the apply kernel: relu(x·a + b (+ res)), or
     x·a + b without the relu, in x's dtype."""
-    z = _pre(x, a, b, res)
+    z = pre_activation(x, a, b, res)
     return torch.relu(z) if relu else z
 
 
@@ -157,7 +148,7 @@ def _masked(x, dy, a, b, y, relu):
     bn_add_relu's output y; dy itself without the relu."""
     if not relu:
         return dy
-    z = y if y is not None else _pre(x, a, b, None)
+    z = y if y is not None else pre_activation(x, a, b, None)
     return torch.where(z > 0, dy, torch.zeros((), dtype=dy.dtype, device=dy.device))
 
 
@@ -170,8 +161,8 @@ def bn_bwd_reference(x, dy, a, b, y: Optional[torch.Tensor] = None,
     if dy_res is not None:
         dy = dy + dy_res
     g = _masked(x, dy, a, b, y, relu)
-    return (g.sum(dim=_dims(x), dtype=torch.float32),
-            (g * x).sum(dim=_dims(x), dtype=torch.float32),
+    return (g.sum(dim=position_dims(x), dtype=torch.float32),
+            (g * x).sum(dim=position_dims(x), dtype=torch.float32),
             g if y is not None else None)
 
 
@@ -206,43 +197,34 @@ def bn_dx_reference(x, dy, k, a, b, relu: bool = True):
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' library."""
-    return declare(load_library(LIBRARY))
+    return runtime.library(LIBRARY, declare)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of every entry point of a library built
     from csrc/bn_minres.cu."""
-    lib.clica_bn_stats.argtypes = [_P, _P, _P, _LL, _I, _I, _I,
-                                   ctypes.c_float, _P]
-    lib.clica_bn_stats.restype = _I
-    lib.clica_bn_moments.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _P]
-    lib.clica_bn_moments.restype = _I
-    lib.clica_bn_finish.argtypes = [_P, _P, _I, ctypes.c_float, _P]
-    lib.clica_bn_finish.restype = _I
-    lib.clica_bn_apply.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _I, _P]
-    lib.clica_bn_apply.restype = _I
-    lib.clica_bn_bwd.argtypes = [_P] * 9 + [_LL, _I, _I, _I, _I, _P]
-    lib.clica_bn_bwd.restype = _I
-    lib.clica_bn_dx.argtypes = [_P] * 6 + [_LL, _I, _I, _I, _I, _P]
-    lib.clica_bn_dx.restype = _I
+    lib.clica_bn_stats.argtypes = [PTR, PTR, PTR, LONG, INT, INT, INT, FLOAT, PTR]
+    lib.clica_bn_stats.restype = INT
+    lib.clica_bn_moments.argtypes = [PTR, PTR, PTR, LONG, INT, INT, INT, PTR]
+    lib.clica_bn_moments.restype = INT
+    lib.clica_bn_finish.argtypes = [PTR, PTR, INT, FLOAT, PTR]
+    lib.clica_bn_finish.restype = INT
+    lib.clica_bn_apply.argtypes = [PTR] * 5 + [LONG, INT, INT, INT, INT, PTR]
+    lib.clica_bn_apply.restype = INT
+    lib.clica_bn_bwd.argtypes = [PTR] * 9 + [LONG, INT, INT, INT, INT, PTR]
+    lib.clica_bn_bwd.restype = INT
+    lib.clica_bn_dx.argtypes = [PTR] * 6 + [LONG, INT, INT, INT, INT, PTR]
+    lib.clica_bn_dx.restype = INT
     # the float8 modes (ops/bn_minres8.py)
-    lib.clica_bn_apply8.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
-    lib.clica_bn_apply8.restype = _I
-    lib.clica_bn_bwd8.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
-    lib.clica_bn_bwd8.restype = _I
-    lib.clica_bn_dx8.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
-    lib.clica_bn_dx8.restype = _I
-    lib.clica_error_string.argtypes = [_I]
-    lib.clica_error_string.restype = ctypes.c_char_p
+    lib.clica_bn_apply8.argtypes = [PTR] * 8 + [LONG, INT, INT, INT, INT, PTR]
+    lib.clica_bn_apply8.restype = INT
+    lib.clica_bn_bwd8.argtypes = [PTR] * 7 + [LONG, INT, INT, INT, INT, PTR]
+    lib.clica_bn_bwd8.restype = INT
+    lib.clica_bn_dx8.argtypes = [PTR] * 8 + [LONG, INT, INT, INT, INT, PTR]
+    lib.clica_bn_dx8.restype = INT
     return lib
-
-
-@functools.cache
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def grid_rows(positions: int, c: int, dtype: torch.dtype, sms: int) -> int:
@@ -257,56 +239,23 @@ def grid_rows(positions: int, c: int, dtype: torch.dtype, sms: int) -> int:
     return max(1, min(-(-positions // per), BLOCKS_PER_SM * sms))
 
 
-def _check_map(name: str, t: torch.Tensor, like: torch.Tensor = None) -> None:
-    """What the kernels ask of x, res, y, dy: a dense (..., C) CUDA tensor,
-    float32 or bfloat16, C a multiple of the vector width."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in _DTYPES:
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-    if t.ndim < 2 or t.numel() == 0:
-        raise ValueError(f"{name} must be (..., C) and not empty, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(
-            f"{name} must be dense (..., C) memory, got strides {t.stride()} "
-            f"for shape {tuple(t.shape)}; the wrapper does not copy it (for a "
-            "channels_last NCHW tensor pass t.permute(0, 2, 3, 1))")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-    vec = vector_width(t.dtype)
-    if t.shape[-1] % vec:
-        raise ValueError(f"{name}: C = {t.shape[-1]} is not a multiple of "
-                         f"{vec} ({t.dtype})")
-    if like is not None and (t.shape != like.shape or t.dtype != like.dtype
-                             or t.device != like.device):
-        raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
-                         f"x is {tuple(like.shape)} {like.dtype} on {like.device}")
-
-
-def _check_vec(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if (t.shape != shape or t.dtype != dtype or t.device != device
-            or not t.is_contiguous() or t.data_ptr() % 16):
-        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                         f"{shape} {dtype} tensor on {device}, got "
-                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
-
-
-def _prepare(x, other, vectors):
+def prepare(x, other, vectors):
     """Check x (and res or y) and the (C,) or (3, C) vectors in x's dtype;
-    the library, the mode-independent launch arguments and the grid."""
-    _check_map("x", x)
+    the library, the mode-independent launch arguments and the grid (for
+    this module's kernels and ops/bn_minres8.py's modes of them)."""
+    runtime.check_map("x", x)
     if other is not None:
-        _check_map("res or y", other, like=x)
+        runtime.check_map("res or y", other, like=x)
     c = x.shape[-1]
     for name, t in vectors:
-        _check_vec(name, t, (c,) if name != "k" else (3, c), x.dtype, x.device)
+        runtime.check_vec(name, t, (c,) if name != "k" else (3, c), x.dtype,
+                          x.device)
     positions = x.numel() // c
-    grid = grid_rows(positions, c, x.dtype, _sms(x.device.index))
+    grid = grid_rows(positions, c, x.dtype, runtime.sm_count(x.device.index))
     return load_kernels(), positions, c, int(x.dtype == torch.bfloat16), grid
 
 
-def _mode(other, relu: bool) -> int:
+def kernel_mode(other, relu: bool) -> int:
     """The kernels' mode: bn_add_relu's with res (forward) or y (backward)."""
     if other is not None and not relu:
         raise ValueError("the residual add is followed by the relu")
@@ -318,40 +267,34 @@ def launch_stats(x: torch.Tensor, eps: float, group=None):
     (C,) views of one (3, C) tensor. With a group the same pass writes the
     moments (mean, E[x²]), they are averaged over the ranks, and the
     reduction kernel forms (mean, var, rstd) from the average."""
-    lib, positions, c, bf16, grid = _prepare(x, None, ())
+    lib, positions, c, bf16, grid = prepare(x, None, ())
     partial = torch.empty((2, grid, c), device=x.device, dtype=torch.float32)
     out = torch.empty((3, c), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        if group is None:
-            rc = lib.clica_bn_stats(x.data_ptr(), partial.data_ptr(),
-                                    out.data_ptr(), positions, c, bf16, grid,
-                                    float(eps), _stream(x))
-        else:
-            moments = torch.empty((2, c), device=x.device, dtype=torch.float32)
-            rc = lib.clica_bn_moments(x.data_ptr(), partial.data_ptr(),
-                                      moments.data_ptr(), positions, c, bf16,
-                                      grid, _stream(x))
-            _check_launch(lib, rc, "bn moments")
-            all_reduce_mean_(moments, group)
-            rc = lib.clica_bn_finish(moments.data_ptr(), out.data_ptr(), c,
-                                     float(eps), _stream(x))
-    _check_launch(lib, rc, "bn stats")
-    _launches["bn_stats"] += 1
+    if group is None:
+        runtime.launch(lib, "bn_stats", x.device, x.data_ptr(), partial.data_ptr(),
+                       out.data_ptr(), positions, c, bf16, grid, float(eps),
+                       count="bn_stats")
+    else:
+        moments = torch.empty((2, c), device=x.device, dtype=torch.float32)
+        runtime.launch(lib, "bn_moments", x.device, x.data_ptr(),
+                       partial.data_ptr(), moments.data_ptr(), positions, c,
+                       bf16, grid)
+        all_reduce_mean_(moments, group)
+        runtime.launch(lib, "bn_finish", x.device, moments.data_ptr(),
+                       out.data_ptr(), c, float(eps), count="bn_stats")
     return out[0], out[1], out[2]
 
 
 def launch_apply(x, a, b, res=None, relu: bool = True) -> torch.Tensor:
     """The apply kernel: relu(x·a + b (+ res)), or x·a + b; a, b (C,) in
     x's dtype."""
-    mode = _mode(res, relu)
-    lib, positions, c, bf16, grid = _prepare(x, res, (("a", a), ("b", b)))
+    mode = kernel_mode(res, relu)
+    lib, positions, c, bf16, grid = prepare(x, res, (("a", a), ("b", b)))
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_bn_apply(x.data_ptr(), (x if res is None else res).data_ptr(),
-                                a.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                positions, c, bf16, mode, grid, _stream(x))
-    _check_launch(lib, rc, "bn apply")
-    _launches["bn_apply"] += 1
+    runtime.launch(lib, "bn_apply", x.device, x.data_ptr(),
+                   (x if res is None else res).data_ptr(), a.data_ptr(),
+                   b.data_ptr(), y.data_ptr(), positions, c, bf16, mode, grid,
+                   count="bn_apply")
     return y
 
 
@@ -361,25 +304,21 @@ def launch_bwd(x, dy, a, b, y=None, relu: bool = True, dy_res=None):
     g is written too (the residual's gradient, and dx's input), else None;
     dy_res, bn_add_relu's only, is dy's second addend (a block junction's,
     counted in ``bn_junctions``)."""
-    mode = _mode(y, relu)
-    lib, positions, c, bf16, grid = _prepare(x, y, (("a", a), ("b", b)))
-    _check_map("dy", dy, like=x)
+    mode = kernel_mode(y, relu)
+    lib, positions, c, bf16, grid = prepare(x, y, (("a", a), ("b", b)))
+    runtime.check_map("dy", dy, like=x)
     if dy_res is not None:
-        _check_map("dy_res", dy_res, like=x)
+        runtime.check_map("dy_res", dy_res, like=x)
     partial = torch.empty((2, grid, c), device=x.device, dtype=torch.float32)
     sums = torch.empty((2, c), device=x.device, dtype=torch.float32)
     g = torch.empty_like(x) if y is not None else None
-    with torch.cuda.device(x.device):
-        rc = lib.clica_bn_bwd(x.data_ptr(), dy.data_ptr(),
-                              None if dy_res is None else dy_res.data_ptr(),
-                              (x if y is None else y).data_ptr(),
-                              a.data_ptr(), b.data_ptr(), partial.data_ptr(),
-                              sums.data_ptr(), None if g is None else g.data_ptr(),
-                              positions, c, bf16, mode, grid, _stream(x))
-    _check_launch(lib, rc, "bn bwd")
-    _launches["bn_bwd"] += 1
+    runtime.launch(lib, "bn_bwd", x.device, x.data_ptr(), dy.data_ptr(),
+                   runtime.ptr(dy_res), (x if y is None else y).data_ptr(),
+                   a.data_ptr(), b.data_ptr(), partial.data_ptr(),
+                   sums.data_ptr(), runtime.ptr(g), positions, c, bf16, mode,
+                   grid, count="bn_bwd")
     if dy_res is not None:
-        _launches["bn_junctions"] += 1
+        runtime.add_launch_counts({"bn_junctions": 1})
     return sums[0], sums[1], g
 
 
@@ -387,17 +326,14 @@ def launch_dx(x, dy, k, a, b, relu: bool = True):
     """The dx kernel: dx = A·g − B·x + C with k = (A, B, C) (3, C) in x's
     dtype, g = dy·1[x·a + b > 0], or dy without the relu (bn_only, and
     bn_add_relu on the g its sums wrote)."""
-    lib, positions, c, bf16, grid = _prepare(x, None, (("a", a), ("b", b),
-                                                       ("k", k)))
-    _check_map("dy", dy, like=x)
+    lib, positions, c, bf16, grid = prepare(x, None, (("a", a), ("b", b),
+                                                      ("k", k)))
+    runtime.check_map("dy", dy, like=x)
     dx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_bn_dx(x.data_ptr(), dy.data_ptr(), a.data_ptr(),
-                             b.data_ptr(), k.data_ptr(), dx.data_ptr(),
-                             positions, c, bf16, _mode(None, relu), grid,
-                             _stream(x))
-    _check_launch(lib, rc, "bn dx")
-    _launches["bn_dx"] += 1
+    runtime.launch(lib, "bn_dx", x.device, x.data_ptr(), dy.data_ptr(),
+                   a.data_ptr(), b.data_ptr(), k.data_ptr(), dx.data_ptr(),
+                   positions, c, bf16, kernel_mode(None, relu), grid,
+                   count="bn_dx")
     return dx
 
 
@@ -406,9 +342,9 @@ def launch_dx(x, dy, k, a, b, relu: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def _dense(dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def dense(dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """dy in ``dtype`` (x's) and dense memory; a copy, where one is needed,
-    is counted."""
+    is counted (``dy_copies``)."""
     dy = dy.to(dtype)
     if not dy.is_contiguous():
         _copies["dy"] += 1
@@ -449,9 +385,9 @@ class _MinResBN(torch.autograd.Function):
         if dy is None:  # only y_res was used
             dy, dy_res = dy_res, None
         a, b = affine(scale, bias, mean, rstd, x.dtype)
-        dy = _dense(dy, x.dtype)
+        dy = dense(dy, x.dtype)
         if dy_res is not None:
-            dy_res = _dense(dy_res, x.dtype)
+            dy_res = dense(dy_res, x.dtype)
         sums = launch_bwd if ctx.use_kernels else bn_bwd_reference
         sum_g, sum_gx, g = sums(x, dy, a, b, y, ctx.relu, dy_res)
         # dscale and dbias are this rank's (the ranks' gradients are

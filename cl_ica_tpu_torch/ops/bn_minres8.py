@@ -49,19 +49,18 @@ from typing import Optional
 
 import torch
 
+from . import runtime
 from .bn_minres import (
-    _check_vec,
-    _dense,
-    _dims,
-    _mode,
-    _pre,
-    _prepare,
     affine,
     channel_stats,
+    dense,
+    kernel_mode,
     launch_stats,
+    position_dims,
+    pre_activation,
+    prepare,
 )
 from .collectives import all_reduce_sum_, world_of
-from .infonce import _check_launch, _launches, _stream
 
 QDTYPE = torch.float8_e4m3fn
 # |xhat| past this is NaN in the JAX package's conversion: the midpoint of
@@ -92,7 +91,7 @@ def apply8_reference(x, a, b, mean, rstd, res: Optional[torch.Tensor] = None,
                      relu: bool = True):
     """The plain version of the apply kernel's float8 mode: (y, xq), y as
     ops/bn_minres.py ``bn_apply_reference`` makes it."""
-    z = _pre(x, a, b, res)
+    z = pre_activation(x, a, b, res)
     return (torch.relu(z) if relu else z), quantize_reference(x, mean, rstd)
 
 
@@ -101,7 +100,7 @@ def _masked8(xh, dy, s, t, res, relu):
     itself without the relu."""
     if not relu:
         return dy
-    z = _pre(xh, s, t, res)
+    z = pre_activation(xh, s, t, res)
     return torch.where(z > 0, dy, torch.zeros((), dtype=dy.dtype, device=dy.device))
 
 
@@ -112,8 +111,8 @@ def bwd8_reference(xq, dy, s, t, res: Optional[torch.Tensor] = None,
     dy's dtype."""
     xh = xq.to(dy.dtype)
     g = _masked8(xh, dy, s, t, res, relu)
-    return (g.sum(dim=_dims(g), dtype=torch.float32),
-            (g * xh).sum(dim=_dims(g), dtype=torch.float32))
+    return (g.sum(dim=position_dims(g), dtype=torch.float32),
+            (g * xh).sum(dim=position_dims(g), dtype=torch.float32))
 
 
 def dx8_factors(scale, rstd, sum_g, sum_gxh, count: int, dtype: torch.dtype):
@@ -151,38 +150,32 @@ def _check_xq(xq, like) -> None:
 def launch_apply8(x, a, b, mean, rstd, res=None, relu: bool = True):
     """The apply kernel's float8 mode: (y, xq), y = relu(x·a + b (+ res)) or
     x·a + b; a, b (C,) in x's dtype, mean, rstd (C,) float32."""
-    mode = _mode(res, relu)
-    lib, positions, c, bf16, grid = _prepare(x, res, (("a", a), ("b", b)))
+    mode = kernel_mode(res, relu)
+    lib, positions, c, bf16, grid = prepare(x, res, (("a", a), ("b", b)))
     for name, v in (("mean", mean), ("rstd", rstd)):
-        _check_vec(name, v, (c,), torch.float32, x.device)
+        runtime.check_vec(name, v, (c,), torch.float32, x.device)
     y = torch.empty_like(x)
     xq = torch.empty(x.shape, device=x.device, dtype=QDTYPE)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_bn_apply8(x.data_ptr(), (x if res is None else res).data_ptr(),
-                                 a.data_ptr(), b.data_ptr(), mean.data_ptr(),
-                                 rstd.data_ptr(), y.data_ptr(), xq.data_ptr(),
-                                 positions, c, bf16, mode, grid, _stream(x))
-    _check_launch(lib, rc, "bn apply8")
-    _launches["bn_apply8"] += 1
+    runtime.launch(lib, "bn_apply8", x.device, x.data_ptr(),
+                   (x if res is None else res).data_ptr(), a.data_ptr(),
+                   b.data_ptr(), mean.data_ptr(), rstd.data_ptr(), y.data_ptr(),
+                   xq.data_ptr(), positions, c, bf16, mode, grid,
+                   count="bn_apply8")
     return y, xq
 
 
 def launch_bwd8(xq, dy, s, t, res=None, relu: bool = True):
     """The backward sums kernel's float8 mode and its reduction: (Σg, Σg·xh),
     float32 (C,) views of one (2, C) tensor; s, t (C,) in dy's dtype."""
-    mode = _mode(res, relu)
-    lib, positions, c, bf16, grid = _prepare(dy, res, (("s", s), ("t", t)))
+    mode = kernel_mode(res, relu)
+    lib, positions, c, bf16, grid = prepare(dy, res, (("s", s), ("t", t)))
     _check_xq(xq, dy)
     partial = torch.empty((2, grid, c), device=dy.device, dtype=torch.float32)
     sums = torch.empty((2, c), device=dy.device, dtype=torch.float32)
-    with torch.cuda.device(dy.device):
-        rc = lib.clica_bn_bwd8(xq.data_ptr(), dy.data_ptr(),
-                               (dy if res is None else res).data_ptr(),
-                               s.data_ptr(), t.data_ptr(), partial.data_ptr(),
-                               sums.data_ptr(), positions, c, bf16, mode, grid,
-                               _stream(dy))
-    _check_launch(lib, rc, "bn bwd8")
-    _launches["bn_bwd8"] += 1
+    runtime.launch(lib, "bn_bwd8", dy.device, xq.data_ptr(), dy.data_ptr(),
+                   (dy if res is None else res).data_ptr(), s.data_ptr(),
+                   t.data_ptr(), partial.data_ptr(), sums.data_ptr(), positions,
+                   c, bf16, mode, grid, count="bn_bwd8")
     return sums[0], sums[1]
 
 
@@ -190,20 +183,17 @@ def launch_dx8(xq, dy, k, s, t, res=None, relu: bool = True):
     """The dx kernel's float8 mode: (dx, g), dx = A·g − B·xh + (−C) with
     k = (A, B, −C) (3, C) in dy's dtype; given res, g is written too (the
     residual's gradient), else None."""
-    mode = _mode(res, relu)
-    lib, positions, c, bf16, grid = _prepare(dy, res, (("s", s), ("t", t),
-                                                       ("k", k)))
+    mode = kernel_mode(res, relu)
+    lib, positions, c, bf16, grid = prepare(dy, res, (("s", s), ("t", t),
+                                                      ("k", k)))
     _check_xq(xq, dy)
     dx = torch.empty_like(dy)
     g = torch.empty_like(dy) if res is not None else None
-    with torch.cuda.device(dy.device):
-        rc = lib.clica_bn_dx8(xq.data_ptr(), dy.data_ptr(),
-                              (dy if res is None else res).data_ptr(),
-                              s.data_ptr(), t.data_ptr(), k.data_ptr(),
-                              dx.data_ptr(), (dx if g is None else g).data_ptr(),
-                              positions, c, bf16, mode, grid, _stream(dy))
-    _check_launch(lib, rc, "bn dx8")
-    _launches["bn_dx8"] += 1
+    runtime.launch(lib, "bn_dx8", dy.device, xq.data_ptr(), dy.data_ptr(),
+                   (dy if res is None else res).data_ptr(), s.data_ptr(),
+                   t.data_ptr(), k.data_ptr(), dx.data_ptr(),
+                   (dx if g is None else g).data_ptr(), positions, c, bf16,
+                   mode, grid, count="bn_dx8")
     return dx, g
 
 
@@ -233,7 +223,7 @@ class _MinRes8BN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _d_mean, _d_var):
         xq, res, scale, bias, rstd = ctx.saved_tensors
-        dy = _dense(dy, ctx.dtype)
+        dy = dense(dy, ctx.dtype)
         s, t = scale.to(ctx.dtype), bias.to(ctx.dtype)
         sums = launch_bwd8 if ctx.use_kernels else bwd8_reference
         sum_g, sum_gxh = sums(xq, dy, s, t, res, ctx.relu)

@@ -8,8 +8,9 @@ Port of cl_ica_tpu/ops/infonce_pallas.py:194-307 (``fused_neg_lse``):
 for p ≥ 1, without the M×N matrix ever reaching device memory. The
 forward and both backward kernels are CUDA C++ in csrc/infonce_lp.cu
 (see the note there for what bounds them and how they differ from the
-TPU kernels); this module builds and binds them (ops/build.py), wraps
-them in a ``torch.autograd.Function``, and counts their launches. Where
+TPU kernels); this module binds them, wraps them in a
+``torch.autograd.Function`` and launches them through ops/runtime.py,
+which builds the library and counts the launches. Where
 the library has a tiled kernel for the arguments (it says which, through
 ``clica_neg_lse_{fwd,grad}_blocks_per_sm``), the other operand's rows go
 in chunks (``split_plan``) and the wrapper allocates the chunks' partials.
@@ -22,51 +23,15 @@ tensors it launches the kernels or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict
 
 import torch
 
-from .build import load_library
+from . import runtime
+from .runtime import FLOAT, INT, PTR
 
 LIBRARY = "infonce_lp"
 MAX_FEATURES = 64  # the kernels' template bound on n
 MIN_CHUNK = 64  # the fewest rows of the other operand a tiled gradient block takes
-
-# Launches of each kernel since the last reset; each wrapper adds one
-# where it launches its kernel, and nowhere else. fwd/dz1/dz3 are
-# fused_neg_lse's kernels (this module), dot_* are fused_dot_lse's
-# (ops/infonce_dot.py), stem_* the stem tail's (ops/stem.py), bn_* the
-# blocks' batch norm's (ops/bn_minres.py; bn_*8 its float8 modes,
-# ops/bn_minres8.py), pool_* the argmax pool's (ops/pool_minres.py);
-# bn_junctions counts the bn_bwd launches that took two upstream gradients
-# (a ResNet block's output on its two edges, ops/bn_minres.py). Under a
-# CUDA graph's capture a wrapper counts the launch it records; the
-# captured step takes that back and counts each replay's launches instead
-# (train/capture.py).
-_launches: Dict[str, int] = {"fwd": 0, "dz1": 0, "dz3": 0,
-                             "dot_fwd": 0, "dot_dz1": 0, "dot_dz3": 0,
-                             "stem_fwd": 0, "stem_bwd": 0, "stem_dx": 0,
-                             "bn_stats": 0, "bn_apply": 0, "bn_bwd": 0,
-                             "bn_dx": 0, "bn_apply8": 0, "bn_bwd8": 0,
-                             "bn_dx8": 0, "pool_code": 0, "pool_scatter": 0,
-                             "bn_junctions": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
-
-
-def add_launch_counts(counts: Dict[str, int]) -> None:
-    """Add launches made outside the wrappers' Python: a CUDA graph's
-    replay launches the kernels its capture recorded (train/capture.py)."""
-    for k, v in counts.items():
-        _launches[k] += v
 
 
 def neg_lse_reference(z1: torch.Tensor, z3: torch.Tensor, p: float,
@@ -79,50 +44,33 @@ def neg_lse_reference(z1: torch.Tensor, z3: torch.Tensor, p: float,
     return torch.logsumexp(-d / tau, dim=1)
 
 
-_F32P = ctypes.c_void_p
-_F64P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
-@functools.cache
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' library."""
-    return declare(load_library(LIBRARY))
+    return runtime.library(LIBRARY, declare)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of every entry point of a library built
     from csrc/infonce_lp.cu."""
-    lib.clica_neg_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _F32P, _F64P, _I,
-                                      _I, _I, _I, _I, _F, _F, ctypes.c_void_p]
-    lib.clica_neg_lse_fwd.restype = _I
+    lib.clica_neg_lse_fwd.argtypes = [PTR] * 5 + [INT] * 5 + [FLOAT, FLOAT, PTR]
+    lib.clica_neg_lse_fwd.restype = INT
     lib.clica_neg_lse_fwd_block_rows.argtypes = []
-    lib.clica_neg_lse_fwd_block_rows.restype = _I
-    lib.clica_neg_lse_fwd_blocks_per_sm.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    lib.clica_neg_lse_fwd_blocks_per_sm.restype = _I
+    lib.clica_neg_lse_fwd_block_rows.restype = INT
+    lib.clica_neg_lse_fwd_blocks_per_sm.argtypes = [INT, INT, ctypes.POINTER(INT)]
+    lib.clica_neg_lse_fwd_blocks_per_sm.restype = INT
     for fn in (lib.clica_neg_lse_dz1, lib.clica_neg_lse_dz3):
-        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I,
-                       _I, _I, _F, _F, ctypes.c_void_p]
-        fn.restype = _I
+        fn.argtypes = [PTR] * 6 + [INT] * 5 + [FLOAT, FLOAT, PTR]
+        fn.restype = INT
     lib.clica_neg_lse_grad_block_rows.argtypes = []
-    lib.clica_neg_lse_grad_block_rows.restype = _I
-    lib.clica_neg_lse_grad_blocks_per_sm.argtypes = [_I, _I, _I,
-                                                     ctypes.POINTER(_I)]
-    lib.clica_neg_lse_grad_blocks_per_sm.restype = _I
-    lib.clica_error_string.argtypes = [_I]
-    lib.clica_error_string.restype = ctypes.c_char_p
+    lib.clica_neg_lse_grad_block_rows.restype = INT
+    lib.clica_neg_lse_grad_blocks_per_sm.argtypes = [INT, INT, INT,
+                                                     ctypes.POINTER(INT)]
+    lib.clica_neg_lse_grad_blocks_per_sm.restype = INT
     return lib
 
 
 def _pmode(p: float) -> int:
     return 1 if p == 1.0 else 2 if p == 2.0 else 0
-
-
-def _check_launch(lib, rc: int, which: str) -> None:
-    if rc != 0:
-        msg = lib.clica_error_string(rc).decode()
-        raise RuntimeError(f"{which} kernel launch failed: {msg} ({rc})")
 
 
 def _check_operand(name: str, t: torch.Tensor, n: int | None = None) -> None:
@@ -136,10 +84,10 @@ def _check_operand(name: str, t: torch.Tensor, n: int | None = None) -> None:
         raise ValueError(f"{name} must be (rows, {n}), got {tuple(t.shape)}")
 
 
-def _check_pair(z1: torch.Tensor, z3: torch.Tensor) -> None:
-    """What every kernel here asks of its two operands: z1 (M, n) and
-    z3 (N, n), float32, contiguous, on one CUDA device, M, N ≥ 1,
-    1 ≤ n ≤ MAX_FEATURES."""
+def check_pair(z1: torch.Tensor, z3: torch.Tensor) -> None:
+    """What every loss kernel asks of its two operands (ops/infonce.py and
+    ops/infonce_dot.py): z1 (M, n) and z3 (N, n), float32, contiguous, on
+    one CUDA device, M, N ≥ 1, 1 ≤ n ≤ MAX_FEATURES."""
     if z1.ndim != 2 or not 1 <= z1.shape[1] <= MAX_FEATURES:
         raise ValueError(
             f"z1 must be (M, n) with 1 <= n <= {MAX_FEATURES}, got {tuple(z1.shape)}")
@@ -149,14 +97,6 @@ def _check_pair(z1: torch.Tensor, z3: torch.Tensor) -> None:
     _check_operand("z3", z3, z1.shape[1])
     if z3.device != z1.device:
         raise ValueError(f"z1 is on {z1.device}, z3 on {z3.device}")
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
 
 
 def split_plan(own_rows: int, other_rows: int, block_rows: int,
@@ -178,17 +118,14 @@ def split_plan(own_rows: int, other_rows: int, block_rows: int,
 def tiled_slots(lib, kernel: str, device_index: int,
                 *args) -> tuple[int, int] | None:
     """(own rows per block, blocks the card holds at once) of a library's
-    tiled kernel, asked of ``clica_<kernel>_blocks_per_sm(*args, &blocks)``
-    and ``clica_<kernel>_block_rows()``, or None where the library has no
-    tiled kernel for these arguments (the first version runs, in one
-    chunk)."""
-    per_sm = _I()
-    rc = getattr(lib, f"clica_{kernel}_blocks_per_sm")(*args, ctypes.byref(per_sm))
-    _check_launch(lib, rc, f"{kernel} occupancy")
-    if per_sm.value == 0:
+    tiled kernel (``clica_<kernel>_blocks_per_sm(*args, &blocks)``, through
+    ``runtime.resident_blocks``, and ``clica_<kernel>_block_rows()``), or
+    None where the library has no tiled kernel for these arguments (the
+    first version runs, in one chunk)."""
+    slots = runtime.resident_blocks(lib, kernel, device_index, *args)
+    if slots == 0:
         return None
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return getattr(lib, f"clica_{kernel}_block_rows")(), sms * per_sm.value
+    return getattr(lib, f"clica_{kernel}_block_rows")(), slots
 
 
 def chunks(rows: int, others: int, tiled) -> tuple[int, int]:
@@ -221,31 +158,17 @@ def lse_scratch(rows: int, others: int, tiled, device):
             torch.empty((splits, rows), device=device, dtype=torch.float64))
 
 
-@functools.cache
-def _fwd_slots(device_index: int, n: int, pmode: int) -> tuple[int, int] | None:
-    return tiled_slots(load_kernels(), "neg_lse_fwd", device_index, n, pmode)
-
-
 def _launch_fwd(z1, z3, p: float, tau: float) -> torch.Tensor:
     lib = load_kernels()
     (m, n), nn = z1.shape, z3.shape[0]
     lse = torch.empty(m, device=z1.device, dtype=torch.float32)
-    chunk, part_m, part_s = lse_scratch(
-        m, nn, _fwd_slots(z1.device.index, n, _pmode(p)), z1.device)
-    with torch.cuda.device(z1.device):
-        rc = lib.clica_neg_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
-                                   _ptr(part_m), _ptr(part_s), chunk, m, nn, n,
-                                   _pmode(p), p, tau, _stream(z1))
-    _check_launch(lib, rc, "neg_lse fwd")
-    _launches["fwd"] += 1  # the forward kernel and its reduce kernel
+    tiled = tiled_slots(lib, "neg_lse_fwd", z1.device.index, n, _pmode(p))
+    chunk, part_m, part_s = lse_scratch(m, nn, tiled, z1.device)
+    # one count for the forward kernel and its reduce kernel
+    runtime.launch(lib, "neg_lse_fwd", z1.device, z1.data_ptr(), z3.data_ptr(),
+                   lse.data_ptr(), runtime.ptr(part_m), runtime.ptr(part_s),
+                   chunk, m, nn, n, _pmode(p), p, tau, count="fwd")
     return lse
-
-
-@functools.cache
-def _grad_slots(device_index: int, which: str, n: int,
-                pmode: int) -> tuple[int, int] | None:
-    return tiled_slots(load_kernels(), "neg_lse_grad", device_index,
-                       int(which == "dz3"), n, pmode)
 
 
 def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
@@ -253,16 +176,14 @@ def _launch_bwd(which: str, z1, z3, lse, ct, p: float, tau: float):
     (m, n), nn = z1.shape, z3.shape[0]
     rows, others = (m, nn) if which == "dz1" else (nn, m)
     out = torch.empty((rows, n), device=z1.device, dtype=torch.float32)
-    chunk, part = grad_scratch(rows, others, n,
-                               _grad_slots(z1.device.index, which, n, _pmode(p)),
-                               z1.device)
-    fn = lib.clica_neg_lse_dz1 if which == "dz1" else lib.clica_neg_lse_dz3
-    with torch.cuda.device(z1.device):
-        rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
-                out.data_ptr(), _ptr(part), chunk, m, nn, n, _pmode(p), p, tau,
-                _stream(z1))
-    _check_launch(lib, rc, f"neg_lse {which}")
-    _launches[which] += 1  # the gradient kernel and its reduce kernel
+    tiled = tiled_slots(lib, "neg_lse_grad", z1.device.index,
+                        int(which == "dz3"), n, _pmode(p))
+    chunk, part = grad_scratch(rows, others, n, tiled, z1.device)
+    # one count for the gradient kernel and its reduce kernel
+    runtime.launch(lib, f"neg_lse_{which}", z1.device, z1.data_ptr(),
+                   z3.data_ptr(), lse.data_ptr(), ct.data_ptr(), out.data_ptr(),
+                   runtime.ptr(part), chunk, m, nn, n, _pmode(p), p, tau,
+                   count=which)
     return out
 
 
@@ -302,5 +223,5 @@ def fused_neg_lse(z1: torch.Tensor, z3: torch.Tensor, p: float,
         return neg_lse_reference(z1, z3, p, tau)
     if p < 1.0:
         raise ValueError(f"the fused kernel takes p >= 1, got p={p}")
-    _check_pair(z1, z3)
+    check_pair(z1, z3)
     return _FusedNegLse.apply(z1, z3, p, tau)

@@ -9,9 +9,10 @@ without the M×N matrix of logits ever reaching device memory. The forward
 and both backward kernels are CUDA C++ in csrc/infonce_dot.cu (see the
 note there for what bounds them and how they differ from the TPU
 kernels); the three products z1 z3ᵀ, W z3 and Wᵀ z1 are computed inside
-those kernels. This module builds and binds them, wraps them in a
-``torch.autograd.Function``, and counts their launches beside
-``fused_neg_lse``'s (``ops.launch_counts``). Each kernel takes the other
+those kernels. This module binds them, wraps them in a
+``torch.autograd.Function`` and launches them through ops/runtime.py,
+which counts them beside ``fused_neg_lse``'s (``ops.launch_counts``).
+Each kernel takes the other
 operand's rows in chunks where the library has a tiled kernel for n (it
 says which, ``clica_dot_lse_{fwd,grad}_blocks_per_sm``), with the same
 plan as ``fused_neg_lse``'s (``ops.infonce.split_plan``).
@@ -24,25 +25,12 @@ tensors it launches the kernels or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from .build import load_library
-from .infonce import (
-    _F,
-    _F32P,
-    _F64P,
-    _I,
-    _check_launch,
-    _check_pair,
-    _launches,
-    _ptr,
-    _stream,
-    grad_scratch,
-    lse_scratch,
-    tiled_slots,
-)
+from . import runtime
+from .infonce import check_pair, grad_scratch, lse_scratch, tiled_slots
+from .runtime import FLOAT, INT, PTR
 
 LIBRARY = "infonce_dot"
 
@@ -57,59 +45,41 @@ def dot_lse_reference(z1: torch.Tensor, z3: torch.Tensor,
     return torch.logsumexp(x, dim=1)
 
 
-@functools.cache
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' library."""
-    return declare(load_library(LIBRARY))
+    return runtime.library(LIBRARY, declare)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of every entry point of a library built
     from csrc/infonce_dot.cu."""
-    lib.clica_dot_lse_fwd.argtypes = [_F32P, _F32P, _F32P, _F32P, _F64P, _I,
-                                      _I, _I, _I, _F, ctypes.c_void_p]
-    lib.clica_dot_lse_fwd.restype = _I
+    lib.clica_dot_lse_fwd.argtypes = [PTR] * 5 + [INT] * 4 + [FLOAT, PTR]
+    lib.clica_dot_lse_fwd.restype = INT
     lib.clica_dot_lse_fwd_block_rows.argtypes = []
-    lib.clica_dot_lse_fwd_block_rows.restype = _I
-    lib.clica_dot_lse_fwd_blocks_per_sm.argtypes = [_I, ctypes.POINTER(_I)]
-    lib.clica_dot_lse_fwd_blocks_per_sm.restype = _I
+    lib.clica_dot_lse_fwd_block_rows.restype = INT
+    lib.clica_dot_lse_fwd_blocks_per_sm.argtypes = [INT, ctypes.POINTER(INT)]
+    lib.clica_dot_lse_fwd_blocks_per_sm.restype = INT
     for fn in (lib.clica_dot_lse_dz1, lib.clica_dot_lse_dz3):
-        fn.argtypes = [_F32P, _F32P, _F32P, _F32P, _F32P, _F32P, _I, _I, _I,
-                       _I, _F, ctypes.c_void_p]
-        fn.restype = _I
+        fn.argtypes = [PTR] * 6 + [INT] * 4 + [FLOAT, PTR]
+        fn.restype = INT
     lib.clica_dot_lse_grad_block_rows.argtypes = []
-    lib.clica_dot_lse_grad_block_rows.restype = _I
-    lib.clica_dot_lse_grad_blocks_per_sm.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    lib.clica_dot_lse_grad_blocks_per_sm.restype = _I
-    lib.clica_error_string.argtypes = [_I]
-    lib.clica_error_string.restype = ctypes.c_char_p
+    lib.clica_dot_lse_grad_block_rows.restype = INT
+    lib.clica_dot_lse_grad_blocks_per_sm.argtypes = [INT, INT, ctypes.POINTER(INT)]
+    lib.clica_dot_lse_grad_blocks_per_sm.restype = INT
     return lib
-
-
-@functools.cache
-def _fwd_slots(device_index: int, n: int) -> tuple[int, int] | None:
-    return tiled_slots(load_kernels(), "dot_lse_fwd", device_index, n)
 
 
 def _launch_fwd(z1, z3, tau: float) -> torch.Tensor:
     lib = load_kernels()
     (m, n), nn = z1.shape, z3.shape[0]
     lse = torch.empty(m, device=z1.device, dtype=torch.float32)
-    chunk, part_m, part_s = lse_scratch(m, nn, _fwd_slots(z1.device.index, n),
-                                        z1.device)
-    with torch.cuda.device(z1.device):
-        rc = lib.clica_dot_lse_fwd(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(),
-                                   _ptr(part_m), _ptr(part_s), chunk, m, nn, n,
-                                   tau, _stream(z1))
-    _check_launch(lib, rc, "dot_lse fwd")
-    _launches["dot_fwd"] += 1  # the forward kernel and its reduce kernel
+    tiled = tiled_slots(lib, "dot_lse_fwd", z1.device.index, n)
+    chunk, part_m, part_s = lse_scratch(m, nn, tiled, z1.device)
+    # one count for the forward kernel and its reduce kernel
+    runtime.launch(lib, "dot_lse_fwd", z1.device, z1.data_ptr(), z3.data_ptr(),
+                   lse.data_ptr(), runtime.ptr(part_m), runtime.ptr(part_s),
+                   chunk, m, nn, n, tau, count="dot_fwd")
     return lse
-
-
-@functools.cache
-def _grad_slots(device_index: int, which: str, n: int) -> tuple[int, int] | None:
-    return tiled_slots(load_kernels(), "dot_lse_grad", device_index,
-                       int(which == "dz3"), n)
 
 
 def _launch_bwd(which: str, z1, z3, lse, ct, tau: float) -> torch.Tensor:
@@ -117,14 +87,13 @@ def _launch_bwd(which: str, z1, z3, lse, ct, tau: float) -> torch.Tensor:
     (m, n), nn = z1.shape, z3.shape[0]
     rows, others = (m, nn) if which == "dz1" else (nn, m)
     out = torch.empty((rows, n), device=z1.device, dtype=torch.float32)
-    chunk, part = grad_scratch(rows, others, n,
-                               _grad_slots(z1.device.index, which, n), z1.device)
-    fn = lib.clica_dot_lse_dz1 if which == "dz1" else lib.clica_dot_lse_dz3
-    with torch.cuda.device(z1.device):
-        rc = fn(z1.data_ptr(), z3.data_ptr(), lse.data_ptr(), ct.data_ptr(),
-                out.data_ptr(), _ptr(part), chunk, m, nn, n, tau, _stream(z1))
-    _check_launch(lib, rc, f"dot_lse {which}")
-    _launches[f"dot_{which}"] += 1  # the gradient kernel and its reduce kernel
+    tiled = tiled_slots(lib, "dot_lse_grad", z1.device.index,
+                        int(which == "dz3"), n)
+    chunk, part = grad_scratch(rows, others, n, tiled, z1.device)
+    # one count for the gradient kernel and its reduce kernel
+    runtime.launch(lib, f"dot_lse_{which}", z1.device, z1.data_ptr(),
+                   z3.data_ptr(), lse.data_ptr(), ct.data_ptr(), out.data_ptr(),
+                   runtime.ptr(part), chunk, m, nn, n, tau, count=f"dot_{which}")
     return out
 
 
@@ -165,5 +134,5 @@ def fused_dot_lse(z1: torch.Tensor, z3: torch.Tensor,
         return dot_lse_reference(z1, z3, tau)
     if not tau > 0.0:
         raise ValueError(f"tau must be positive, got {tau}")
-    _check_pair(z1, z3)
+    check_pair(z1, z3)
     return _FusedDotLse.apply(z1, z3, tau)

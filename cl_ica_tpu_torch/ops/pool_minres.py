@@ -41,13 +41,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import runtime
 from .bn_minres import (
-    _dense,
     affine,
     bn_apply_reference,
     bn_bwd_reference,
     bn_dx_reference,
     channel_stats,
+    dense,
     dx_factors,
     launch_bwd,
     launch_dx,
@@ -55,15 +56,11 @@ from .bn_minres import (
     param_grads,
 )
 from .collectives import all_reduce_sum_, world_of
-from .infonce import _check_launch, _launches, _stream
 from .stem import (
     TilePlan,
-    _check_map,
-    _check_shape,
-    _check_vec,
-    _pool_views,
-    _slots,
+    check_shape,
     load_kernels,
+    pool_views,
     tile_geometry,
     tile_plan,
 )
@@ -82,7 +79,7 @@ def pool_code_reference(x, a, b):
     (in x's dtype, as ``bn_apply_reference``) over the row-major window
     views, the padding −inf (the JAX ``_pool_fwd_core``)."""
     z = bn_apply_reference(x, a, b, None, True)
-    views = _pool_views(F.pad(z, (0, 0, 1, 1, 1, 1), value=float("-inf")))
+    views = pool_views(F.pad(z, (0, 0, 1, 1, 1, 1), value=float("-inf")))
     m = views[0].clone()
     code = torch.zeros(m.shape, dtype=torch.uint8, device=x.device)
     for k in range(1, 9):
@@ -134,31 +131,28 @@ def pool_code_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
 def launch_pool_code(x, a, b):
     """The code kernel on dense NHWC x; a, b (C,) in x's dtype: (pooled,
     code)."""
-    _check_map("x", x)
-    _check_shape(x)
+    runtime.check_map("x", x)
+    check_shape(x)
     n, h, w, c = x.shape
-    _check_vec("a", a, c, x.dtype, x.device)
-    _check_vec("b", b, c, x.dtype, x.device)
+    runtime.check_vec("a", a, (c,), x.dtype, x.device)
+    runtime.check_vec("b", b, (c,), x.dtype, x.device)
     lib = load_kernels()
     bf16 = int(x.dtype == torch.bfloat16)
     cv, _, ws, _ = tile_geometry(w, c, x.dtype)
-    plan = pool_code_plan(n, h, w, c, x.dtype,
-                          _slots(x.device.index, "pool_code", cv, ws, bf16))
+    plan = pool_code_plan(n, h, w, c, x.dtype, runtime.resident_blocks(
+        lib, "pool_code", x.device.index, cv, ws, bf16))
     out = torch.empty((n, h // 2, w // 2, c), device=x.device, dtype=x.dtype)
     code = torch.empty(out.shape, device=x.device, dtype=torch.uint8)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_pool_code(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), code.data_ptr(), n, h, w, c,
-                                 bf16, *plan, _stream(x))
-    _check_launch(lib, rc, "pool code")
-    _launches["pool_code"] += 1
+    runtime.launch(lib, "pool_code", x.device, x.data_ptr(), a.data_ptr(),
+                   b.data_ptr(), out.data_ptr(), code.data_ptr(), n, h, w, c,
+                   bf16, *plan, count="pool_code")
     return out, code
 
 
 def launch_pool_scatter(dp, code, h: int, w: int):
     """The scatter kernel: dz (N, h, w, C) in dp's dtype from the dense
     pooled gradient dp and the codes (N, h/2, w/2, C)."""
-    _check_map("dp", dp)
+    runtime.check_map("dp", dp)
     n, ho, wo, c = dp.shape
     if (h, w) != (2 * ho, 2 * wo):
         raise ValueError(f"dp {tuple(dp.shape)} is not the pooled map of {h}x{w}")
@@ -169,14 +163,10 @@ def launch_pool_scatter(dp, code, h: int, w: int):
                          f"{tuple(dp.shape)} uint8 tensor on {dp.device}, got "
                          f"{tuple(code.shape)} {code.dtype} on {code.device}")
     dz = torch.empty((n, h, w, c), device=dp.device, dtype=dp.dtype)
-    _check_shape(dz)
-    lib = load_kernels()
-    with torch.cuda.device(dp.device):
-        rc = lib.clica_pool_scatter(dp.data_ptr(), code.data_ptr(), dz.data_ptr(),
-                                    n, h, w, c, int(dp.dtype == torch.bfloat16),
-                                    _stream(dp))
-    _check_launch(lib, rc, "pool scatter")
-    _launches["pool_scatter"] += 1
+    check_shape(dz)
+    runtime.launch(load_kernels(), "pool_scatter", dp.device, dp.data_ptr(),
+                   code.data_ptr(), dz.data_ptr(), n, h, w, c,
+                   int(dp.dtype == torch.bfloat16), count="pool_scatter")
     return dz
 
 
@@ -187,12 +177,12 @@ def launch_pool_scatter(dp, code, h: int, w: int):
 
 def takes(x: torch.Tensor) -> bool:
     """Whether the kernels take x (N, H, W, C): float32 or bfloat16, and the
-    shapes ``stem._check_shape`` admits (H and W even, C a multiple of the
+    shapes ``stem.check_shape`` admits (H and W even, C a multiple of the
     16-byte vector, at most 256 vectors)."""
-    if x.ndim != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+    if x.ndim != 4 or x.dtype not in runtime.DTYPES:
         return False
     try:
-        _check_shape(x)
+        check_shape(x)
     except ValueError:
         return False
     return True
@@ -218,7 +208,7 @@ class _BnReluPoolCode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dp, _d_mean, _d_var):
         x, code, scale, bias, mean, rstd = ctx.saved_tensors
-        dp = _dense(dp, x.dtype)
+        dp = dense(dp, x.dtype)
         scatter = launch_pool_scatter if ctx.use_kernels else pool_scatter_reference
         dz = scatter(dp, code, x.shape[1], x.shape[2])
         a, b = affine(scale, bias, mean, rstd, x.dtype)

@@ -20,9 +20,9 @@ one pass over x and dy, where the JAX package leaves one fused XLA pass).
 As in the JAX package, the batch statistics and the parameter gradients
 stay plain tensor operations around them. This module builds and binds
 the kernels, plans the backward's persistent grid (``bwd_plan``), wraps
-them in a ``torch.autograd.Function``, and counts their launches beside
-the InfoNCE kernels' (``ops.launch_counts``: ``stem_fwd``, ``stem_bwd``,
-``stem_dx``).
+them in a ``torch.autograd.Function``, and launches them through
+ops/runtime.py, which counts them (``ops.launch_counts``: ``stem_fwd``,
+``stem_bwd``, ``stem_dx``).
 
 Layout: (N, H, W, C), dense, as in the JAX package. H and W even; C a
 multiple of the kernels' 16-byte vector (4 float32, 8 bfloat16 values),
@@ -46,31 +46,19 @@ it dense.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .build import load_library
+from . import runtime
 from .collectives import all_reduce_mean_, all_reduce_sum_, world_of
-from .infonce import _check_launch, _launches, _stream
+from .runtime import INT, LONG, PTR, vector_width
 
 THREADS = 256  # a backward block's threads: (ws + 1) * cv of them compute
 MAX_SLICE = 16  # the most channel vectors a backward block takes
 
 LIBRARY = "stem_pool"
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def vector_width(dtype: torch.dtype) -> int:
-    """Channels per 16-byte vector of the kernels."""
-    return 8 if dtype == torch.bfloat16 else 4
-
 
 # ---------------------------------------------------------------------------
 # the plain versions
@@ -84,7 +72,7 @@ def _affine(x, a, b):
     return y.add_(b.float())
 
 
-def _pool_views(zp):
+def pool_views(zp):
     """Nine shifted (N, Ho, Wo, C) views of a padded (N, H+2, W+2, C) map
     in row-major (dh, dw) window order, which defines the tie-break."""
     h, w = zp.shape[1] - 2, zp.shape[2] - 2
@@ -107,7 +95,7 @@ def stem_fwd_reference(x: torch.Tensor, a: torch.Tensor,
     the maximum of the nine window views over zero padding (exact, since
     the values are ≥ 0), written in x's dtype."""
     z = _affine(x, a, b).clamp_(min=0)
-    views = _pool_views(F.pad(z, (0, 0, 1, 1, 1, 1)))
+    views = pool_views(F.pad(z, (0, 0, 1, 1, 1, 1)))
     m = views[0].clone()
     for v in views[1:]:
         torch.maximum(m, v, out=m)
@@ -132,7 +120,7 @@ def stem_bwd_reference(x, g, a, b, mean, rstd
     n, h, w, c = x.shape
     y = _affine(x, a, b)
     z = y.clamp(min=0)
-    views = _pool_views(
+    views = pool_views(
         F.pad(z, (0, 0, 1, 1, 1, 1), value=torch.finfo(torch.float32).min))
     m = views[0].clone()
     arg = torch.zeros(m.shape, dtype=torch.int8, device=x.device)
@@ -179,36 +167,33 @@ def stem_dx_reference(x, dy, k1, nk2, nk3, mean) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
 def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' library."""
-    return declare(load_library(LIBRARY))
+    return runtime.library(LIBRARY, declare)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of every entry point of a library built
     from csrc/stem_pool.cu."""
-    lib.clica_stem_bwd_blocks_per_sm.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
-    lib.clica_stem_bwd_blocks_per_sm.restype = _I
-    lib.clica_stem_dx_blocks_per_sm.argtypes = [_I, ctypes.POINTER(_I)]
-    lib.clica_stem_dx_blocks_per_sm.restype = _I
-    lib.clica_stem_fwd.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
-    lib.clica_stem_fwd.restype = _I
-    lib.clica_stem_bwd.argtypes = [_P] * 9 + [_LL] + [_I] * 10 + [_LL, _I, _P]
-    lib.clica_stem_bwd.restype = _I
-    lib.clica_stem_dx.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _I, _P]
-    lib.clica_stem_dx.restype = _I
+    lib.clica_stem_bwd_blocks_per_sm.argtypes = [INT, INT, INT, ctypes.POINTER(INT)]
+    lib.clica_stem_bwd_blocks_per_sm.restype = INT
+    lib.clica_stem_dx_blocks_per_sm.argtypes = [INT, ctypes.POINTER(INT)]
+    lib.clica_stem_dx_blocks_per_sm.restype = INT
+    lib.clica_stem_fwd.argtypes = [PTR, PTR, PTR, PTR, LONG, INT, INT, INT, INT, PTR]
+    lib.clica_stem_fwd.restype = INT
+    lib.clica_stem_bwd.argtypes = [PTR] * 9 + [LONG] + [INT] * 10 + [LONG, INT, PTR]
+    lib.clica_stem_bwd.restype = INT
+    lib.clica_stem_dx.argtypes = [PTR] * 7 + [LONG, INT, INT, INT, INT, INT, PTR]
+    lib.clica_stem_dx.restype = INT
     # the argmax pool's two kernels (ops/pool_minres.py)
-    lib.clica_pool_code_blocks_per_sm.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
-    lib.clica_pool_code_blocks_per_sm.restype = _I
-    lib.clica_pool_code_smem.argtypes = [_I, _I]
-    lib.clica_pool_code_smem.restype = _LL
-    lib.clica_pool_code.argtypes = [_P] * 5 + [_LL] + [_I] * 10 + [_LL, _I, _P]
-    lib.clica_pool_code.restype = _I
-    lib.clica_pool_scatter.argtypes = [_P] * 3 + [_LL, _I, _I, _I, _I, _P]
-    lib.clica_pool_scatter.restype = _I
-    lib.clica_error_string.argtypes = [_I]
-    lib.clica_error_string.restype = ctypes.c_char_p
+    lib.clica_pool_code_blocks_per_sm.argtypes = [INT, INT, INT, ctypes.POINTER(INT)]
+    lib.clica_pool_code_blocks_per_sm.restype = INT
+    lib.clica_pool_code_smem.argtypes = [INT, INT]
+    lib.clica_pool_code_smem.restype = LONG
+    lib.clica_pool_code.argtypes = [PTR] * 5 + [LONG] + [INT] * 10 + [LONG, INT, PTR]
+    lib.clica_pool_code.restype = INT
+    lib.clica_pool_scatter.argtypes = [PTR] * 3 + [LONG, INT, INT, INT, INT, PTR]
+    lib.clica_pool_scatter.restype = INT
     return lib
 
 
@@ -274,28 +259,11 @@ def bwd_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     return tile_plan(n, h, w, c, dtype, slots, lambda ks, segs: ks + 2)
 
 
-def _check_map(name: str, t: torch.Tensor, like: torch.Tensor = None) -> None:
-    """What the kernels ask of x, g: a dense (N, H, W, C) CUDA tensor."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in _DTYPES:
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-    if t.ndim != 4:
-        raise ValueError(f"{name} must be (N, H, W, C), got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(
-            f"{name} must be dense (N, H, W, C) memory, got strides "
-            f"{t.stride()} for shape {tuple(t.shape)}; the wrapper does not "
-            "copy it (for a channels_last NCHW tensor pass "
-            "t.permute(0, 2, 3, 1))")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-    if like is not None and (t.dtype != like.dtype or t.device != like.device):
-        raise ValueError(f"{name} is {t.dtype} on {t.device}, x is "
-                         f"{like.dtype} on {like.device}")
-
-
-def _check_shape(x: torch.Tensor) -> None:
+def check_shape(x: torch.Tensor) -> None:
+    """What the stem kernels ask of x's shape: (N, H, W, C), H and W even,
+    C at most 256 vectors."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
     n, h, w, c = x.shape
     if h % 2 or w % 2:
         raise ValueError(
@@ -308,104 +276,67 @@ def _check_shape(x: torch.Tensor) -> None:
             f"({x.dtype}) up to {256 * vec}; got {tuple(x.shape)}")
 
 
-def _check_vec(name: str, t: torch.Tensor, c: int, dtype, device) -> None:
-    if (t.shape != (c,) or t.dtype != dtype or t.device != device
-            or not t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous ({c},) {dtype} tensor "
-                         f"on {device}, got {tuple(t.shape)} {t.dtype} on "
-                         f"{t.device}")
-
-
 def launch_stem_fwd(x, a, b) -> torch.Tensor:
     """The forward kernel on dense NHWC x; a, b (C,) in x's dtype."""
-    _check_map("x", x)
-    _check_shape(x)
+    runtime.check_map("x", x)
+    check_shape(x)
     n, h, w, c = x.shape
-    _check_vec("a", a, c, x.dtype, x.device)
-    _check_vec("b", b, c, x.dtype, x.device)
-    lib = load_kernels()
+    runtime.check_vec("a", a, (c,), x.dtype, x.device)
+    runtime.check_vec("b", b, (c,), x.dtype, x.device)
     out = torch.empty((n, h // 2, w // 2, c), device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_stem_fwd(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                                out.data_ptr(), n, h, w, c,
-                                int(x.dtype == torch.bfloat16), _stream(x))
-    _check_launch(lib, rc, "stem fwd")
-    _launches["stem_fwd"] += 1
+    runtime.launch(load_kernels(), "stem_fwd", x.device, x.data_ptr(),
+                   a.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c,
+                   int(x.dtype == torch.bfloat16), count="stem_fwd")
     return out
-
-
-@functools.cache
-def _slots(device_index: int, kernel: str, *args: int) -> int:
-    """Blocks of one kernel that the card holds at once: "stem_bwd" and
-    "pool_code" for a slice and strip (args cv, ws, bf16), "stem_dx" (args
-    bf16)."""
-    lib = load_kernels()
-    per_sm = _I()
-    rc = getattr(lib, f"clica_{kernel}_blocks_per_sm")(
-        *args, ctypes.byref(per_sm))
-    _check_launch(lib, rc, f"{kernel} occupancy")
-    if per_sm.value < 1:
-        raise RuntimeError(f"{kernel}: no block fits an SM at {args}")
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return sms * per_sm.value
 
 
 def launch_stem_bwd(x, g, a, b, mean, rstd):
     """The backward kernel (and the reduction of its partial sums):
     (dy in g's dtype, Σdy, Σdy·x̂)."""
-    _check_map("x", x)
-    _check_shape(x)
+    runtime.check_map("x", x)
+    check_shape(x)
     n, h, w, c = x.shape
-    _check_map("g", g, like=x)
-    if g.shape != (n, h // 2, w // 2, c):
-        raise ValueError(f"g must be {(n, h // 2, w // 2, c)}, got {tuple(g.shape)}")
-    _check_vec("a", a, c, x.dtype, x.device)
-    _check_vec("b", b, c, x.dtype, x.device)
-    _check_vec("mean", mean, c, torch.float32, x.device)
-    _check_vec("rstd", rstd, c, torch.float32, x.device)
+    runtime.check_map("g", g, like=x, shape=(n, h // 2, w // 2, c))
+    runtime.check_vec("a", a, (c,), x.dtype, x.device)
+    runtime.check_vec("b", b, (c,), x.dtype, x.device)
+    runtime.check_vec("mean", mean, (c,), torch.float32, x.device)
+    runtime.check_vec("rstd", rstd, (c,), torch.float32, x.device)
     lib = load_kernels()
     bf16 = int(x.dtype == torch.bfloat16)
     cv, _, ws, _ = tile_geometry(w, c, x.dtype)
-    plan = bwd_plan(n, h, w, c, x.dtype,
-                    _slots(x.device.index, "stem_bwd", cv, ws, bf16))
+    plan = bwd_plan(n, h, w, c, x.dtype, runtime.resident_blocks(
+        lib, "stem_bwd", x.device.index, cv, ws, bf16))
     dy = torch.empty_like(x)
     partial = torch.empty((2, plan.grid, c), device=x.device, dtype=torch.float32)
     sums = torch.empty((2, c), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_stem_bwd(x.data_ptr(), g.data_ptr(), a.data_ptr(),
-                                b.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                                dy.data_ptr(), partial.data_ptr(),
-                                sums.data_ptr(), n, h, w, c, bf16, *plan,
-                                _stream(x))
-    _check_launch(lib, rc, "stem bwd")
-    _launches["stem_bwd"] += 1
+    runtime.launch(lib, "stem_bwd", x.device, x.data_ptr(), g.data_ptr(),
+                   a.data_ptr(), b.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                   dy.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, h, w,
+                   c, bf16, *plan, count="stem_bwd")
     return dy, sums[0], sums[1]
 
 
 def launch_stem_dx(x, dy, k1, nk2, nk3, mean) -> torch.Tensor:
     """The dx kernel on dense NHWC x and dy (x's dtype); k1, nk2 = −k2,
     nk3 = −k3·rstd and mean (C,) float32: dx in x's dtype."""
-    _check_map("x", x)
-    _check_shape(x)
-    _check_map("dy", dy, like=x)
-    if dy.shape != x.shape:
-        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    runtime.check_map("x", x)
+    check_shape(x)
+    runtime.check_map("dy", dy, like=x)
     n, h, w, c = x.shape
     for name, t in (("k1", k1), ("nk2", nk2), ("nk3", nk3), ("mean", mean)):
-        _check_vec(name, t, c, torch.float32, x.device)
+        runtime.check_vec(name, t, (c,), torch.float32, x.device)
     lib = load_kernels()
     bf16 = int(x.dtype == torch.bfloat16)
     # a block takes THREADS // vectors positions a pass: no more blocks than
     # the positions need, nor than the card holds at once
     per = THREADS // (c // vector_width(x.dtype))
-    grid = min(-(-n * h * w // per), _slots(x.device.index, "stem_dx", bf16))
+    grid = min(-(-n * h * w // per),
+               runtime.resident_blocks(lib, "stem_dx", x.device.index, bf16))
     dx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.clica_stem_dx(x.data_ptr(), dy.data_ptr(), k1.data_ptr(),
-                               nk2.data_ptr(), nk3.data_ptr(), mean.data_ptr(),
-                               dx.data_ptr(), n, h, w, c, bf16, grid, _stream(x))
-    _check_launch(lib, rc, "stem dx")
-    _launches["stem_dx"] += 1
+    runtime.launch(lib, "stem_dx", x.device, x.data_ptr(), dy.data_ptr(),
+                   k1.data_ptr(), nk2.data_ptr(), nk3.data_ptr(),
+                   mean.data_ptr(), dx.data_ptr(), n, h, w, c, bf16, grid,
+                   count="stem_dx")
     return dx
 
 

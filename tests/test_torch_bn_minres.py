@@ -25,6 +25,7 @@ from cl_ica_tpu_torch.models import layers
 from cl_ica_tpu_torch.models.layers import FastBatchNorm2d, MinResBN2d
 from cl_ica_tpu_torch.ops import bn_minres as bm
 from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts
+from torch_fake_card import on_fake_card
 
 torch.set_num_threads(1)
 
@@ -321,11 +322,7 @@ def _fake_card(monkeypatch, lib):
         assert t.is_contiguous(), name
         maps.append((name, t.data_ptr()))
 
-    monkeypatch.setattr(bm, "load_kernels", lambda: lib)
-    monkeypatch.setattr(bm, "_check_map", check)
-    monkeypatch.setattr(bm, "_sms", lambda index: 132)
-    monkeypatch.setattr(bm, "_stream", lambda t: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    on_fake_card(monkeypatch, lib, check_map=check)
     for fn, res, relu in (("bn_relu", False, True), ("bn_add_relu", True, True),
                           ("bn_only", False, False)):
         def kernel_route(x, *args, _res=res, _relu=relu):

@@ -27,6 +27,7 @@ from cl_ica_tpu_torch.models.layers import MinResBN2d
 from cl_ica_tpu_torch.ops import bn_minres as bm
 from cl_ica_tpu_torch.ops import bn_minres8 as b8
 from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts
+from torch_fake_card import on_fake_card
 
 torch.set_num_threads(1)
 
@@ -311,14 +312,8 @@ def test_module_hands_the_float8_residual_to_the_library(monkeypatch, act, res):
     # kernel's float8 mode writing xq, and the backward's two modes reading
     # that xq (and res), in the right modes
     lib = _FakeBnLib()
-    monkeypatch.setattr(bm, "load_kernels", lambda: lib)
-    monkeypatch.setattr(bm, "_check_map", lambda *a, **k: None)
+    on_fake_card(monkeypatch, lib)
     monkeypatch.setattr(b8, "_check_xq", lambda *a: None)
-    monkeypatch.setattr(bm, "_sms", lambda index: 132)
-    monkeypatch.setattr(bm, "_stream", lambda t: None)
-    monkeypatch.setattr(b8, "_stream", lambda t: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: __import__(
-        "contextlib").nullcontext())
     for name in ("bn_relu8", "bn_add_relu8", "bn_only8"):
         monkeypatch.setattr(layers, name, lambda *a, _n=name, **k: b8._minres8(
             a[0], a[1] if _n == "bn_add_relu8" else None,

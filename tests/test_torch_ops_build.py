@@ -6,7 +6,7 @@ nvcc is found, what keys a built library, how a failed build reports,
 and that a tensor off the CPU never takes the plain version.
 """
 
-import contextlib
+import ast
 import os
 import re
 import stat
@@ -23,8 +23,10 @@ from cl_ica_tpu_torch.ops import (
     infonce,
     infonce_dot,
     marks,
+    runtime,
     stem,
 )
+from torch_fake_card import on_fake_card
 
 torch.set_num_threads(1)
 
@@ -175,20 +177,11 @@ class _FakeLib:
         self.clica_neg_lse_grad_block_rows = self.clica_neg_lse_fwd_block_rows = lambda: 128
 
 
-def _on_fake_card(monkeypatch, module, lib) -> list:
-    """Route ``module``'s launches to ``lib`` on a card of 132 SMs (x 2
-    blocks = 264 resident blocks), with no stream or device switch, and
-    record the shape and dtype of every torch.empty from then on; the
-    record is returned."""
-    monkeypatch.setattr(module, "load_kernels", lambda: lib)
-    monkeypatch.setattr(
-        torch.cuda, "get_device_properties",
-        lambda d: type("Props", (), {"multi_processor_count": 132}))
-    for name in ("_grad_slots", "_fwd_slots"):
-        getattr(module, name).cache_clear()
-        monkeypatch.setattr(module, name, getattr(module, name).__wrapped__)
-    monkeypatch.setattr(module, "_stream", lambda t: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+def _on_fake_card(monkeypatch, lib) -> list:
+    """Route the launches to ``lib`` on the fake card of 132 SMs (x 2
+    blocks = 264 resident blocks), and record the shape and dtype of every
+    torch.empty from then on; the record is returned."""
+    on_fake_card(monkeypatch, lib)
     empty = torch.empty
     made = []
 
@@ -213,8 +206,8 @@ def test_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want
     lib = _FakeLib()
     z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
     lse = ct = torch.zeros(m, device="meta")
-    before = infonce.launch_counts()[which]
-    made = _on_fake_card(monkeypatch, infonce, lib)
+    before = runtime.launch_counts()[which]
+    made = _on_fake_card(monkeypatch, lib)
     out = infonce._launch_bwd(which, z1, z3, lse, ct, 2.0, 0.7)
     rows = m if which == "dz1" else nn
     splits, chunk = want
@@ -224,7 +217,7 @@ def test_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, want
     (args,) = lib.calls
     assert args[6:10] == (chunk, m, nn, n)
     assert (args[5] is None) == (splits == 1)
-    assert infonce.launch_counts()[which] == before + 1
+    assert runtime.launch_counts()[which] == before + 1
 
 
 class _FakeDotLib:
@@ -267,8 +260,8 @@ def test_dot_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, 
     lib = _FakeDotLib()
     z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
     lse = ct = torch.zeros(m, device="meta")
-    before = infonce.launch_counts()
-    made = _on_fake_card(monkeypatch, infonce_dot, lib)
+    before = runtime.launch_counts()
+    made = _on_fake_card(monkeypatch, lib)
     out = infonce_dot._launch_bwd(which, z1, z3, lse, ct, 0.7)
     rows, others = (m, nn) if which == "dz1" else (nn, m)
     splits, chunk = want
@@ -282,15 +275,15 @@ def test_dot_gradient_launch_takes_the_split_plan(monkeypatch, which, n, m, nn, 
     assert (args[5] is None) == (splits == 1)
     # one count for the gradient kernel and its reduce, no other counter
     before[f"dot_{which}"] += 1
-    assert infonce.launch_counts() == before
+    assert runtime.launch_counts() == before
 
 
-# loss -> (module, fake library, launch counter, forward of (z1, z3, tau),
-# the arguments after lse: part_m, part_s, chunk, M, N, n, ..., tau, stream)
+# loss -> (fake library, launch counter, forward of (z1, z3, tau), the
+# arguments after lse: part_m, part_s, chunk, M, N, n, ..., tau, stream)
 _FORWARDS = {
-    "lp": (infonce, _FakeLib, "fwd",
+    "lp": (_FakeLib, "fwd",
            lambda z1, z3, tau: infonce._launch_fwd(z1, z3, 2.0, tau)),
-    "dot": (infonce_dot, _FakeDotLib, "dot_fwd",
+    "dot": (_FakeDotLib, "dot_fwd",
             lambda z1, z3, tau: infonce_dot._launch_fwd(z1, z3, tau)),
 }
 
@@ -309,11 +302,11 @@ def test_forward_launch_takes_the_split_plan(monkeypatch, loss, n, m, nn, want):
     # chunks' partial (max, sum), float and double, only for more than one
     # chunk, passes the chunk, and counts one launch for the forward and
     # its reduce
-    module, fake, counter, forward = _FORWARDS[loss]
+    fake, counter, forward = _FORWARDS[loss]
     lib = fake()
     z1, z3 = torch.zeros(m, n, device="meta"), torch.zeros(nn, n, device="meta")
-    before = infonce.launch_counts()
-    made = _on_fake_card(monkeypatch, module, lib)
+    before = runtime.launch_counts()
+    made = _on_fake_card(monkeypatch, lib)
     lse = forward(z1, z3, 0.7)
     splits, chunk = want
     assert lse.shape == (m,)
@@ -324,7 +317,7 @@ def test_forward_launch_takes_the_split_plan(monkeypatch, loss, n, m, nn, want):
     assert (args[3] is None, args[4] is None) == (splits == 1, splits == 1)
     assert args[5:9] == (chunk, m, nn, n)
     before[counter] += 1
-    assert infonce.launch_counts() == before
+    assert runtime.launch_counts() == before
 
 
 @pytest.mark.parametrize("loss", sorted(_FORWARDS))
@@ -333,11 +326,11 @@ def test_wrappers_hand_tau_to_the_library(monkeypatch, loss, tau):
     # 1 / 1e38 is not a normal float: the library, not the wrapper, sends
     # that tau to the first versions (ROADMAP C6), so forward and both
     # gradients reach it with tau unchanged and nothing refused
-    module, fake, _, forward = _FORWARDS[loss]
+    fake, _, forward = _FORWARDS[loss]
     lib = fake()
     z1, z3 = torch.zeros(64, 10, device="meta"), torch.zeros(80, 10, device="meta")
     ct = torch.zeros(64, device="meta")
-    _on_fake_card(monkeypatch, module, lib)
+    _on_fake_card(monkeypatch, lib)
     lse = forward(z1, z3, tau)
     for which in ("dz1", "dz3"):
         if loss == "lp":
@@ -408,8 +401,9 @@ def _c_entry_points(source: str) -> dict:
 
 
 class _Declared:
-    """A stand-in library on which declare() sets argtypes and restype;
-    each entry point it is asked for is recorded."""
+    """A stand-in library on which runtime.bind (clica_error_string) and a
+    module's declare() set argtypes and restype; each entry point it is
+    asked for is recorded."""
 
     def __getattr__(self, name):
         fn = type("Entry", (), {})()
@@ -428,12 +422,31 @@ def test_declared_argtypes_match_the_c_definition(source, name):
     # ctypes passes whatever it is given: an argtypes list one short or
     # one long shifts every later argument (a pointer read as an int)
     lib = _Declared()
-    _LIBRARIES[source](lib)
+    runtime.bind(lib, _LIBRARIES[source])
     assert len(getattr(lib, name).argtypes) == _c_entry_points(source)[name]
 
 
 @pytest.mark.parametrize("source", sorted(_LIBRARIES))
 def test_every_c_entry_point_is_declared(source):
     lib = _Declared()
-    _LIBRARIES[source](lib)
+    runtime.bind(lib, _LIBRARIES[source])
     assert set(vars(lib)) == set(_c_entry_points(source))
+
+
+def _private_imports(path: Path) -> list:
+    """Every name with a leading underscore that ``path`` imports from
+    another module of its package (a relative import)."""
+    tree = ast.parse(path.read_text())
+    return [f"{path.name}: from {'.' * node.level}{node.module or ''} import {alias.name}"
+            for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.level
+            for alias in node.names if alias.name.startswith("_")]
+
+
+def test_no_ops_module_imports_another_modules_private_names():
+    # what the kernel wrappers share is a public name of ops/runtime.py or
+    # of the module that owns it, so moving a private helper breaks nothing
+    # outside its own module
+    ops_dir = build.CSRC.parent
+    assert [imp for path in sorted(ops_dir.glob("*.py"))
+            for imp in _private_imports(path)] == []

@@ -14,7 +14,6 @@ output and the running buffers bit for bit, gradients at float32's
 rounding (1e-5 of the largest, the JAX package's own test holds 3e-5).
 """
 
-import contextlib
 import functools
 
 import jax
@@ -27,9 +26,10 @@ import torch.nn.functional as F
 from cl_ica_tpu.ops import pool_minres as jax_pool
 from cl_ica_tpu_torch.models.layers import MinResBN2d, MinResBNPool
 from cl_ica_tpu_torch.ops import bn_minres as bm
-from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts
+from cl_ica_tpu_torch.ops import launch_counts, reset_launch_counts, runtime
 from cl_ica_tpu_torch.ops import pool_minres as pm
 from cl_ica_tpu_torch.ops import stem
+from torch_fake_card import on_fake_card
 
 torch.set_num_threads(1)
 
@@ -313,7 +313,7 @@ def _code_walk(plan, shape, dtype, stages=4):
     step's load before the step waits for it, and that every column a
     window reads was staged."""
     n, h, w, c = shape
-    ho, wo, cvs = h // 2, w // 2, c // stem.vector_width(dtype)
+    ho, wo, cvs = h // 2, w // 2, c // runtime.vector_width(dtype)
     count = np.zeros((n, ho, wo, cvs), np.int32)
     for sl in range(plan.slices):
         v0 = sl * plan.cv
@@ -365,10 +365,10 @@ _CODE_SHAPES = [
 def test_code_walk_writes_every_window_once(shape, dtype, slots):
     n, h, w, c = shape
     if c == "256v":
-        c = 256 * stem.vector_width(dtype)
+        c = 256 * runtime.vector_width(dtype)
     shape = (n, h, w, c)
     plan = pm.pool_code_plan(*shape, dtype, slots)
-    ho, wo, cvs = h // 2, w // 2, c // stem.vector_width(dtype)
+    ho, wo, cvs = h // 2, w // 2, c // runtime.vector_width(dtype)
     # the kernel's own constraints on a plan (clica_pool_code refuses others)
     assert plan.cv >= 1 and plan.ws >= 1 and plan.ks >= 1
     assert (plan.ws + 1) * plan.cv <= stem.THREADS and plan.cv <= stem.MAX_SLICE
@@ -493,15 +493,7 @@ def test_code_launch_takes_the_plan(monkeypatch, dtype):
     # the geometry, hands pool_code_plan whole to the kernel with the
     # shape, and counts one launch
     lib = _FakeCodeLib()
-    monkeypatch.setattr(pm, "load_kernels", lambda: lib)
-    monkeypatch.setattr(pm, "_check_map", lambda *args, **kw: None)
-    monkeypatch.setattr(pm, "_stream", lambda t: None)
-    monkeypatch.setattr(pm, "_slots", stem._slots.__wrapped__)
-    monkeypatch.setattr(stem, "load_kernels", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(
-        torch.cuda, "get_device_properties",
-        lambda d: type("Props", (), {"multi_processor_count": 132}))
+    on_fake_card(monkeypatch, lib)
     shape = (1024, 112, 112, 64)
     x = torch.zeros(shape, device="meta", dtype=dtype)
     v = torch.zeros(64, device="meta", dtype=dtype)

@@ -7,7 +7,6 @@ kernels. The kernels themselves are held against those plain versions on
 the card by chip_smoke.py.
 """
 
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +18,7 @@ import torch.nn.functional as F
 from cl_ica_tpu.ops import stem_pallas
 from cl_ica_tpu.ops.stem_pallas import bn_relu_pool_train as jax_stem
 from cl_ica_tpu_torch.models.layers import FastBatchNorm2d, StemBNReLUPool
-from cl_ica_tpu_torch.ops import launch_counts
+from cl_ica_tpu_torch.ops import launch_counts, runtime
 from cl_ica_tpu_torch.ops import stem
 from cl_ica_tpu_torch.ops.stem import (
     bn_relu_pool_reference,
@@ -31,6 +30,7 @@ from cl_ica_tpu_torch.ops.stem import (
     stem_dx_reference,
     stem_fwd_reference,
 )
+from torch_fake_card import on_fake_card
 
 torch.set_num_threads(1)
 
@@ -464,7 +464,7 @@ def _walk(plan, shape, dtype, stages=4):
     step of quad row k reads loads c and c + 1, which the producer filled
     with stages k and k + 1, at most ``stages`` loads ahead."""
     n, h, w, c = shape
-    ho, wo, cvs = h // 2, w // 2, c // stem.vector_width(dtype)
+    ho, wo, cvs = h // 2, w // 2, c // runtime.vector_width(dtype)
     count = np.zeros((n, ho, wo, cvs), np.int32)
     for sl in range(plan.slices):
         v0 = sl * plan.cv
@@ -511,7 +511,7 @@ _WALK_SHAPES = [
 @pytest.mark.parametrize("shape", _WALK_SHAPES)
 def test_bwd_walk_writes_every_quad_once(shape, dtype, slots):
     n, h, w, cvs = shape
-    shape = (n, h, w, cvs * stem.vector_width(dtype))
+    shape = (n, h, w, cvs * runtime.vector_width(dtype))
     plan = stem.bwd_plan(*shape, dtype, slots)
     ho, wo = h // 2, w // 2
     # the kernel's own constraints on a plan (clica_stem_bwd refuses others)
@@ -572,14 +572,7 @@ def test_bwd_and_dx_launches_take_the_plan(monkeypatch, dtype):
     # blocks the positions need and the blocks the card holds, and counts
     # one
     lib = _FakeStemLib()
-    monkeypatch.setattr(stem, "load_kernels", lambda: lib)
-    monkeypatch.setattr(stem, "_check_map", lambda *args, **kw: None)
-    monkeypatch.setattr(stem, "_stream", lambda t: None)
-    monkeypatch.setattr(stem, "_slots", stem._slots.__wrapped__)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(
-        torch.cuda, "get_device_properties",
-        lambda d: type("Props", (), {"multi_processor_count": 132}))
+    on_fake_card(monkeypatch, lib)
     shape = (1024, 112, 112, 64)
     x = torch.zeros(shape, device="meta", dtype=dtype)
     g = torch.zeros((1024, 56, 56, 64), device="meta", dtype=dtype)
